@@ -1,0 +1,393 @@
+"""Drive the PyTorch port's main path on one CUDA card and check its kernels.
+
+    python3 chip_smoke.py
+
+Needs one NVIDIA Hopper card (the kernels are built for sm_90a at first use
+into build/torch_ext) and the ``stylemesh_tpu_torch`` package beside this
+file. Exits nonzero, with no result line, when CUDA is unavailable or any
+phase fails. Phases:
+
+1. main path: the full-method bench workload (4096² x 4 Laplacian atlas,
+   V = 4 views, content 256x341, UV levels 256..784 px high, multi style
+   pyramid, bf16 VGG, Adam) through ``TexturePipeline.prepare_batch`` and
+   ``train_step``; every loss must be finite and every kernel's launch count
+   over the timed steps above zero;
+2. reference: a small configuration trained on the card and on the CPU
+   (plain versions), float32, losses compared;
+3. kernels: each kernel against its plain PyTorch version at the main path's
+   shapes and inputs, timed with CUDA events beside the plain version and one
+   PyTorch library call computing the same function, with its bound on an
+   H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16).
+
+The last two lines of standard output are the ``{"kernels": [...]}`` JSON
+line and the ``{"ok": true, "device": ...}`` JSON line.
+"""
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from stylemesh_tpu_torch import kernels
+from stylemesh_tpu_torch.data.synthetic import synthetic_view_batch
+from stylemesh_tpu_torch.models.pipeline import PipelineConfig, TexturePipeline
+from stylemesh_tpu_torch.models.texture import sample_texture
+from stylemesh_tpu_torch.models.vgg import init_vgg_params, vgg_features
+from stylemesh_tpu_torch.ops import gram_kernels
+from stylemesh_tpu_torch.ops import grid_sample as gs
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_FLOP_PER_S = 989e12   # dense bf16 tensor-core peak
+STEPS = 5                  # timed train steps
+REPS = 5                   # launches per kernel timing
+
+KERNELS = {
+    "K1_gather": dict(source="stylemesh_tpu_torch/kernels/csrc/sample.cu",
+                      replaces="stylemesh_tpu/ops/splat_pallas.py:486",
+                      launches_of=gs.gather_layers, rel_tol=1e-5),
+    "K2_splat": dict(source="stylemesh_tpu_torch/kernels/csrc/sample.cu",
+                     replaces="stylemesh_tpu/ops/splat_pallas.py:421",
+                     launches_of=gs.splat_layers, rel_tol=1e-4),
+    "K3_gram_fwd": dict(source="stylemesh_tpu_torch/kernels/csrc/gram.cu",
+                        replaces="stylemesh_tpu/ops/gram_pallas.py:140",
+                        launches_of=gram_kernels.masked_gram_sums,
+                        rel_tol=1e-3),
+    "K4_gram_bwd": dict(source="stylemesh_tpu_torch/kernels/csrc/gram.cu",
+                        replaces="stylemesh_tpu/ops/gram_pallas.py:208",
+                        launches_of=gram_kernels.masked_gram_sums_grad,
+                        rel_tol=1e-2),
+}
+# Tolerances, relative to the largest |value| of the plain version:
+# K1 float32, the same arithmetic but fused multiply-adds: 1e-5.
+# K2 float32 atomics sum in another order than index_add_: 1e-4.
+# K3 float32 sums over up to 819 280 pixels in another order: 1e-3.
+# K4 rounds a float32 sum to bf16: two bf16 ulps of the largest element
+#    (2 * 2^-8 ~ 1e-2).
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def bench_config(compute_dtype=torch.bfloat16, **overrides):
+    """bench.py::_bench_cfg of the JAX package, V = 4."""
+    cfg = dict(
+        steps_per_epoch=1,
+        texture_width=4096, texture_height=4096, hierarchical_layers=4,
+        use_angle_weight=True, use_depth_scaling=True,
+        content_weight=7e1, style_weight=1e-4, tex_reg_weight=5e3,
+        style_pyramid_mode="multi", angle_threshold=30.0,
+        learning_rate=1.0, decay_step_size=3,
+        compute_dtype=compute_dtype,
+        precision="default" if compute_dtype == torch.bfloat16 else "highest")
+    cfg.update(overrides)
+    return PipelineConfig(**cfg)
+
+
+def style_image(h, w):
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(
+        (rng.random((1, h, w, 3), dtype=np.float32) - 0.45) * 255.0)
+
+
+def cuda_ms(fn, reps=REPS):
+    """Mean milliseconds of ``fn`` on the card over ``reps`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def reset_counts():
+    for spec in KERNELS.values():
+        spec["launches_of"].launches = 0
+
+
+def read_counts():
+    return {name: spec["launches_of"].launches for name, spec in KERNELS.items()}
+
+
+# ---------------------------------------------------------------- phase 1
+
+
+def main_path():
+    batch = synthetic_view_batch(
+        num_views=4, content_hw=(256, 341), level_heights=(256, 432, 608, 784),
+        aspect=1280.0 / 960.0, min_depth=0.25, seed=0, depth_range=(0.4, 7.0))
+    vgg = init_vgg_params(rng=0, scale=0.05)
+    t0 = time.perf_counter()
+    pipe = TexturePipeline(bench_config(), vgg, style_image(512, 683))
+    state = pipe.init()
+    aux = pipe.prepare_batch(batch)
+    torch.cuda.synchronize()
+    log(f"[main] setup (style targets, init, prepare_batch): "
+        f"{time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    aux = pipe.prepare_batch(batch)
+    torch.cuda.synchronize()
+    prepare_ms = (time.perf_counter() - t0) * 1e3
+    losses = pipe.train_step(state, batch, aux)  # warm-up
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    history = [pipe.train_step(state, batch, aux) for _ in range(STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+
+    history = [{k: float(v) for k, v in l.items()} for l in [losses] + history]
+    for i, l in enumerate(history):
+        log(f"[main] step {i}: " + json.dumps(l))
+        if not all(math.isfinite(x) for x in l.values()):
+            raise RuntimeError(f"non-finite loss at step {i}: {l}")
+    for name, n in counts.items():
+        log(f"[main] {name}: {n} launches in {STEPS} steps")
+        if n == 0:
+            raise RuntimeError(f"{name} was not launched on the main path")
+    result = dict(step_ms=wall / STEPS * 1e3,
+                  views_per_s=STEPS * batch.num_views / wall,
+                  prepare_batch_ms=prepare_ms,
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log("[main] " + json.dumps(result))
+    profile_step(pipe, state, batch, aux, result["step_ms"])
+    return pipe, state, batch, aux, counts
+
+
+def profile_step(pipe, state, batch, aux, step_ms):
+    """Device time of one step by kernel and by PyTorch op (torch.profiler),
+    and the device busy share of the unprofiled step time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe.train_step(state, batch, aux)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    log(f"[profile] device busy {device_ms:.3f} ms of a {step_ms:.3f} ms step "
+        f"({device_ms / step_ms:.3f})")
+    ops = [e for e in events
+           if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
+    for label, rows in (("kernel", on_device), ("op", ops)):
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
+            log(f"[profile] {label} {e.self_device_time_total / 1e3:9.3f} ms "
+                f"x{e.count:<4d} {e.key[:90]}")
+
+
+# ---------------------------------------------------------------- phase 2
+
+
+def reference_check():
+    """A small float32 configuration on the card (kernels) against the same
+    on the CPU (plain versions)."""
+    runs = {}
+    for device in ("cuda", "cpu"):
+        batch = synthetic_view_batch(
+            num_views=2, content_hw=(32, 43), level_heights=(32, 48),
+            seed=0, depth_range=(0.2, 0.45), device=device)
+        cfg = bench_config(torch.float32, texture_width=64, texture_height=64,
+                           hierarchical_layers=2, style_min_size=16)
+        pipe = TexturePipeline(cfg, init_vgg_params(rng=0, he=True, device=device),
+                               style_image(64, 85), device=device)
+        state = pipe.init()
+        aux = pipe.prepare_batch(batch)
+        runs[device] = [float(pipe.train_step(state, batch, aux)["total"])
+                        for _ in range(3)]
+    for i, (a, b) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        rel = abs(a - b) / abs(b)
+        log(f"[reference] step {i}: cuda {a!r} cpu {b!r} rel {rel:.3e}")
+        # step 0 differs only by float32 summation order; later steps also
+        # by Adam's sign(g) at near-zero gradients
+        if not rel <= (1e-4 if i == 0 else 1e-3):
+            raise RuntimeError(f"reference check failed at step {i}")
+
+
+# ---------------------------------------------------------------- phase 3
+
+
+def bound_ms(bytes_moved, flops=0.0):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / BF16_FLOP_PER_S * 1e3
+    return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations")
+
+
+def check(name, got, want):
+    got = [got] if torch.is_tensor(got) else got
+    want = [want] if torch.is_tensor(want) else want
+    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+    scale = max(w.float().abs().max().item() for w in want)
+    tol = KERNELS[name]["rel_tol"] * scale
+    log(f"[kernel] {name}: max_abs_err {err:.6g} tol {tol:.6g}")
+    if not err <= tol:
+        raise RuntimeError(f"{name} disagrees with its plain version")
+    return err, tol
+
+
+def touched_texels(grid, layers):
+    total = 0
+    for layer in layers:
+        iy0, iy1, ix0, ix1, _, _ = gs._corner_indices_weights(
+            grid, layer.shape[0], layer.shape[1])
+        w = layer.shape[1]
+        idx = torch.cat([(iy * w + ix).reshape(-1) for iy, ix in
+                         ((iy0, ix0), (iy0, ix1), (iy1, ix0), (iy1, ix1))])
+        total += torch.unique(idx).numel()
+    return total
+
+
+def kernel_phase(pipe, state, batch, aux, counts):
+    rows = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                       by_bytes=0.0, by_ops=0.0, err=0.0, tol=0.0)
+            for name in KERNELS}
+
+    def add(name, where, err_tol, ms, plain_ms, library_ms, nbytes, flops=0.0):
+        """Accumulate one launch's numbers; its bound is the larger of its
+        bytes over HBM bandwidth and its flops over the bf16 peak."""
+        r = rows[name]
+        r["err"] = max(r["err"], err_tol[0])
+        r["tol"] = max(r["tol"], err_tol[1])
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["library_ms"] += library_ms
+        b_ms, b_by = bound_ms(nbytes, flops)
+        r["bound_ms"] += b_ms
+        r["by_bytes" if b_by == "bytes" else "by_ops"] += b_ms
+        log(f"[kernel] {name} {where}: {ms:.4f} ms (bound {b_ms:.4f} by {b_by}), "
+            f"plain {plain_ms:.4f}, library {library_ms:.4f}")
+
+    layers = [l.detach() for l in state.texture.layers]
+    shapes = [tuple(l.shape[:2]) for l in layers]
+    layers_cf = [l.permute(2, 0, 1)[None] for l in layers]
+    for i, grid in enumerate(batch.uv):
+        v, h, w, _ = grid.shape
+        npx = v * h * w
+        # K1: the sum over layers of the bilinear sample
+        lib_in = [l.expand(v, -1, -1, -1) for l in layers_cf]
+
+        def library_gather():
+            return sum(F.grid_sample(x, grid, mode="bilinear",
+                                     padding_mode="border", align_corners=True)
+                       for x in lib_in)
+
+        err = check("K1_gather", gs.gather_layers(layers, grid),
+                    gs.gather_layers_plain(layers, grid))
+        add("K1_gather", f"level {i}", err,
+            cuda_ms(lambda: gs.gather_layers(layers, grid)),
+            cuda_ms(lambda: gs.gather_layers_plain(layers, grid)),
+            cuda_ms(library_gather),
+            npx * (8 + 12) + 12 * touched_texels(grid, layers))
+        # K2: cotangent zero where the level's gradient weight is zero, as on
+        # the main path
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        g = torch.randn((v, h, w, 3), generator=gen, device="cuda")
+        g = (g * aux.grad_weights[i]).contiguous()
+        err = check("K2_splat", gs.splat_layers(g, grid, shapes),
+                    gs.splat_layers_plain(g, grid, shapes))
+        lib_leaf = [x.detach().requires_grad_() for x in lib_in]
+        lib_out = sum(F.grid_sample(x, grid, mode="bilinear",
+                                    padding_mode="border", align_corners=True)
+                      for x in lib_leaf)
+        g_cf = g.permute(0, 3, 1, 2)
+        add("K2_splat", f"level {i}", err,
+            cuda_ms(lambda: gs.splat_layers(g, grid, shapes)),
+            cuda_ms(lambda: gs.splat_layers_plain(g, grid, shapes)),
+            cuda_ms(lambda: torch.autograd.grad(lib_out, lib_leaf, g_cf,
+                                                retain_graph=True)),
+            npx * (12 + 8) + 12 * sum(a * b for a, b in shapes))
+
+        # K3 / K4 at the fused (level, layer) pairs
+        fused = aux.loss_aux["gram_masks"][i]
+        if not fused:
+            continue
+        with torch.no_grad():
+            pred = sample_texture(state.texture, grid)
+            encs = vgg_features(pipe.vgg_params, pred, list(fused),
+                                compute_dtype=torch.bfloat16,
+                                precision="default")
+        for k, m in fused.items():
+            f = encs[k].reshape(v, -1, encs[k].shape[-1]).contiguous()
+            _, p, c = f.shape
+            kk = m.shape[1]
+            live_px = float(m.float().sum())
+            flops = 2.0 * c * c * live_px
+            log(f"[kernel] level {i} {k}: V={v} P={p} C={c} K={kk} "
+                f"mask density {live_px / (v * kk * p):.3f}")
+            err = check("K3_gram_fwd", gram_kernels.masked_gram_sums(f, m),
+                        gram_kernels.masked_gram_sums_plain(f, m))
+            add("K3_gram_fwd", f"level {i} {k}", err,
+                cuda_ms(lambda: gram_kernels.masked_gram_sums(f, m)),
+                cuda_ms(lambda: gram_kernels.masked_gram_sums_plain(f, m)),
+                cuda_ms(lambda: torch.einsum("vkp,vpc,vpd->vkcd", m, f, f)),
+                f.numel() * 2 + m.numel() * 2 + v * kk * c * c * 4, flops)
+            gen = torch.Generator(device="cuda").manual_seed(100 + i)
+            dg = torch.randn((v, kk, c, c), generator=gen, device="cuda")
+            s = dg + dg.transpose(-1, -2)
+            s16 = s.to(torch.bfloat16)
+            err = check("K4_gram_bwd",
+                        gram_kernels.masked_gram_sums_grad(f, m, s),
+                        gram_kernels.masked_gram_sums_grad_plain(f, m, s))
+            add("K4_gram_bwd", f"level {i} {k}", err,
+                cuda_ms(lambda: gram_kernels.masked_gram_sums_grad(f, m, s)),
+                cuda_ms(lambda: gram_kernels.masked_gram_sums_grad_plain(f, m, s)),
+                cuda_ms(lambda: torch.einsum("vkp,vkcd,vpd->vpc", m, s16, f)),
+                f.numel() * 2 * 2 + m.numel() * 2 + s16.numel() * 2, flops)
+
+    out = []
+    for name, spec in KERNELS.items():
+        r = rows[name]
+        out.append(dict(
+            name=name, route="cuda", source=spec["source"],
+            replaces=spec["replaces"], launches=counts[name],
+            launches_per_step=counts[name] / STEPS,
+            max_abs_err=r["err"], tol=r["tol"], ms=r["ms"],
+            kernel_ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by="bytes" if r["by_bytes"] >= r["by_ops"] else "operations",
+            library_ms=r["library_ms"]))
+    return out
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(f"[device] {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    kernels.library()
+    log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+
+    pipe, state, batch, aux, counts = main_path()
+    reference_check()
+    rows = kernel_phase(pipe, state, batch, aux, counts)
+    for r in rows:
+        log(f"[kernel] {r['name']}: {r['ms']:.4f} ms/step (bound {r['bound_ms']:.4f} "
+            f"by {r['bound_by']}), plain {r['plain_ms']:.4f}, "
+            f"library {r['library_ms']:.4f}, {r['launches_per_step']:g} launches/step")
+    print(smi)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

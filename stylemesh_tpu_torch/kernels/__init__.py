@@ -1,0 +1,85 @@
+"""Builds and loads the hand-written Hopper kernels of ``kernels/csrc``.
+
+All sources are compiled in one call of ``torch.utils.cpp_extension.load``
+for ``sm_90a`` at first use, into ``build/torch_ext`` at the root of the
+checkout. The sources expose a plain C interface and include no PyTorch
+header (that keeps the build to seconds); they are bound with ``ctypes``:
+pointers from ``Tensor.data_ptr()``, the stream from PyTorch's current CUDA
+stream. Each C entry point returns the launch's ``cudaGetLastError()``, and
+:func:`launch` raises when it is not 0.
+
+Nothing here runs at import: the CPU tests import every module.
+"""
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
+NAME = "stylemesh_tpu_torch_kernels"
+CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+# C entry point -> argument types (every entry point returns an int status)
+_SIGNATURES = {
+    "stylemesh_gather": [_P, _P, _L, _P, _P, _P, _I, _P],
+    "stylemesh_splat": [_P, _P, _L, _P, _P, _P, _I, _P],
+    "stylemesh_gram_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "stylemesh_gram_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+_library = None
+
+
+def build():
+    """Compile every source of ``csrc`` (cached by content in BUILD_DIR) and
+    return the path of the shared library."""
+    from torch.utils.cpp_extension import load
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    load(name=NAME, sources=[str(p) for p in sorted(CSRC.glob("*.cu"))],
+         build_directory=str(BUILD_DIR), extra_cuda_cflags=CUDA_FLAGS,
+         is_python_module=False)
+    return BUILD_DIR / f"{NAME}.so"
+
+
+def library():
+    """The loaded kernel library, built at first use."""
+    global _library
+    if _library is None:
+        lib = ctypes.CDLL(str(build()))
+        for fn, argtypes in _SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _library = lib
+    return _library
+
+
+def launch(fn, device, *args):
+    """Call C entry point ``fn`` on PyTorch's current stream of ``device``;
+    raise on a launch error."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = getattr(lib, fn)(*args, stream)
+    if status != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed with error {status}")
+
+
+def require_cuda(*tensors, dtype=None):
+    """Raise unless every tensor is a contiguous CUDA tensor (of ``dtype``)
+    on one device, 16-byte aligned."""
+    device = tensors[0].device
+    for t in tensors:
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError(f"expected CUDA tensors on {device}, got {t.device}")
+        if dtype is not None and t.dtype != dtype:
+            raise TypeError(f"expected {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("expected a contiguous tensor")
+        if t.data_ptr() % 16:
+            raise ValueError("expected a 16-byte aligned tensor")

@@ -1,0 +1,168 @@
+// K1 / K2: bilinear texture gather and its scatter-add (splat) backward.
+//
+// Replaces the TPU kernels ops/splat_pallas.py::gather_pallas (_gather_kernel)
+// and ops/splat_pallas.py::splat_pallas (_splat_kernel), reached through
+// ops/grid_sample.py::grid_sample_planned_cf. The function is the one of
+// ops/grid_sample.py::grid_sample / _scatter_add_grad: torch
+// grid_sample(mode='bilinear', padding_mode='border', align_corners=True) of
+// a channel-last [H, W, 3] float32 atlas layer, summed over the Laplacian
+// layers of the texture.
+//
+// What bounds it on an H100: memory. Per pixel the gather reads 8 grid bytes,
+// 4 corners x 12 texel bytes per layer and writes 12 bytes; there are ~30 flops
+// per layer. Layer 0 of a 4096^2 atlas is 201 MB and does not fit the 50 MB
+// L2, so the design does not rely on an L2-resident atlas: one thread per
+// output pixel, the sum over all layers fused into one launch per pyramid
+// level (the grid is read once and the output written once for all layers),
+// and neighbouring threads on neighbouring pixels so that the texels a warp
+// touches lie in a few cache lines. The 12-byte texel is not a 16-byte-aligned
+// load; it is read as three scalar read-only loads.
+//
+// The splat is bound by the atomics: every pixel adds 4 corners x 3 channels
+// per layer into a zeroed float32 gradient. A pixel whose cotangent is zero
+// (masked out, or background) is skipped, which is exact, and so is a corner
+// of weight zero (the border clamp and the (-1,-1) background); this keeps
+// the many background pixels off texel (0,0). The sum is equal to the
+// sequential scatter-add only up to summation order.
+//
+// The TPU kernels' planned windows, residual lists and bf16 weight rounding
+// were devices for the TPU's matrix unit and are not carried over: this is the
+// exact float32 function.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define SM_MAX_LAYERS 8
+
+struct Layers {
+  float* ptr[SM_MAX_LAYERS];
+  int h[SM_MAX_LAYERS];
+  int w[SM_MAX_LAYERS];
+  int n;
+};
+
+struct Corners {
+  int i00, i01, i10, i11;  // flat texel indices
+  float wx, wy;            // weights of the x1 / y1 corners
+};
+
+// ops/grid_sample.py::_corner_indices_weights: pix = (g + 1) / 2 * (size - 1),
+// clamp the coordinate to [0, size - 1], floor, upper corner clamped. The
+// coordinate math uses round-to-nearest intrinsics so that no fused
+// multiply-add changes which texel the floor picks.
+__device__ __forceinline__ Corners corners(float gx, float gy, int h, int w) {
+  float px = __fmul_rn(__fmul_rn(__fadd_rn(gx, 1.0f), 0.5f), (float)(w - 1));
+  float py = __fmul_rn(__fmul_rn(__fadd_rn(gy, 1.0f), 0.5f), (float)(h - 1));
+  px = fminf(fmaxf(px, 0.0f), (float)(w - 1));
+  py = fminf(fmaxf(py, 0.0f), (float)(h - 1));
+  int ix0 = (int)floorf(px);
+  int iy0 = (int)floorf(py);
+  int ix1 = min(ix0 + 1, w - 1);
+  int iy1 = min(iy0 + 1, h - 1);
+  Corners c;
+  c.wx = __fsub_rn(px, (float)ix0);
+  c.wy = __fsub_rn(py, (float)iy0);
+  c.i00 = iy0 * w + ix0;
+  c.i01 = iy0 * w + ix1;
+  c.i10 = iy1 * w + ix0;
+  c.i11 = iy1 * w + ix1;
+  return c;
+}
+
+__global__ void __launch_bounds__(256) gather_kernel(
+    const float2* __restrict__ grid, float* __restrict__ out, long long n,
+    Layers layers) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float2 g = grid[i];
+  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+  for (int l = 0; l < layers.n; ++l) {
+    Corners c = corners(g.x, g.y, layers.h[l], layers.w[l]);
+    const float* t = layers.ptr[l];
+    float ux = 1.0f - c.wx, uy = 1.0f - c.wy;
+    float v[3];
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      float v00 = __ldg(t + 3 * c.i00 + ch);
+      float v01 = __ldg(t + 3 * c.i01 + ch);
+      float v10 = __ldg(t + 3 * c.i10 + ch);
+      float v11 = __ldg(t + 3 * c.i11 + ch);
+      float top = v00 * ux + v01 * c.wx;
+      float bot = v10 * ux + v11 * c.wx;
+      v[ch] = top * uy + bot * c.wy;
+    }
+    a0 += v[0];
+    a1 += v[1];
+    a2 += v[2];
+  }
+  out[3 * i + 0] = a0;
+  out[3 * i + 1] = a1;
+  out[3 * i + 2] = a2;
+}
+
+// adds (g * wy_c) * wx_c, the order of _scatter_add_grad's
+// g * (1 - wy) * (1 - wx); a corner of weight zero adds nothing and is skipped
+__device__ __forceinline__ void add_corner(float* t, int idx, float wy_c,
+                                           float wx_c, float g0, float g1,
+                                           float g2) {
+  if (wy_c == 0.0f || wx_c == 0.0f) return;
+  atomicAdd(t + 3 * idx + 0, (g0 * wy_c) * wx_c);
+  atomicAdd(t + 3 * idx + 1, (g1 * wy_c) * wx_c);
+  atomicAdd(t + 3 * idx + 2, (g2 * wy_c) * wx_c);
+}
+
+__global__ void __launch_bounds__(256) splat_kernel(
+    const float2* __restrict__ grid, const float* __restrict__ cot,
+    long long n, Layers grads) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float g0 = cot[3 * i + 0], g1 = cot[3 * i + 1], g2 = cot[3 * i + 2];
+  if (g0 == 0.0f && g1 == 0.0f && g2 == 0.0f) return;
+  float2 g = grid[i];
+  for (int l = 0; l < grads.n; ++l) {
+    Corners c = corners(g.x, g.y, grads.h[l], grads.w[l]);
+    float* t = grads.ptr[l];
+    float ux = 1.0f - c.wx, uy = 1.0f - c.wy;
+    add_corner(t, c.i00, uy, ux, g0, g1, g2);
+    add_corner(t, c.i01, uy, c.wx, g0, g1, g2);
+    add_corner(t, c.i10, c.wy, ux, g0, g1, g2);
+    add_corner(t, c.i11, c.wy, c.wx, g0, g1, g2);
+  }
+}
+
+static Layers make_layers(void* const* ptrs, const int* hs, const int* ws,
+                          int n_layers) {
+  Layers l;
+  l.n = n_layers;
+  for (int i = 0; i < SM_MAX_LAYERS; ++i) {
+    l.ptr[i] = i < n_layers ? (float*)ptrs[i] : nullptr;
+    l.h[i] = i < n_layers ? hs[i] : 0;
+    l.w[i] = i < n_layers ? ws[i] : 0;
+  }
+  return l;
+}
+
+extern "C" int stylemesh_gather(const void* grid, void* out, long long n_px,
+                                void* const* layer_ptrs, const int* hs,
+                                const int* ws, int n_layers, void* stream) {
+  if (n_layers < 1 || n_layers > SM_MAX_LAYERS) return (int)cudaErrorInvalidValue;
+  if (n_px == 0) return 0;
+  Layers layers = make_layers(layer_ptrs, hs, ws, n_layers);
+  unsigned blocks = (unsigned)((n_px + 255) / 256);
+  gather_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const float2*)grid, (float*)out, n_px, layers);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int stylemesh_splat(const void* grid, const void* cot,
+                               long long n_px, void* const* grad_ptrs,
+                               const int* hs, const int* ws, int n_layers,
+                               void* stream) {
+  if (n_layers < 1 || n_layers > SM_MAX_LAYERS) return (int)cudaErrorInvalidValue;
+  if (n_px == 0) return 0;
+  Layers grads = make_layers(grad_ptrs, hs, ws, n_layers);
+  unsigned blocks = (unsigned)((n_px + 255) / 256);
+  splat_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const float2*)grid, (const float*)cot, n_px, grads);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,241 @@
+"""Content + style losses over a multi-resolution prediction pyramid
+(counterpart of ``stylemesh_tpu/models/losses.py`` with its default
+``gram_mode='current'``; the Gram cache of ``'average'`` is not ported yet).
+
+- Variable-length masked feature sets are mask-weighted Grams / MSEs.
+- An empty pyramid level gets factor 0 and zero masked losses.
+- A batch of V views computes per-view masks, factors and losses and returns
+  the mean over views.
+- Style layers of at least ``gram_kernels.MIN_PX`` pixels go, in bf16, to the
+  fused masked-Gram kernels K3/K4 (one feature read for both mask variants);
+  the others stay on the plain masked Gram, as in the JAX package.
+"""
+
+import dataclasses
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from stylemesh_tpu_torch.models.vgg import vgg_features
+from stylemesh_tpu_torch.ops import gram_kernels
+from stylemesh_tpu_torch.ops.gram import gram_matrix, masked_gram, masked_mse
+from stylemesh_tpu_torch.ops.pyramid import image_pyramid
+from stylemesh_tpu_torch.ops.resize import resize_bilinear, resize_nearest
+
+DEFAULT_STYLE_LAYERS = ("r11", "r21", "r31", "r41", "r51")
+DEFAULT_CONTENT_LAYERS = ("r42",)
+DEFAULT_STYLE_WEIGHTS = tuple(1e3 / n ** 2 for n in (64, 128, 256, 512, 512))
+DEFAULT_CONTENT_WEIGHTS = (1.0,)
+
+
+class StyleTargets(NamedTuple):
+    """Precomputed style Gram targets: layer name -> ``[num_levels, C, C]``."""
+
+    grams: Dict[str, torch.Tensor]
+
+
+def _mse_gram(y, y_hat):
+    """Per-view MSE between a target Gram ``[C, C]`` and ``[V, C, C]``."""
+    d = (y_hat.float() - y.float()) ** 2
+    return d.mean(dim=(-2, -1))
+
+
+@dataclasses.dataclass(frozen=True)
+class ContentAndStyleLoss:
+    """Static configuration of the loss."""
+
+    style_layers: Tuple[str, ...] = DEFAULT_STYLE_LAYERS
+    content_layers: Tuple[str, ...] = DEFAULT_CONTENT_LAYERS
+    style_weights: Tuple[float, ...] = DEFAULT_STYLE_WEIGHTS
+    content_weights: Tuple[float, ...] = DEFAULT_CONTENT_WEIGHTS
+    angle_threshold: float = 60.0
+    style_pyramid_mode: str = "single"  # 'single' | 'multi'
+    pool: str = "max"
+    num_style_levels: int = 5
+    style_min_size: int = 256
+    compute_dtype: Optional[torch.dtype] = None
+    precision: str = "highest"
+
+    def __post_init__(self):
+        if self.style_pyramid_mode not in ("single", "multi"):
+            raise ValueError(f"style_pyramid_mode {self.style_pyramid_mode!r}")
+
+    @property
+    def layers(self):
+        return tuple(self.style_layers) + tuple(self.content_layers)
+
+    def _encode(self, vgg_params, x, keys):
+        return vgg_features(vgg_params, x, keys, pool=self.pool,
+                            compute_dtype=self.compute_dtype,
+                            precision=self.precision)
+
+    @torch.no_grad()
+    def set_style_image(self, vgg_params, style_image):
+        """Per-level style Gram targets of a ``[1, H, W, 3]`` Gatys image."""
+        levels = list(range(self.num_style_levels))
+        pyramid = image_pyramid(style_image, levels, reverse=True,
+                                minimum_size=self.style_min_size)
+        per_level = []
+        for p in pyramid:
+            encs = self._encode(vgg_params, p, self.style_layers)
+            per_level.append({k: gram_matrix(encs[k])[0]
+                              for k in self.style_layers})
+        return StyleTargets(grams={
+            k: torch.stack([g[k] for g in per_level], dim=0)
+            for k in self.style_layers})
+
+    @staticmethod
+    def _layer_hw(name, hw):
+        """Feature resolution of a named activation for an ``hw`` input."""
+        pools = int(name[1]) - (0 if name.startswith("p") else 1)
+        return (hw[0] // 2 ** pools, hw[1] // 2 ** pools)
+
+    @torch.no_grad()
+    def precompute_aux(self, vgg_params, level_shapes, target_content,
+                       pyramid_masks, angle_degrees):
+        """All texture-independent constants of the loss for one batch: the
+        content-target encodings and their resizes, the mask resizes, the
+        level factors, and the stacked masks of the fused-Gram layers."""
+        num_levels = len(level_shapes)
+        v = target_content.shape[0]
+        content_encs = self._encode(vgg_params, target_content,
+                                    self.content_layers)
+        # masks are 0/1 (exact in bf16); content targets follow the compute
+        # dtype (they came out of compute-dtype activations anyway)
+        store = self.compute_dtype or torch.float32
+
+        masks = [dict() for _ in range(num_levels)]
+        masks_passed = [dict() for _ in range(num_levels)]
+        masks_failed = [dict() for _ in range(num_levels)]
+        content_targets = [dict() for _ in range(num_levels)]
+        factors = [dict() for _ in range(num_levels)]
+        gram_masks = [dict() for _ in range(num_levels)]
+        gram_counts = [dict() for _ in range(num_levels)]
+        use_fused = self.compute_dtype == torch.bfloat16
+
+        for i in range(num_levels):
+            mask = pyramid_masks[i].float()
+            hw = tuple(mask.shape[1:3])
+            passed = (resize_bilinear(angle_degrees.float(), hw)
+                      < self.angle_threshold).float()
+            by_hw = {}
+            gm_by_hw = {}
+            for k in self.layers:
+                fhw = self._layer_hw(k, hw)
+                if fhw not in by_hw:  # r41/r42 share a resolution
+                    m = resize_nearest(mask, fhw)
+                    by_hw[fhw] = (
+                        m.to(store),
+                        resize_nearest(mask * passed, fhw).to(store),
+                        resize_nearest(mask * (1.0 - passed), fhw).to(store),
+                        m.reshape(v, -1).mean(dim=1),
+                    )
+                m, mp, mf, f = by_hw[fhw]
+                masks[i][k] = m
+                masks_passed[i][k] = mp
+                masks_failed[i][k] = mf
+                factors[i][k] = f  # [V]
+                if k in self.content_layers:
+                    content_targets[i][k] = resize_bilinear(
+                        content_encs[k].float(), fhw).to(store)
+                if (use_fused and k in self.style_layers
+                        and fhw[0] * fhw[1] >= gram_kernels.MIN_PX):
+                    if fhw not in gm_by_hw:
+                        if self.style_pyramid_mode == "multi":
+                            stack = torch.stack([mp[..., 0], mf[..., 0]])
+                        else:
+                            stack = torch.stack([m[..., 0]])
+                        gm_by_hw[fhw] = (
+                            gram_kernels.stack_masks(stack),
+                            stack.float().reshape(stack.shape[0], v, -1).sum(dim=2),
+                        )
+                    gram_masks[i][k], gram_counts[i][k] = gm_by_hw[fhw]
+
+        # normalize factors across levels per layer, guarded against
+        # all-empty layers
+        for k in self.layers:
+            total = sum(factors[i][k] for i in range(num_levels))
+            safe = torch.where(total > 0, total, torch.ones_like(total))
+            for i in range(num_levels):
+                factors[i][k] = torch.where(total > 0, factors[i][k] / safe,
+                                            torch.zeros_like(total))
+
+        return dict(masks=masks, masks_passed=masks_passed,
+                    masks_failed=masks_failed,
+                    content_targets=content_targets, factors=factors,
+                    gram_masks=gram_masks, gram_counts=gram_counts)
+
+    def __call__(self, vgg_params, style_targets: StyleTargets,
+                 pred_pyramid: Sequence[torch.Tensor],
+                 target_content: torch.Tensor,
+                 pyramid_masks: Sequence[torch.Tensor],
+                 angle_degrees: torch.Tensor, aux=None):
+        """Compute (style_loss, content_loss), scalar means over the views.
+
+        Args:
+            pred_pyramid: per level ``[V, H_i, W_i, 3]`` sampled textures.
+            target_content: ``[V, H, W, 3]`` Gatys-preprocessed photo.
+            pyramid_masks: per level ``[V, H_i, W_i, 1]`` 0/1 float.
+            angle_degrees: ``[V, H, W, 1]`` viewing angle in degrees.
+            aux: optional :meth:`precompute_aux` result.
+        """
+        num_levels = len(pred_pyramid)
+        v = target_content.shape[0]
+        if aux is None:
+            aux = self.precompute_aux(
+                vgg_params, [p.shape[1:3] for p in pred_pyramid],
+                target_content, pyramid_masks, angle_degrees)
+        masks = aux["masks"]
+        masks_failed = aux["masks_failed"]
+        factors = aux["factors"]
+        device = target_content.device
+        style_loss = torch.zeros((), dtype=torch.float32, device=device)
+        content_loss = torch.zeros((), dtype=torch.float32, device=device)
+
+        for i in range(num_levels):
+            encs = self._encode(vgg_params, pred_pyramid[i], self.layers)
+            grams, failed_grams = {}, {}
+            for k in self.style_layers:
+                if k in aux["gram_masks"][i]:
+                    sums = gram_kernels.fused_masked_grams(
+                        encs[k], aux["gram_masks"][i][k])  # [V, K, C, C]
+                    counts = aux["gram_counts"][i][k]  # [K, V]
+                    denom = torch.where(counts > 0, counts,
+                                        torch.ones_like(counts))
+                    grams[k] = sums[:, 0] / denom[0][:, None, None]
+                    if self.style_pyramid_mode == "multi":
+                        failed_grams[k] = sums[:, 1] / denom[1][:, None, None]
+                else:
+                    m = (aux["masks_passed"][i][k]
+                         if self.style_pyramid_mode == "multi"
+                         else masks[i][k])
+                    grams[k] = masked_gram(encs[k], m)
+
+            for li, k in enumerate(self.style_layers):
+                w = self.style_weights[li]
+                f = factors[i][k]  # [V]
+                y_hat = grams[k]
+                y = (style_targets.grams[k][2]
+                     if self.style_pyramid_mode == "multi"
+                     else style_targets.grams[k][0])
+                l = w * f * _mse_gram(y, y_hat)  # [V]
+                if self.style_pyramid_mode == "multi":
+                    # bad-angle areas are stylized only with the larger style
+                    # image, active only when non-empty
+                    y_hat_failed = (failed_grams[k] if k in failed_grams
+                                    else masked_gram(encs[k], masks_failed[i][k]))
+                    has_failed = (masks_failed[i][k].reshape(v, -1).sum(dim=1)
+                                  > 0).float()
+                    l = l + w * f * has_failed * _mse_gram(y, y_hat_failed)
+                    if li > 2:
+                        l = l + w * f * _mse_gram(style_targets.grams[k][0],
+                                                  y_hat)
+                style_loss = style_loss + l.mean()
+
+            for li, k in enumerate(self.content_layers):
+                l = masked_mse(aux["content_targets"][i][k], encs[k],
+                               masks[i][k])
+                content_loss = content_loss + (
+                    self.content_weights[li] * factors[i][k] * l).mean()
+
+        return style_loss, content_loss

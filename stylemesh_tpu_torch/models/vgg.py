@@ -1,0 +1,176 @@
+"""VGG-16 feature extractor, Gatys variant (counterpart of
+``stylemesh_tpu/models/vgg.py``).
+
+The 16-conv / 5-pool trunk of the style and content losses; any subset of
+the 21 named activations ``r11..r54, p1..p5`` can be requested. Weights are
+frozen: the parameters are plain tensors that never require a gradient.
+
+Layouts: activations in and out are channel-last ``[V, H, W, C]``; inside,
+the trunk runs NCHW tensors in ``channels_last`` memory (the same bytes),
+the layout cuDNN's NHWC convolutions take. Parameters are stored OIHW
+(PyTorch's layout); the JAX package's are HWIO.
+
+The convolutions are PyTorch's ``F.conv2d`` (cuDNN on the card), as the JAX
+package leaves them to XLA everywhere but on a TPU. Their hand-written
+Hopper kernels are the next slice of the port.
+"""
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from stylemesh_tpu_torch import resolve_device
+
+# (name, in_channels, out_channels) of the 16 convs in trunk order.
+VGG_CONVS = [
+    ("conv1_1", 3, 64), ("conv1_2", 64, 64),
+    ("conv2_1", 64, 128), ("conv2_2", 128, 128),
+    ("conv3_1", 128, 256), ("conv3_2", 256, 256), ("conv3_3", 256, 256), ("conv3_4", 256, 256),
+    ("conv4_1", 256, 512), ("conv4_2", 512, 512), ("conv4_3", 512, 512), ("conv4_4", 512, 512),
+    ("conv5_1", 512, 512), ("conv5_2", 512, 512), ("conv5_3", 512, 512), ("conv5_4", 512, 512),
+]
+
+# Channel count of every named activation (relu outputs + pooled maps).
+VGG_LAYER_CHANNELS = {
+    "r11": 64, "r12": 64, "p1": 64,
+    "r21": 128, "r22": 128, "p2": 128,
+    "r31": 256, "r32": 256, "r33": 256, "r34": 256, "p3": 256,
+    "r41": 512, "r42": 512, "r43": 512, "r44": 512, "p4": 512,
+    "r51": 512, "r52": 512, "r53": 512, "r54": 512, "p5": 512,
+}
+
+# trunk order: (activation name, conv name or None for a pool)
+_TRUNK = [
+    ("r11", "conv1_1"), ("r12", "conv1_2"), ("p1", None),
+    ("r21", "conv2_1"), ("r22", "conv2_2"), ("p2", None),
+    ("r31", "conv3_1"), ("r32", "conv3_2"), ("r33", "conv3_3"), ("r34", "conv3_4"), ("p3", None),
+    ("r41", "conv4_1"), ("r42", "conv4_2"), ("r43", "conv4_3"), ("r44", "conv4_4"), ("p4", None),
+    ("r51", "conv5_1"), ("r52", "conv5_2"), ("r53", "conv5_3"), ("r54", "conv5_4"), ("p5", None),
+]
+
+
+def _params_from_hwio(arrays, dtype, device):
+    """{name: (HWIO kernel, bias) numpy} -> {name: {"weight": OIHW, "bias"}}."""
+    device = resolve_device(device)
+    params = {}
+    for name, (kernel, bias) in arrays.items():
+        w = torch.from_numpy(np.array(
+            np.transpose(np.asarray(kernel, np.float32), (3, 2, 0, 1))))
+        b = torch.from_numpy(np.array(bias, np.float32))
+        params[name] = {"weight": w.to(device=device, dtype=dtype),
+                        "bias": b.to(device=device, dtype=dtype)}
+    return params
+
+
+def init_vgg_params(rng=None, dtype=torch.float32, scale=0.05, he=False,
+                    device=None):
+    """Random VGG params with the JAX package's numpy draws, so the same
+    ``rng`` seed gives the same weights (``he=True``: per-layer
+    sqrt(2/fan_in) scales)."""
+    rng = np.random.default_rng(0 if rng is None else rng)
+    arrays = {}
+    for name, cin, cout in VGG_CONVS:
+        s = float(np.sqrt(2.0 / (9 * cin))) if he else scale
+        kernel = rng.normal(0.0, s, size=(3, 3, cin, cout))
+        bias = rng.normal(0.0, 0.05 if he else scale, size=(cout,))
+        arrays[name] = (kernel.astype(np.float32), bias.astype(np.float32))
+    return _params_from_hwio(arrays, dtype, device)
+
+
+def convert_torch_state_dict(state_dict, dtype=torch.float32, device=None):
+    """Reference ``vgg_conv.pth`` state dict (OIHW) -> params."""
+    device = resolve_device(device)
+    params = {}
+    for name, cin, cout in VGG_CONVS:
+        w = torch.as_tensor(np.asarray(state_dict[f"{name}.weight"], np.float32))
+        b = torch.as_tensor(np.asarray(state_dict[f"{name}.bias"], np.float32))
+        if tuple(w.shape) != (cout, cin, 3, 3):
+            raise ValueError(f"{name}: weight shape {tuple(w.shape)}")
+        params[name] = {"weight": w.to(device=device, dtype=dtype),
+                        "bias": b.to(device=device, dtype=dtype)}
+    return params
+
+
+def load_vgg_params(path, dtype=torch.float32, device=None):
+    """Params from the ``.npz`` of the JAX package's ``save_vgg_params``
+    (``<conv>.kernel`` HWIO, ``<conv>.bias``)."""
+    data = np.load(path)
+    return _params_from_hwio(
+        {name: (data[f"{name}.kernel"], data[f"{name}.bias"])
+         for name, _, _ in VGG_CONVS}, dtype, device)
+
+
+def _conv_flags(x, precision):
+    """float32 convolutions in full float32 for ``precision='highest'``
+    (cuDNN's default would run them in TF32)."""
+    allow_tf32 = not (precision == "highest" and x.dtype == torch.float32)
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic,
+                       allow_tf32=allow_tf32)
+
+
+class _ConvReLU(torch.autograd.Function):
+    """``relu(conv3x3(x) + b)`` with the frozen-VGG backward of the JAX
+    package's ``_conv3x3_relu_flipvjp``: only the output is saved (the relu
+    mask is ``y > 0``) and the input gradient is the convolution of the
+    masked cotangent with the flipped, io-swapped kernel. The bias is added
+    after the convolution in the working dtype, as the JAX package does."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, precision):
+        with _conv_flags(x, precision):
+            y = F.conv2d(x, weight, padding=1)
+        y = torch.relu_(y.add_(bias.to(y.dtype).view(1, -1, 1, 1)))
+        ctx.save_for_backward(y, weight)
+        ctx.precision = precision
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, weight = ctx.saved_tensors
+        g = torch.where(y > 0, g, torch.zeros((), dtype=g.dtype, device=g.device))
+        kt = weight.flip(2, 3).transpose(0, 1).to(g.dtype).contiguous(
+            memory_format=torch.channels_last)
+        with _conv_flags(g, ctx.precision):
+            dx = F.conv2d(g, kt, padding=1)
+        return dx, None, None, None
+
+
+def vgg_features(params, x, out_keys, pool="max", compute_dtype=None,
+                 precision="highest"):
+    """Run the VGG-16 trunk and return the requested activations.
+
+    Args:
+        params: from :func:`init_vgg_params` / :func:`load_vgg_params`.
+        x: ``[B, H, W, 3]`` Gatys-preprocessed image.
+        out_keys: activation names (see :data:`VGG_LAYER_CHANNELS`).
+        pool: ``'max'`` (the gradient goes to the first maximum of each
+            window, torch's and the JAX package's tie rule) or ``'avg'``.
+        compute_dtype: cast input and weights to this dtype (``torch.bfloat16``
+            on the card); ``None`` keeps the input dtype.
+        precision: ``'highest'`` keeps float32 convolutions out of TF32.
+    Returns:
+        dict name -> ``[B, h, w, c]`` activation in the compute dtype.
+    """
+    out_keys = list(out_keys)
+    wanted = set(out_keys)
+    last_needed = max(i for i, (name, _) in enumerate(_TRUNK) if name in wanted)
+    dtype = compute_dtype or x.dtype
+    h = x.to(dtype).permute(0, 3, 1, 2)
+    h = h.contiguous(memory_format=torch.channels_last)
+    outs = {}
+    for i, (name, conv) in enumerate(_TRUNK):
+        if conv is not None:
+            w = params[conv]["weight"].to(dtype).contiguous(
+                memory_format=torch.channels_last)
+            h = _ConvReLU.apply(h, w, params[conv]["bias"].to(dtype), precision)
+        elif pool == "max":
+            h = F.max_pool2d(h, 2)
+        else:
+            h = F.avg_pool2d(h, 2)
+        if name in wanted:
+            outs[name] = h.permute(0, 2, 3, 1)
+        if i == last_needed:
+            break
+    return {k: outs[k] for k in out_keys}

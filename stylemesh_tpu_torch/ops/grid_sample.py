@@ -1,0 +1,195 @@
+"""Bilinear texture sampling (counterpart of ``stylemesh_tpu/ops/grid_sample.py``).
+
+The reference renders by sampling a texture atlas at baked per-pixel UVs with
+``torch.grid_sample(mode='bilinear', padding_mode='border',
+align_corners=True)``. The forward is a 4-corner gather, the backward a
+4-corner scatter-add of pixel gradients into the atlas.
+
+:func:`sample_layers` samples every layer of a Laplacian texture at one grid
+and sums, with both directions as hand-written kernels on the card:
+K1 (:func:`gather_layers`, all layers in one launch) and K2
+(:func:`splat_layers`). Their plain versions sit beside them and serve
+tensors that lie on the CPU; a CUDA tensor launches the kernel or raises.
+
+Conventions: texture layers ``[H, W, C]`` channel-last float32; grids
+``[..., 2]`` with ``(x, y)`` in ``[-1, 1]``, where -1 maps to pixel 0 and
++1 to pixel ``size - 1``.
+"""
+
+import ctypes
+
+import torch
+
+from stylemesh_tpu_torch import kernels
+
+MAX_LAYERS = 8  # SM_MAX_LAYERS in kernels/csrc/sample.cu
+
+
+def _corner_indices_weights(grid, h, w):
+    """Clamped corner indices and the x1/y1 bilinear weights of an
+    align_corners=True, border-padded sample."""
+    px = (grid[..., 0] + 1.0) * 0.5 * (w - 1)
+    py = (grid[..., 1] + 1.0) * 0.5 * (h - 1)
+    px = torch.clamp(px, 0.0, w - 1)
+    py = torch.clamp(py, 0.0, h - 1)
+    ix0 = torch.floor(px).long()
+    iy0 = torch.floor(py).long()
+    ix1 = torch.clamp(ix0 + 1, max=w - 1)
+    iy1 = torch.clamp(iy0 + 1, max=h - 1)
+    wx1 = px - ix0.to(px.dtype)
+    wy1 = py - iy0.to(py.dtype)
+    return iy0, iy1, ix0, ix1, wy1, wx1
+
+
+def _gather_plain(texture, grid):
+    h, w, c = texture.shape
+    iy0, iy1, ix0, ix1, wy1, wx1 = _corner_indices_weights(grid, h, w)
+    flat = texture.reshape(h * w, c)
+
+    def pix(iy, ix):
+        idx = iy * w + ix
+        return flat[idx.reshape(-1)].reshape(idx.shape + (c,))
+
+    wy1e, wx1e = wy1[..., None], wx1[..., None]
+    top = pix(iy0, ix0) * (1.0 - wx1e) + pix(iy0, ix1) * wx1e
+    bot = pix(iy1, ix0) * (1.0 - wx1e) + pix(iy1, ix1) * wx1e
+    return top * (1.0 - wy1e) + bot * wy1e
+
+
+def _splat_plain(g, grid, h, w):
+    c = g.shape[-1]
+    iy0, iy1, ix0, ix1, wy1, wx1 = _corner_indices_weights(grid, h, w)
+    g2 = g.reshape(-1, c)
+    wy1f, wx1f = wy1.reshape(-1, 1), wx1.reshape(-1, 1)
+    dtex = torch.zeros((h * w, c), dtype=g.dtype, device=g.device)
+    for iy, ix, contrib in (
+            (iy0, ix0, g2 * (1.0 - wy1f) * (1.0 - wx1f)),
+            (iy0, ix1, g2 * (1.0 - wy1f) * wx1f),
+            (iy1, ix0, g2 * wy1f * (1.0 - wx1f)),
+            (iy1, ix1, g2 * wy1f * wx1f)):
+        dtex.index_add_(0, (iy * w + ix).reshape(-1), contrib)
+    return dtex.reshape(h, w, c)
+
+
+def gather_layers_plain(layers, grid):
+    """Plain version of K1: sum over layers of the bilinear sample."""
+    out = None
+    for layer in layers:
+        y = _gather_plain(layer, grid)
+        out = y if out is None else out + y
+    return out
+
+
+def splat_layers_plain(g, grid, shapes):
+    """Plain version of K2: per-layer scatter-add of the cotangent ``g``."""
+    return [_splat_plain(g, grid, h, w) for (h, w) in shapes]
+
+
+def _layer_table(tensors):
+    n = len(tensors)
+    ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in tensors])
+    hs = (ctypes.c_int * n)(*[t.shape[0] for t in tensors])
+    ws = (ctypes.c_int * n)(*[t.shape[1] for t in tensors])
+    return ptrs, hs, ws
+
+
+def _check_sampling(layers, grid):
+    if not 1 <= len(layers) <= MAX_LAYERS:
+        raise ValueError(f"1..{MAX_LAYERS} layers, got {len(layers)}")
+    if grid.shape[-1] != 2:
+        raise ValueError(f"grid must end in 2, got {tuple(grid.shape)}")
+    for layer in layers:
+        if layer.dim() != 3 or layer.shape[-1] != 3:
+            raise ValueError(f"layers must be [H, W, 3], got {tuple(layer.shape)}")
+    kernels.require_cuda(grid, *layers, dtype=torch.float32)
+
+
+def gather_layers(layers, grid):
+    """K1: ``sum_l bilinear(layers[l], grid)`` -> ``grid.shape[:-1] + (3,)``.
+
+    CPU tensors take :func:`gather_layers_plain`; CUDA tensors launch the
+    kernel (one launch for all layers) or raise.
+    """
+    if grid.device.type == "cpu":
+        return gather_layers_plain(layers, grid)
+    _check_sampling(layers, grid)
+    out = torch.empty(grid.shape[:-1] + (3,), dtype=torch.float32,
+                      device=grid.device)
+    ptrs, hs, ws = _layer_table(layers)
+    kernels.launch("stylemesh_gather", grid.device, grid.data_ptr(),
+                   out.data_ptr(), grid.numel() // 2, ptrs, hs, ws,
+                   len(layers))
+    gather_layers.launches += 1
+    return out
+
+
+gather_layers.launches = 0
+
+
+def splat_layers(g, grid, shapes):
+    """K2: the atlas gradients of :func:`gather_layers` for cotangent ``g``,
+    one zero-initialised float32 ``[H_l, W_l, 3]`` per ``shapes[l]``.
+
+    CPU tensors take :func:`splat_layers_plain`; CUDA tensors launch the
+    kernel (one launch for all layers) or raise. Equal to the sequential
+    scatter-add up to the order of the float32 atomics.
+    """
+    if grid.device.type == "cpu":
+        return splat_layers_plain(g, grid, shapes)
+    grads = [torch.zeros((h, w, 3), dtype=torch.float32, device=grid.device)
+             for (h, w) in shapes]
+    _check_sampling(grads, grid)
+    kernels.require_cuda(g, dtype=torch.float32)
+    if g.shape != grid.shape[:-1] + (3,):
+        raise ValueError(f"cotangent {tuple(g.shape)} vs grid {tuple(grid.shape)}")
+    ptrs, hs, ws = _layer_table(grads)
+    kernels.launch("stylemesh_splat", grid.device, grid.data_ptr(),
+                   g.data_ptr(), grid.numel() // 2, ptrs, hs, ws, len(grads))
+    splat_layers.launches += 1
+    return grads
+
+
+splat_layers.launches = 0
+
+
+class _SampleLayers(torch.autograd.Function):
+    """Sum of bilinear samples of every layer; differentiable w.r.t. the
+    layers only (UV grids are baked batch constants)."""
+
+    @staticmethod
+    def forward(ctx, grid, *layers):
+        ctx.save_for_backward(grid)
+        ctx.shapes = [tuple(l.shape[:2]) for l in layers]
+        return gather_layers(layers, grid)
+
+    @staticmethod
+    def backward(ctx, g):
+        (grid,) = ctx.saved_tensors
+        grads = splat_layers(g.contiguous(), grid, ctx.shapes)
+        return (None, *grads)
+
+
+def sample_layers(layers, grid):
+    """``sum_l grid_sample(layers[l], grid)`` with the K1/K2 autograd pair."""
+    return _SampleLayers.apply(grid.contiguous(),
+                               *[l.contiguous() for l in layers])
+
+
+def grid_sample(texture, grid):
+    """Bilinear sample of ``texture [H, W, C]`` at ``grid [..., 2]``: torch
+    ``grid_sample(mode='bilinear', padding_mode='border',
+    align_corners=True)`` with the texture broadcast over the batch."""
+    return sample_layers([texture], grid)
+
+
+def grid_sample_nearest(texture, grid):
+    """Nearest-neighbour sample, border padding, align_corners=True; rounds
+    half to even like torch's ``grid_sample(mode='nearest')``. Not
+    differentiable (depth lookups)."""
+    h, w, c = texture.shape
+    px = torch.clamp((grid[..., 0] + 1.0) * 0.5 * (w - 1), 0.0, w - 1)
+    py = torch.clamp((grid[..., 1] + 1.0) * 0.5 * (h - 1), 0.0, h - 1)
+    ix = torch.clamp(torch.round(px).long(), 0, w - 1)
+    iy = torch.clamp(torch.round(py).long(), 0, h - 1)
+    idx = iy * w + ix
+    return texture.reshape(h * w, c)[idx.reshape(-1)].reshape(idx.shape + (c,))

@@ -1,0 +1,119 @@
+"""The port stands alone and never quietly leaves the card.
+
+- An ``ast`` scan of every file of ``stylemesh_tpu_torch/`` and of
+  ``chip_smoke.py`` finds no import of jax, optax, flax or stylemesh_tpu
+  (``sys.modules`` cannot show this: the test process imports jax).
+- Entry points default to CUDA and raise when it is absent; the plain
+  versions serve CPU tensors only, and a tensor on any other device goes to
+  the kernel path, which checks its inputs and raises instead of falling back.
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from stylemesh_tpu_torch import kernels, resolve_device
+from stylemesh_tpu_torch.convert import batch_from_numpy
+from stylemesh_tpu_torch.data.synthetic import synthetic_view_batch
+from stylemesh_tpu_torch.models.pipeline import PipelineConfig, TexturePipeline
+from stylemesh_tpu_torch.models.texture import Texture
+from stylemesh_tpu_torch.models.vgg import init_vgg_params
+from stylemesh_tpu_torch.ops import gram_kernels
+from stylemesh_tpu_torch.ops import grid_sample as gs
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "optax", "flax", "stylemesh_tpu"}
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+              and node.func.id == "__import__" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_port_imports_no_jax():
+    files = sorted((ROOT / "stylemesh_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    for path in files:
+        bad = FORBIDDEN.intersection(_imported_roots(path))
+        assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_kernel_sources_present():
+    sources = sorted(p.name for p in kernels.CSRC.glob("*.cu"))
+    assert sources == ["gram.cu", "sample.cu"]
+    assert "-gencode=arch=compute_90a,code=sm_90a" in kernels.CUDA_FLAGS
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        synthetic_view_batch()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_vgg_params()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Texture.create(8, 8)
+    batch = synthetic_view_batch(numpy_arrays=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        batch_from_numpy(batch)
+    cfg = PipelineConfig(steps_per_epoch=1, texture_width=8, texture_height=8,
+                         hierarchical_layers=1)
+    vgg = init_vgg_params(device="cpu")
+    style = torch.zeros((1, 16, 16, 3))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TexturePipeline(cfg, vgg, style)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_non_cpu_tensors_never_take_the_plain_version():
+    """A tensor that is not on the CPU goes to the kernel path, whose input
+    checks refuse anything but CUDA tensors; no launch is counted."""
+    before = (gs.gather_layers.launches, gs.splat_layers.launches,
+              gram_kernels.masked_gram_sums.launches,
+              gram_kernels.masked_gram_sums_grad.launches)
+    meta = torch.device("meta")
+    grid = torch.zeros((1, 4, 4, 2), device=meta)
+    layer = torch.zeros((8, 8, 3), device=meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        gs.gather_layers([layer], grid)
+    with pytest.raises(ValueError, match="CUDA"):
+        gs.splat_layers(torch.zeros((1, 4, 4, 3), device=meta), grid, [(8, 8)])
+    f = torch.zeros((1, 16, 64), dtype=torch.bfloat16, device=meta)
+    m = torch.zeros((1, 2, 16), dtype=torch.bfloat16, device=meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        gram_kernels.masked_gram_sums(f, m)
+    with pytest.raises(ValueError, match="CUDA"):
+        gram_kernels.masked_gram_sums_grad(f, m, torch.zeros((1, 2, 64, 64),
+                                                             device=meta))
+    after = (gs.gather_layers.launches, gs.splat_layers.launches,
+             gram_kernels.masked_gram_sums.launches,
+             gram_kernels.masked_gram_sums_grad.launches)
+    assert before == after
+
+
+def test_cpu_tensors_take_the_plain_version():
+    rng = np.random.default_rng(0)
+    layers = [torch.from_numpy(rng.normal(size=(8, 8, 3)).astype(np.float32))]
+    grid = torch.from_numpy(rng.uniform(-1, 1, (1, 3, 3, 2)).astype(np.float32))
+    before = gs.gather_layers.launches
+    torch.testing.assert_close(gs.gather_layers(layers, grid),
+                               gs.gather_layers_plain(layers, grid))
+    assert gs.gather_layers.launches == before
