@@ -9,11 +9,14 @@ phase fails. Phases:
 
 1. main path: the full-method bench workload (4096² x 4 Laplacian atlas,
    V = 4 views, content 256x341, UV levels 256..784 px high, multi style
-   pyramid, bf16 VGG, Adam) through ``TexturePipeline.prepare_batch`` and
-   ``train_step``; every loss must be finite and every kernel's launch count
-   over the timed steps above zero;
+   pyramid, bf16 VGG trunk on the conv kernels K5-K8, Adam) through
+   ``TexturePipeline.prepare_batch`` and ``train_step``; every loss must be
+   finite, every kernel's launch count over the timed steps above zero, and
+   the profile of a step must show no cuDNN convolution;
 2. reference: a small configuration trained on the card and on the CPU
    (plain versions), float32, losses compared;
+2b. the same small configuration in bf16 (the kernel trunk), the losses of
+   the first step compared;
 3. kernels: each kernel against its plain PyTorch version at the main path's
    shapes and inputs, timed with CUDA events beside the plain version and one
    PyTorch library call computing the same function, with its bound on an
@@ -36,9 +39,10 @@ import torch.nn.functional as F
 from stylemesh_tpu_torch import kernels
 from stylemesh_tpu_torch.data.synthetic import synthetic_view_batch
 from stylemesh_tpu_torch.models.pipeline import PipelineConfig, TexturePipeline
+from stylemesh_tpu_torch.models import vgg
 from stylemesh_tpu_torch.models.texture import sample_texture
 from stylemesh_tpu_torch.models.vgg import init_vgg_params, vgg_features
-from stylemesh_tpu_torch.ops import gram_kernels
+from stylemesh_tpu_torch.ops import conv_kernels, gram_kernels, head_kernels
 from stylemesh_tpu_torch.ops import grid_sample as gs
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -46,21 +50,37 @@ BF16_FLOP_PER_S = 989e12   # dense bf16 tensor-core peak
 STEPS = 5                  # timed train steps
 REPS = 5                   # launches per kernel timing
 
-KERNELS = {
+CONV_SRC = "stylemesh_tpu_torch/kernels/csrc/conv.cu"
+KERNELS = {  # launches: (wrapper, attribute holding its launch count)
     "K1_gather": dict(source="stylemesh_tpu_torch/kernels/csrc/sample.cu",
                       replaces="stylemesh_tpu/ops/splat_pallas.py:486",
-                      launches_of=gs.gather_layers, rel_tol=1e-5),
+                      launches=(gs.gather_layers, "launches"), rel_tol=1e-5),
     "K2_splat": dict(source="stylemesh_tpu_torch/kernels/csrc/sample.cu",
                      replaces="stylemesh_tpu/ops/splat_pallas.py:421",
-                     launches_of=gs.splat_layers, rel_tol=1e-4),
+                     launches=(gs.splat_layers, "launches"), rel_tol=1e-4),
     "K3_gram_fwd": dict(source="stylemesh_tpu_torch/kernels/csrc/gram.cu",
                         replaces="stylemesh_tpu/ops/gram_pallas.py:140",
-                        launches_of=gram_kernels.masked_gram_sums,
+                        launches=(gram_kernels.masked_gram_sums, "launches"),
                         rel_tol=1e-3),
     "K4_gram_bwd": dict(source="stylemesh_tpu_torch/kernels/csrc/gram.cu",
                         replaces="stylemesh_tpu/ops/gram_pallas.py:208",
-                        launches_of=gram_kernels.masked_gram_sums_grad,
+                        launches=(gram_kernels.masked_gram_sums_grad, "launches"),
                         rel_tol=1e-2),
+    "K5_conv3x3": dict(source=CONV_SRC,
+                       replaces="stylemesh_tpu/ops/conv_pallas.py:232",
+                       launches=(conv_kernels.conv3x3, "launches"),
+                       rel_tol=1e-2),
+    "K6_conv_relu_pool": dict(source=CONV_SRC,
+                              replaces="stylemesh_tpu/ops/head_pallas.py:487",
+                              launches=(head_kernels.conv_relu_pool, "launches"),
+                              rel_tol=1e-2),
+    "K7_conv_relu_pool_dual": dict(
+        source=CONV_SRC, replaces="stylemesh_tpu/ops/head_pallas.py:234",
+        launches=(head_kernels.conv_relu_pool, "dual_launches"), rel_tol=1e-2),
+    "K8_conv_relu_pool_bwd": dict(
+        source=CONV_SRC, replaces="stylemesh_tpu/ops/head_pallas.py:413",
+        launches=(head_kernels.conv_relu_pool_bwd, "launches"), rel_tol=1e-2,
+        max_share=2e-3),
 }
 # Tolerances, relative to the largest |value| of the plain version:
 # K1 float32, the same arithmetic but fused multiply-adds: 1e-5.
@@ -68,6 +88,10 @@ KERNELS = {
 # K3 float32 sums over up to 819 280 pixels in another order: 1e-3.
 # K4 rounds a float32 sum to bf16: two bf16 ulps of the largest element
 #    (2 * 2^-8 ~ 1e-2).
+# K5-K7 round float32 sums taken in another order to bf16: 1e-2 (two ulps).
+# K8 as K5, but a value that rounds differently can break a tie in a pool
+#    window and route that window's gradient to another pixel: at most 2e-3
+#    of the elements may lie farther than 1e-2 from the plain version.
 
 
 def log(msg):
@@ -111,11 +135,11 @@ def cuda_ms(fn, reps=REPS):
 
 def reset_counts():
     for spec in KERNELS.values():
-        spec["launches_of"].launches = 0
+        setattr(*spec["launches"], 0)
 
 
 def read_counts():
-    return {name: spec["launches_of"].launches for name, spec in KERNELS.items()}
+    return {name: getattr(*spec["launches"]) for name, spec in KERNELS.items()}
 
 
 # ---------------------------------------------------------------- phase 1
@@ -187,27 +211,41 @@ def profile_step(pipe, state, batch, aux, step_ms):
         for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:15]:
             log(f"[profile] {label} {e.self_device_time_total / 1e3:9.3f} ms "
                 f"x{e.count:<4d} {e.key[:90]}")
+    library_convs = sorted({e.key for e in events
+                            if "convolution" in e.key or "cudnn" in e.key.lower()})
+    if library_convs:
+        raise RuntimeError(f"the bf16 step ran library convolutions: {library_convs}")
+    log("[profile] no cuDNN convolution in the step")
 
 
 # ---------------------------------------------------------------- phase 2
 
 
-def reference_check():
-    """A small float32 configuration on the card (kernels) against the same
-    on the CPU (plain versions)."""
+def small_runs(compute_dtype, steps):
+    """The losses of ``steps`` train steps of a small configuration, on the
+    card (kernels) and on the CPU (plain versions)."""
     runs = {}
     for device in ("cuda", "cpu"):
         batch = synthetic_view_batch(
             num_views=2, content_hw=(32, 43), level_heights=(32, 48),
             seed=0, depth_range=(0.2, 0.45), device=device)
-        cfg = bench_config(torch.float32, texture_width=64, texture_height=64,
+        cfg = bench_config(compute_dtype, texture_width=64, texture_height=64,
                            hierarchical_layers=2, style_min_size=16)
         pipe = TexturePipeline(cfg, init_vgg_params(rng=0, he=True, device=device),
                                style_image(64, 85), device=device)
         state = pipe.init()
         aux = pipe.prepare_batch(batch)
-        runs[device] = [float(pipe.train_step(state, batch, aux)["total"])
-                        for _ in range(3)]
+        runs[device] = [{k: float(v) for k, v in
+                         pipe.train_step(state, batch, aux).items()}
+                        for _ in range(steps)]
+    return runs
+
+
+def reference_check():
+    """A small float32 configuration on the card (kernels) against the same
+    on the CPU (plain versions)."""
+    runs = small_runs(torch.float32, 3)
+    runs = {d: [l["total"] for l in r] for d, r in runs.items()}
     for i, (a, b) in enumerate(zip(runs["cuda"], runs["cpu"])):
         rel = abs(a - b) / abs(b)
         log(f"[reference] step {i}: cuda {a!r} cpu {b!r} rel {rel:.3e}")
@@ -215,6 +253,22 @@ def reference_check():
         # by Adam's sign(g) at near-zero gradients
         if not rel <= (1e-4 if i == 0 else 1e-3):
             raise RuntimeError(f"reference check failed at step {i}")
+
+
+def reference_check_bf16():
+    """Phase 2b: the small configuration in bf16 (the conv kernels K5-K8 on
+    the card, their plain versions on the CPU); the losses of the first step
+    within 2e-2 relative. Both round every VGG activation to bf16 once after
+    float32 sums taken in different orders, so a value can land one bf16
+    rounding apart and move a relu or a pool's maximum (the bound of the
+    bf16 loss parity test against the JAX package)."""
+    runs = small_runs(torch.bfloat16, 1)
+    for k in ("content", "style", "total"):
+        a, b = runs["cuda"][0][k], runs["cpu"][0][k]
+        rel = abs(a - b) / abs(b)
+        log(f"[reference bf16] step 0 {k}: cuda {a!r} cpu {b!r} rel {rel:.3e}")
+        if not rel <= 2e-2:
+            raise RuntimeError(f"bf16 reference check failed for {k}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -226,14 +280,22 @@ def bound_ms(bytes_moved, flops=0.0):
     return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations")
 
 
-def check(name, got, want):
+def check(name, got, want, where=""):
+    """Kernel output(s) against the plain version's. With ``max_share`` in
+    the kernel's spec, that share of the elements may lie beyond the
+    tolerance."""
     got = [got] if torch.is_tensor(got) else got
     want = [want] if torch.is_tensor(want) else want
-    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+    spec = KERNELS[name]
     scale = max(w.float().abs().max().item() for w in want)
-    tol = KERNELS[name]["rel_tol"] * scale
-    log(f"[kernel] {name}: max_abs_err {err:.6g} tol {tol:.6g}")
-    if not err <= tol:
+    tol = spec["rel_tol"] * scale
+    diffs = [(g.float() - w.float()).abs() for g, w in zip(got, want)]
+    err = max(d.max().item() for d in diffs)
+    share = (sum((d > tol).sum().item() for d in diffs)
+             / sum(d.numel() for d in diffs))
+    log(f"[kernel] {name} {where}: max_abs_err {err:.6g} tol {tol:.6g} "
+        f"share beyond {share:.3g}")
+    if not share <= spec.get("max_share", 0.0):
         raise RuntimeError(f"{name} disagrees with its plain version")
     return err, tol
 
@@ -248,6 +310,118 @@ def touched_texels(grid, layers):
                          ((iy0, ix0), (iy0, ix1), (iy1, ix0), (iy1, ix1))])
         total += torch.unique(idx).numel()
     return total
+
+
+def cotangent(like, mask=None, seed=0):
+    """A random bf16 cotangent shaped as ``like``, zero where ``mask`` is
+    False."""
+    gen = torch.Generator(device=like.device).manual_seed(seed)
+    g = torch.randn(like.shape, generator=gen, device=like.device)
+    g = g.to(torch.bfloat16)
+    return g if mask is None else torch.where(mask, g, torch.zeros_like(g))
+
+
+def trunk_kernels(where, pipe, pred, add):
+    """K5-K8 at one pyramid level: the trunk walked as ``vgg_features``
+    walks it for the loss's layers, each kernel launch of the step's forward
+    and backward repeated on its inputs (random cotangents, masked as the
+    backward masks them) and held against its plain version."""
+    nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731
+    keys = pipe.loss.layers
+    last = max(i for i, (name, _) in enumerate(vgg._TRUNK) if name in keys)
+    h = pred.to(torch.bfloat16).contiguous()
+    skip_pool = False
+    for i, (name, conv) in enumerate(vgg._TRUNK[:last + 1]):
+        if conv is None:
+            if not skip_pool:
+                h = vgg._pool_nhwc(h, "max")
+            skip_pool = False
+            continue
+        p = pipe.vgg_params[conv]
+        w9, w9t, b = vgg.kernel_layout(p)
+        w_lib = p["weight"].to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        wt_lib = p["weight"].flip(2, 3).transpose(0, 1).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        b_lib = b.to(torch.bfloat16)
+        v, hh, ww, cin = h.shape
+        cout = w9.shape[1]
+        flops = 2.0 * 9 * cin * cout * v * hh * ww
+        at = f"{where} {conv} {tuple(h.shape)}->{cout}"
+        if h.shape[-1] < conv_kernels.CIN_STEP:  # conv1_1: im2col, no kernel
+            h = vgg.conv3x3_im2col(h, w9, b, relu=True)
+            continue
+        x_bytes, w_bytes = h.numel() * 2, w9.numel() * 2
+        if (i + 1 <= last and vgg._TRUNK[i + 1][1] is None
+                and vgg._fused_pool_wanted(h, cout, "max", name in keys)):
+            skip_pool = True
+            library = lambda x=h: F.max_pool2d(F.relu(F.conv2d(  # noqa: E731
+                nchw(x), w_lib, b_lib, padding=1)), 2)
+            if cin == 64:
+                pooled = head_kernels.conv_relu_pool(h, w9, b)
+                err = check("K6_conv_relu_pool", pooled,
+                            head_kernels.conv_relu_pool_plain(h, w9, b), at)
+                add("K6_conv_relu_pool", at, err,
+                    cuda_ms(lambda x=h: head_kernels.conv_relu_pool(x, w9, b)),
+                    cuda_ms(lambda x=h: head_kernels.conv_relu_pool_plain(x, w9, b)),
+                    cuda_ms(library), x_bytes + w_bytes + 4 * cout
+                    + pooled.numel() * 2, flops)
+                g = cotangent(pooled, seed=i)
+                err = check("K8_conv_relu_pool_bwd",
+                            head_kernels.conv_relu_pool_bwd(h, w9, w9t, b, g),
+                            head_kernels.conv_relu_pool_bwd_plain(h, w9, w9t, b, g),
+                            at)
+                x_leaf = nchw(h).detach().requires_grad_()
+                lib_out = F.max_pool2d(F.relu(F.conv2d(
+                    x_leaf, w_lib, b_lib, padding=1)), 2)
+                add("K8_conv_relu_pool_bwd", at, err,
+                    cuda_ms(lambda x=h: head_kernels.conv_relu_pool_bwd(
+                        x, w9, w9t, b, g)),
+                    cuda_ms(lambda x=h: head_kernels.conv_relu_pool_bwd_plain(
+                        x, w9, w9t, b, g)),
+                    cuda_ms(lambda: torch.autograd.grad(
+                        lib_out, x_leaf, nchw(g), retain_graph=True)),
+                    2 * x_bytes + 2 * w_bytes + 4 * cout + g.numel() * 2,
+                    2 * flops)
+                del x_leaf, lib_out
+                h = pooled
+            else:
+                pooled, pre = head_kernels.conv_relu_pool(h, w9, b, with_pre=True)
+                err = check("K7_conv_relu_pool_dual", [pooled, pre],
+                            head_kernels.conv_relu_pool_plain(h, w9, b, True), at)
+                add("K7_conv_relu_pool_dual", at, err,
+                    cuda_ms(lambda x=h: head_kernels.conv_relu_pool(
+                        x, w9, b, with_pre=True)),
+                    cuda_ms(lambda x=h: head_kernels.conv_relu_pool_plain(
+                        x, w9, b, True)),
+                    cuda_ms(library), x_bytes + w_bytes + 4 * cout
+                    + (pooled.numel() + pre.numel()) * 2, flops)
+                # its backward: pool routing from pre, then K5 (flipped)
+                dr = head_kernels.pool_route(pre, cotangent(pooled, seed=i))
+                k5_backward(at, dr, w9t, wt_lib, flops, add)
+                h = pooled
+            continue
+        y = conv_kernels.conv3x3(h, w9, b, relu=True)
+        err = check("K5_conv3x3", y, conv_kernels.conv3x3_plain(h, w9, b, True), at)
+        add("K5_conv3x3", at + " forward", err,
+            cuda_ms(lambda x=h: conv_kernels.conv3x3(x, w9, b, True)),
+            cuda_ms(lambda x=h: conv_kernels.conv3x3_plain(x, w9, b, True)),
+            cuda_ms(lambda x=h: F.relu(F.conv2d(nchw(x), w_lib, b_lib, padding=1))),
+            x_bytes + w_bytes + 4 * cout + y.numel() * 2, flops)
+        k5_backward(at, cotangent(y, y > 0, seed=i), w9t, wt_lib, flops, add)
+        h = y
+
+
+def k5_backward(at, g, w9t, wt_lib, flops, add):
+    """K5 as an input gradient: the masked cotangent, the flipped kernel, no
+    bias, relu off."""
+    dx = conv_kernels.conv3x3(g, w9t)
+    err = check("K5_conv3x3", dx, conv_kernels.conv3x3_plain(g, w9t), at)
+    add("K5_conv3x3", at + " input gradient", err,
+        cuda_ms(lambda: conv_kernels.conv3x3(g, w9t)),
+        cuda_ms(lambda: conv_kernels.conv3x3_plain(g, w9t)),
+        cuda_ms(lambda: F.conv2d(g.permute(0, 3, 1, 2), wt_lib, padding=1)),
+        g.numel() * 2 + w9t.numel() * 2 + dx.numel() * 2, flops)
 
 
 def kernel_phase(pipe, state, batch, aux, counts):
@@ -276,6 +450,9 @@ def kernel_phase(pipe, state, batch, aux, counts):
     for i, grid in enumerate(batch.uv):
         v, h, w, _ = grid.shape
         npx = v * h * w
+        with torch.no_grad():
+            pred = sample_texture(state.texture, grid)
+        trunk_kernels(f"level {i}", pipe, pred, add)
         # K1: the sum over layers of the bilinear sample
         lib_in = [l.expand(v, -1, -1, -1) for l in layers_cf]
 
@@ -376,6 +553,7 @@ def main():
 
     pipe, state, batch, aux, counts = main_path()
     reference_check()
+    reference_check_bf16()
     rows = kernel_phase(pipe, state, batch, aux, counts)
     for r in rows:
         log(f"[kernel] {r['name']}: {r['ms']:.4f} ms/step (bound {r['bound_ms']:.4f} "

@@ -30,6 +30,8 @@ _SIGNATURES = {
     "stylemesh_splat": [_P, _P, _L, _P, _P, _P, _I, _P],
     "stylemesh_gram_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "stylemesh_gram_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "stylemesh_conv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "stylemesh_conv_relu_pool_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _library = None

@@ -5,14 +5,25 @@ The 16-conv / 5-pool trunk of the style and content losses; any subset of
 the 21 named activations ``r11..r54, p1..p5`` can be requested. Weights are
 frozen: the parameters are plain tensors that never require a gradient.
 
-Layouts: activations in and out are channel-last ``[V, H, W, C]``; inside,
-the trunk runs NCHW tensors in ``channels_last`` memory (the same bytes),
-the layout cuDNN's NHWC convolutions take. Parameters are stored OIHW
-(PyTorch's layout); the JAX package's are HWIO.
+Two routes, as in the JAX package:
 
-The convolutions are PyTorch's ``F.conv2d`` (cuDNN on the card), as the JAX
-package leaves them to XLA everywhere but on a TPU. Their hand-written
-Hopper kernels are the next slice of the port.
+- bf16 compute at ``precision='default'`` (the bench step): the JAX
+  package's accelerator branch on the hand-written kernels. conv1_1 is an
+  im2col product (``ops/conv_im2col.py``); the other convs are K5
+  (``ops/conv_kernels.py``), whose input gradient is K5 again with the
+  flipped kernel; the block tails conv1_2 + p1 and conv2_2 + p2 are fused
+  into K6 / K7 when the conv's own activation is not requested, with K8 as
+  the 64-channel backward (``ops/head_kernels.py``). p3..p5 stay
+  ``F.max_pool2d``. Activations are channel-last ``[V, H, W, C]``
+  throughout. On the CPU the kernels' plain versions run the same structure.
+- float32, or ``precision='highest'``: PyTorch's ``F.conv2d`` on NCHW
+  tensors in ``channels_last`` memory, as the JAX package keeps its float32
+  path on XLA.
+
+Parameters are stored OIHW (PyTorch's layout; the JAX package's are HWIO).
+The kernel route lays each conv's weights out once, at its first use, as
+``w9`` / ``w9_flipped`` bf16 matrices and a float32 bias kept in the conv's
+parameter dict (:func:`kernel_layout`).
 """
 
 import numpy as np
@@ -20,6 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from stylemesh_tpu_torch import resolve_device
+from stylemesh_tpu_torch.ops import conv_kernels, head_kernels
+from stylemesh_tpu_torch.ops.conv_im2col import conv3x3_im2col
 
 # (name, in_channels, out_channels) of the 16 convs in trunk order.
 VGG_CONVS = [
@@ -137,6 +150,113 @@ class _ConvReLU(torch.autograd.Function):
         return dx, None, None, None
 
 
+def kernel_layout(p):
+    """``(w9, w9_flipped, bias)`` of one conv's params for the kernel route:
+    bf16 ``[9 * Cin, Cout]`` and ``[9 * Cout, Cin]`` matrices and the float32
+    bias. Built at the first call and kept in ``p`` (the VGG is frozen)."""
+    if "w9" not in p:
+        p["w9"] = conv_kernels.w9_from_oihw(p["weight"])
+        p["w9_flipped"] = conv_kernels.flipped_w9_from_oihw(p["weight"])
+        p["bias_f32"] = p["bias"].float().contiguous()
+    return p["w9"], p["w9_flipped"], p["bias_f32"]
+
+
+class _ConvReLUV2(torch.autograd.Function):
+    """K5 ``relu(conv3x3(x) + b)`` with the JAX package's
+    ``_conv3x3_relu_v2`` backward: only ``y`` is saved, the cotangent is
+    masked by ``y > 0`` and cast to bf16, and the input gradient is K5 with
+    the flipped kernel, no bias and relu off."""
+
+    @staticmethod
+    def forward(ctx, x, w9, w9_flipped, bias):
+        y = conv_kernels.conv3x3(x, w9, bias, relu=True)
+        ctx.save_for_backward(y, w9_flipped)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, w9_flipped = ctx.saved_tensors
+        g = torch.where(y > 0, g, torch.zeros((), dtype=g.dtype, device=g.device))
+        g = g.to(torch.bfloat16).contiguous()
+        return conv_kernels.conv3x3(g, w9_flipped), None, None, None
+
+
+class _ConvReLUPool(torch.autograd.Function):
+    """The fused block tail ``maxpool2(relu(conv3x3(x) + b))``, the JAX
+    package's ``_conv_relu_pool_frozen``. 64 channels: K6 forward, ``x``
+    saved, K8 backward. 128 channels: K7 forward, the pre-pool activation
+    saved; backward = first-maximum pool routing with the relu mask, then
+    K5 with the flipped kernel."""
+
+    @staticmethod
+    def forward(ctx, x, w9, w9_flipped, bias):
+        ctx.fused_backward = x.shape[-1] == 64
+        if ctx.fused_backward:
+            ctx.save_for_backward(x, w9, w9_flipped, bias)
+            return head_kernels.conv_relu_pool(x, w9, bias)
+        pooled, pre = head_kernels.conv_relu_pool(x, w9, bias, with_pre=True)
+        ctx.save_for_backward(pre, w9_flipped)
+        return pooled
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.to(torch.bfloat16).contiguous()
+        if ctx.fused_backward:
+            x, w9, w9_flipped, bias = ctx.saved_tensors
+            dx = head_kernels.conv_relu_pool_bwd(x, w9, w9_flipped, bias, g)
+        else:
+            pre, w9_flipped = ctx.saved_tensors
+            dx = conv_kernels.conv3x3(head_kernels.pool_route(pre, g),
+                                      w9_flipped)
+        return dx, None, None, None
+
+
+def _fused_pool_wanted(h, cout, pool, name_wanted):
+    """The JAX package's ``_fused_pool_wanted`` on the kernel route: max
+    pool, Cin == Cout in {64, 128}, the conv's own activation not
+    requested, at least one pool window."""
+    cin = h.shape[-1]
+    return (pool == "max" and not name_wanted and cin == cout
+            and cin in (64, 128) and h.shape[1] >= 2 and h.shape[2] >= 2)
+
+
+def _pool_nhwc(h, pool):
+    h = h.permute(0, 3, 1, 2)
+    h = F.max_pool2d(h, 2) if pool == "max" else F.avg_pool2d(h, 2)
+    return h.permute(0, 2, 3, 1).contiguous()
+
+
+def _kernel_trunk(params, x, wanted, last_needed, pool):
+    """The bf16 trunk on the hand-written kernels; channel-last throughout."""
+    outs = {}
+    h = x.contiguous()
+    skip_pool = False
+    for i, (name, conv) in enumerate(_TRUNK):
+        if conv is not None:
+            w9, w9_flipped, bias = kernel_layout(params[conv])
+            next_is_pool = (i + 1 < len(_TRUNK) and _TRUNK[i + 1][1] is None
+                            and i + 1 <= last_needed)
+            if next_is_pool and _fused_pool_wanted(h, w9.shape[1], pool,
+                                                   name in wanted):
+                # the fused output is the pool's, recorded under its name
+                h = _ConvReLUPool.apply(h, w9, w9_flipped, bias)
+                skip_pool = True
+                continue
+            if h.shape[-1] < conv_kernels.CIN_STEP:
+                h = conv3x3_im2col(h, w9, bias, relu=True)
+            else:
+                h = _ConvReLUV2.apply(h, w9, w9_flipped, bias)
+        elif skip_pool:
+            skip_pool = False
+        else:
+            h = _pool_nhwc(h, pool)
+        if name in wanted:
+            outs[name] = h
+        if i == last_needed:
+            break
+    return outs
+
+
 def vgg_features(params, x, out_keys, pool="max", compute_dtype=None,
                  precision="highest"):
     """Run the VGG-16 trunk and return the requested activations.
@@ -149,7 +269,8 @@ def vgg_features(params, x, out_keys, pool="max", compute_dtype=None,
             window, torch's and the JAX package's tie rule) or ``'avg'``.
         compute_dtype: cast input and weights to this dtype (``torch.bfloat16``
             on the card); ``None`` keeps the input dtype.
-        precision: ``'highest'`` keeps float32 convolutions out of TF32.
+        precision: ``'highest'`` keeps float32 convolutions out of TF32;
+            ``'default'`` with bf16 compute takes the kernel route.
     Returns:
         dict name -> ``[B, h, w, c]`` activation in the compute dtype.
     """
@@ -157,6 +278,9 @@ def vgg_features(params, x, out_keys, pool="max", compute_dtype=None,
     wanted = set(out_keys)
     last_needed = max(i for i, (name, _) in enumerate(_TRUNK) if name in wanted)
     dtype = compute_dtype or x.dtype
+    if dtype == torch.bfloat16 and precision == "default":
+        outs = _kernel_trunk(params, x.to(dtype), wanted, last_needed, pool)
+        return {k: outs[k] for k in out_keys}
     h = x.to(dtype).permute(0, 3, 1, 2)
     h = h.contiguous(memory_format=torch.channels_last)
     outs = {}

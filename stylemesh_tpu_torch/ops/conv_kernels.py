@@ -1,0 +1,106 @@
+"""3x3 stride-1 SAME convolution with the bias and relu fused: kernel K5
+(counterpart of ``stylemesh_tpu/ops/conv_pallas.py::conv3x3_v2``, which
+reaches ``_conv3x3_v2_raw``).
+
+    y = bf16(act(conv3x3(x, w) + b)),   act = relu or identity
+
+``x`` is bf16 ``[V, H, W, Cin]`` channel-last, the kernel the bf16 matrix
+``w9 [9 * Cin, Cout]`` whose rows run in (dy, dx, ci) order (an HWIO kernel
+reshaped, :func:`w9_from_oihw`), ``b`` float32 ``[Cout]`` or None. The sum
+is taken in float32 and rounded to bf16 once, after the bias and the relu,
+as the TPU kernel does. The trunk's input gradients are the same function
+with the flipped, io-swapped kernel (:func:`flipped_w9_from_oihw`), no bias
+and relu off.
+
+The TPU kernel's width packing of narrow channel counts, 8-column alignment
+pads and VMEM tile heuristics are not carried over: the Hopper kernel
+(``kernels/csrc/conv.cu``) tiles output pixels itself and masks the ragged
+edge.
+"""
+
+import contextlib
+
+import torch
+import torch.nn.functional as F
+
+from stylemesh_tpu_torch import kernels
+
+CIN_STEP = 32  # kCK in kernels/csrc/conv.cu: Cin must be a multiple
+COUT_STEP = 64  # kN: Cout must be a multiple
+
+
+def w9_from_oihw(weight):
+    """OIHW ``[Cout, Cin, 3, 3]`` -> bf16 ``[9 * Cin, Cout]`` in (dy, dx, ci)
+    row order: the JAX package's ``kernel.reshape(9 * Cin, Cout)``."""
+    cout, cin = weight.shape[:2]
+    return (weight.permute(2, 3, 1, 0).reshape(9 * cin, cout)
+            .to(torch.bfloat16).contiguous())
+
+
+def flipped_w9_from_oihw(weight):
+    """The input-gradient kernel ``flip(kernel, (dy, dx))`` with Cin and
+    Cout swapped, as ``[9 * Cout, Cin]`` bf16 (:func:`w9_from_oihw` of
+    ``weight.flip(2, 3).transpose(0, 1)``)."""
+    return w9_from_oihw(weight.flip(2, 3).transpose(0, 1))
+
+
+@contextlib.contextmanager
+def _full_float32():
+    """float32 convolutions of the plain version in full float32 on a card
+    (cuDNN would run them in TF32)."""
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        yield
+
+
+def conv3x3_plain(x, w9, bias=None, relu=False):
+    """Plain version of K5: the float32 convolution of the bf16 values, plus
+    the float32 bias, relu, one rounding to bf16."""
+    cin, cout = x.shape[-1], w9.shape[1]
+    k = w9.float().reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+    with _full_float32():
+        y = F.conv2d(x.float().permute(0, 3, 1, 2), k, padding=1)
+    if bias is not None:
+        y = y + bias.float().view(1, -1, 1, 1)
+    if relu:
+        y = torch.relu(y)
+    return y.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
+
+
+def check_conv(x, w9, bias):
+    """Raise unless ``x``, ``w9`` and ``bias`` are inputs the conv kernels
+    take."""
+    kernels.require_cuda(x, w9, dtype=torch.bfloat16)
+    if bias is not None:
+        kernels.require_cuda(x, bias)
+        kernels.require_cuda(bias, dtype=torch.float32)
+    cin = x.shape[-1]
+    cout = w9.shape[1]
+    if x.dim() != 4 or cin % CIN_STEP or cout % COUT_STEP:
+        raise ValueError(f"x {tuple(x.shape)}: Cin must be a multiple of "
+                         f"{CIN_STEP} and Cout of {COUT_STEP}, got {cout}")
+    if tuple(w9.shape) != (9 * cin, cout):
+        raise ValueError(f"w9 {tuple(w9.shape)} vs Cin {cin}")
+    if bias is not None and tuple(bias.shape) != (cout,):
+        raise ValueError(f"bias {tuple(bias.shape)} vs Cout {cout}")
+
+
+def conv3x3(x, w9, bias=None, relu=False):
+    """K5: ``bf16(act(conv3x3(x, w9) + bias))`` ``[V, H, W, Cout]``. CPU
+    tensors take the plain version; CUDA tensors launch the kernel or raise.
+    Equal to the plain version up to the order of the float32 sums."""
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, w9, bias, relu)
+    check_conv(x, w9, bias)
+    v, h, w, cin = x.shape
+    cout = w9.shape[1]
+    y = torch.empty((v, h, w, cout), dtype=torch.bfloat16, device=x.device)
+    kernels.launch("stylemesh_conv3x3", x.device, x.data_ptr(), w9.data_ptr(),
+                   None if bias is None else bias.data_ptr(), y.data_ptr(),
+                   None, v, h, w, cin, cout, int(relu), 0)
+    conv3x3.launches += 1
+    return y
+
+
+conv3x3.launches = 0

@@ -1,0 +1,132 @@
+"""The VGG block tail ``maxpool2(relu(conv3x3 + b))`` fused: kernels K6, K7
+and K8 (counterpart of ``stylemesh_tpu/ops/head_pallas.py``).
+
+- :func:`conv_relu_pool` (K6): the pooled map only, the conv output never
+  reaches device memory (``head_pallas.py::conv_relu_pool``, 64 and 128
+  channels); with ``with_pre=True`` (K7) it also writes the pre-pool
+  activation, the 128-channel backward's residual
+  (``conv_relu_pool_dual``).
+- :func:`conv_relu_pool_bwd` (K8): the input gradient of the 64-channel
+  form in one pass: conv + relu recomputed on the tile with the forward's
+  arithmetic, the pooled cotangent routed to the first maximum of each 2x2
+  window (raster order) where the activation is > 0, then the transposed
+  conv (``conv_relu_pool_bwd``).
+
+Numerics are K5's (``ops/conv_kernels.py``): float32 sums, float32 bias,
+relu, one bf16 rounding, and the pool takes the maximum of the bf16 values.
+The pooled map is ``[V, H // 2, W // 2, C]``; an odd tail row or column is a
+conv halo only. The TPU kernels' width packing, lane-duplicated cotangent
+and tile heuristics are not carried over.
+"""
+
+import torch
+
+from stylemesh_tpu_torch import kernels
+from stylemesh_tpu_torch.ops.conv_kernels import check_conv, conv3x3_plain
+
+
+def maxpool2(x):
+    """2x2 / 2 max pool of channel-last ``[V, H, W, C]`` (floor sizes)."""
+    v, h, w, c = x.shape
+    h2, w2 = h // 2, w // 2
+    return x[:, :2 * h2, :2 * w2].reshape(v, h2, 2, w2, 2, c).amax(dim=(2, 4))
+
+
+def pool_route(r, g):
+    """The backward of ``maxpool2`` and of the relu before it, from the
+    relu output ``r [V, H, W, C]``: each window's cotangent ``g`` goes to its
+    first maximum in raster order ((0,0), (0,1), (1,0), (1,1)) where that
+    value is > 0; every other element, and the odd tail, gets 0. Returns
+    ``dr`` in ``r``'s dtype."""
+    v, h, w, c = r.shape
+    h2, w2 = h // 2, w // 2
+    q = r[:, :2 * h2, :2 * w2].reshape(v, h2, 2, w2, 2, c).float()
+    quads = [q[:, :, 0, :, 0], q[:, :, 0, :, 1], q[:, :, 1, :, 0],
+             q[:, :, 1, :, 1]]
+    top = torch.maximum(torch.maximum(quads[0], quads[1]),
+                        torch.maximum(quads[2], quads[3]))
+    g = g.to(r.dtype)
+    zero = torch.zeros((), dtype=r.dtype, device=r.device)
+    taken = torch.zeros_like(top, dtype=torch.bool)
+    routed = []
+    for t in quads:
+        m = (t == top) & (t > 0) & ~taken
+        taken = taken | m
+        routed.append(torch.where(m, g, zero))
+    dq = torch.stack(routed, dim=3).reshape(v, h2, w2, 2, 2, c)
+    dr = torch.zeros_like(r)
+    dr[:, :2 * h2, :2 * w2] = dq.permute(0, 1, 3, 2, 4, 5).reshape(
+        v, 2 * h2, 2 * w2, c)
+    return dr
+
+
+def conv_relu_pool_plain(x, w9, bias, with_pre=False):
+    """Plain version of K6 (and of K7 with ``with_pre``): K5's plain version
+    with relu, then :func:`maxpool2` of the bf16 map."""
+    pre = conv3x3_plain(x, w9, bias, relu=True)
+    pooled = maxpool2(pre)
+    return (pooled, pre) if with_pre else pooled
+
+
+def conv_relu_pool_bwd_plain(x, w9, w9_flipped, bias, g):
+    """Plain version of K8, the composed backward: recompute, route, conv
+    with the flipped kernel."""
+    r = conv3x3_plain(x, w9, bias, relu=True)
+    return conv3x3_plain(pool_route(r, g), w9_flipped)
+
+
+def conv_relu_pool(x, w9, bias, with_pre=False):
+    """K6 / K7: ``maxpool2(bf16(relu(conv3x3(x, w9) + bias)))`` and, with
+    ``with_pre``, the pre-pool map too (returns ``(pooled, pre)``). CPU
+    tensors take the plain version; CUDA tensors launch the kernel or raise.
+    K6 launches count in ``conv_relu_pool.launches``, K7 launches in
+    ``conv_relu_pool.dual_launches``."""
+    if x.device.type == "cpu":
+        return conv_relu_pool_plain(x, w9, bias, with_pre)
+    check_conv(x, w9, bias)
+    v, h, w, _ = x.shape
+    cout = w9.shape[1]
+    pooled = torch.empty((v, h // 2, w // 2, cout), dtype=torch.bfloat16,
+                         device=x.device)
+    pre = (torch.empty((v, h, w, cout), dtype=torch.bfloat16, device=x.device)
+           if with_pre else None)
+    kernels.launch("stylemesh_conv3x3", x.device, x.data_ptr(), w9.data_ptr(),
+                   None if bias is None else bias.data_ptr(),
+                   None if pre is None else pre.data_ptr(), pooled.data_ptr(),
+                   v, h, w, x.shape[-1], cout, 1, 2 if with_pre else 1)
+    if with_pre:
+        conv_relu_pool.dual_launches += 1
+        return pooled, pre
+    conv_relu_pool.launches += 1
+    return pooled
+
+
+conv_relu_pool.launches = 0
+conv_relu_pool.dual_launches = 0
+
+
+def conv_relu_pool_bwd(x, w9, w9_flipped, bias, g):
+    """K8: ``dx [V, H, W, 64]`` bf16 of :func:`conv_relu_pool` at 64
+    channels for the pooled cotangent ``g [V, H // 2, W // 2, 64]`` (cast to
+    bf16). CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
+    if x.device.type == "cpu":
+        return conv_relu_pool_bwd_plain(x, w9, w9_flipped, bias, g)
+    g = g.to(torch.bfloat16).contiguous()
+    check_conv(x, w9, bias)
+    check_conv(g, w9_flipped, None)
+    v, h, w, c = x.shape
+    if c != 64 or w9.shape[1] != 64 or bias is None:
+        raise ValueError(f"K8 takes 64 -> 64 channels with a bias, got x "
+                         f"{tuple(x.shape)}, w9 {tuple(w9.shape)}")
+    if tuple(g.shape) != (v, h // 2, w // 2, c):
+        raise ValueError(f"g {tuple(g.shape)} vs x {tuple(x.shape)}")
+    dx = torch.empty_like(x)
+    kernels.launch("stylemesh_conv_relu_pool_bwd", x.device, x.data_ptr(),
+                   w9.data_ptr(), w9_flipped.data_ptr(), bias.data_ptr(),
+                   g.data_ptr(), dx.data_ptr(), v, h, w)
+    conv_relu_pool_bwd.launches += 1
+    return dx
+
+
+conv_relu_pool_bwd.launches = 0

@@ -1,0 +1,117 @@
+"""Port parity: the 3x3 conv K5 (``ops/conv_kernels.py``), conv1_1's im2col
+product (``ops/conv_im2col.py``) and the input gradients of the trunk's
+conv + relu, against the JAX package's Pallas kernel ``conv3x3_v2`` in
+interpret mode and its ``conv3x3_im2col``, on the CPU (where the port runs
+the kernels' plain versions).
+
+Tolerances (both sides: bf16 operands, float32 sums in different orders,
+float32 bias, relu, one bf16 rounding):
+- forward: max |diff| <= 2e-2 of the largest reference value, and mean
+  |diff| < 5e-3 (the JAX package's own bounds for its conv kernels);
+- input gradients: at most 2e-3 of the elements outside
+  ``0.05 + 0.05 * |ref|``, since a value that rounds to the other side of
+  zero flips a relu mask.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stylemesh_tpu.models.vgg import _conv3x3_relu_v2
+from stylemesh_tpu.ops.conv_im2col import conv3x3_im2col as j_im2col
+from stylemesh_tpu.ops.conv_pallas import conv3x3_v2
+from stylemesh_tpu_torch.models import vgg as tvgg
+from stylemesh_tpu_torch.ops import conv_kernels
+from stylemesh_tpu_torch.ops.conv_im2col import conv3x3_im2col
+
+
+def _inputs(seed, v, h, w, cin, cout):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (v, h, w, cin)).astype(np.float32)
+    k = rng.normal(0, float(np.sqrt(2.0 / (9 * cin))), (3, 3, cin, cout))
+    b = rng.normal(0, 0.05, (cout,)).astype(np.float32)
+    x = np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    k = np.array(jnp.asarray(k, jnp.bfloat16).astype(jnp.float32))
+    return rng, x, k, b
+
+
+def _port_layout(k):
+    """HWIO numpy kernel -> the port's ``(w9, w9_flipped)``."""
+    weight = torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
+    return (conv_kernels.w9_from_oihw(weight),
+            conv_kernels.flipped_w9_from_oihw(weight))
+
+
+def _bf16(a):
+    return torch.from_numpy(a).to(torch.bfloat16)
+
+
+def _assert_forward(got, want):
+    got = got.float().numpy()
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    assert got.shape == want.shape
+    scale = np.abs(want).max()
+    assert scale > 0
+    assert np.abs(got - want).max() <= 2e-2 * scale
+    assert np.abs(got - want).mean() < 5e-3
+
+
+def _assert_grad(got, want):
+    got = got.float().numpy()
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    assert got.shape == want.shape
+    assert np.abs(want).max() > 0
+    bad = np.abs(got - want) > 0.05 + 0.05 * np.abs(want)
+    assert bad.mean() <= 2e-3, f"{bad.mean():.4f} of the gradients disagree"
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("cin,cout", [(64, 128), (128, 64), (128, 128),
+                                      (256, 256)])
+def test_conv3x3_matches_pallas(cin, cout, relu):
+    _, x, k, b = _inputs(cin + cout, 2, 11, 13, cin, cout)
+    want = conv3x3_v2(jnp.asarray(x, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
+                      jnp.asarray(b), relu=relu, interpret=True)
+    w9, _ = _port_layout(k)
+    got = conv_kernels.conv3x3(_bf16(x), w9, torch.from_numpy(b), relu=relu)
+    assert got.dtype == torch.bfloat16
+    _assert_forward(got, want)
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 128), (128, 128), (256, 128)])
+def test_conv_relu_input_gradient_matches_jax(cin, cout):
+    """``_ConvReLUV2`` (K5 forward, relu mask from y, K5 with the flipped
+    kernel) against ``jax.vjp`` of ``_conv3x3_relu_v2`` in interpret mode."""
+    rng, x, k, b = _inputs(7 + cin, 2, 12, 15, cin, cout)
+    ct = rng.normal(0, 1, (2, 12, 15, cout)).astype(np.float32)
+    y, vjp = jax.vjp(lambda t: _conv3x3_relu_v2(
+        t, jnp.asarray(k, jnp.bfloat16), jnp.asarray(b), True),
+        jnp.asarray(x, jnp.bfloat16))
+    (want,) = vjp(jnp.asarray(ct, jnp.bfloat16))
+    w9, w9t = _port_layout(k)
+    xt = _bf16(x).requires_grad_()
+    out = tvgg._ConvReLUV2.apply(xt, w9, w9t, torch.from_numpy(b))
+    (got,) = torch.autograd.grad(out, [xt], _bf16(ct))
+    _assert_forward(out.detach(), y)
+    assert got.dtype == torch.bfloat16
+    _assert_grad(got, want)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+def test_im2col_matches_jax(relu):
+    rng, x, k, b = _inputs(3, 2, 13, 17, 3, 64)
+    x = x * 50.0  # Gatys-preprocessed pixel scale
+    x = np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    ct = rng.normal(0, 1, (2, 13, 17, 64)).astype(np.float32)
+    y, vjp = jax.vjp(lambda t: j_im2col(t, jnp.asarray(k, jnp.bfloat16),
+                                        jnp.asarray(b), relu),
+                     jnp.asarray(x, jnp.bfloat16))
+    (want,) = vjp(jnp.asarray(ct, jnp.bfloat16))
+    w9, _ = _port_layout(k)
+    xt = _bf16(x).requires_grad_()
+    out = conv3x3_im2col(xt, w9, torch.from_numpy(b), relu=relu)
+    (got,) = torch.autograd.grad(out, [xt], _bf16(ct))
+    _assert_forward(out.detach(), y)
+    _assert_grad(got, want)

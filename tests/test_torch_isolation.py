@@ -21,7 +21,7 @@ from stylemesh_tpu_torch.data.synthetic import synthetic_view_batch
 from stylemesh_tpu_torch.models.pipeline import PipelineConfig, TexturePipeline
 from stylemesh_tpu_torch.models.texture import Texture
 from stylemesh_tpu_torch.models.vgg import init_vgg_params
-from stylemesh_tpu_torch.ops import gram_kernels
+from stylemesh_tpu_torch.ops import conv_kernels, gram_kernels, head_kernels
 from stylemesh_tpu_torch.ops import grid_sample as gs
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -53,7 +53,7 @@ def test_port_imports_no_jax():
 
 def test_kernel_sources_present():
     sources = sorted(p.name for p in kernels.CSRC.glob("*.cu"))
-    assert sources == ["gram.cu", "sample.cu"]
+    assert sources == ["conv.cu", "gram.cu", "sample.cu"]
     assert "-gencode=arch=compute_90a,code=sm_90a" in kernels.CUDA_FLAGS
 
 
@@ -83,12 +83,31 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def _launch_counts():
+    return (gs.gather_layers.launches, gs.splat_layers.launches,
+            gram_kernels.masked_gram_sums.launches,
+            gram_kernels.masked_gram_sums_grad.launches,
+            conv_kernels.conv3x3.launches, head_kernels.conv_relu_pool.launches,
+            head_kernels.conv_relu_pool.dual_launches,
+            head_kernels.conv_relu_pool_bwd.launches)
+
+
+def _conv_inputs(device, c=64, h=6, w=7):
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(1, h, w, c)).astype(np.float32))
+    weight = torch.from_numpy(rng.normal(0, 0.05, (c, c, 3, 3)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(0, 0.05, (c,)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(1, h // 2, w // 2, c)).astype(np.float32))
+    return (x.to(device, torch.bfloat16),
+            conv_kernels.w9_from_oihw(weight).to(device),
+            conv_kernels.flipped_w9_from_oihw(weight).to(device), b.to(device),
+            g.to(device, torch.bfloat16))
+
+
 def test_non_cpu_tensors_never_take_the_plain_version():
     """A tensor that is not on the CPU goes to the kernel path, whose input
     checks refuse anything but CUDA tensors; no launch is counted."""
-    before = (gs.gather_layers.launches, gs.splat_layers.launches,
-              gram_kernels.masked_gram_sums.launches,
-              gram_kernels.masked_gram_sums_grad.launches)
+    before = _launch_counts()
     meta = torch.device("meta")
     grid = torch.zeros((1, 4, 4, 2), device=meta)
     layer = torch.zeros((8, 8, 3), device=meta)
@@ -103,17 +122,34 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     with pytest.raises(ValueError, match="CUDA"):
         gram_kernels.masked_gram_sums_grad(f, m, torch.zeros((1, 2, 64, 64),
                                                              device=meta))
-    after = (gs.gather_layers.launches, gs.splat_layers.launches,
-             gram_kernels.masked_gram_sums.launches,
-             gram_kernels.masked_gram_sums_grad.launches)
-    assert before == after
+    x, w9, w9t, b, g = _conv_inputs(meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        conv_kernels.conv3x3(x, w9, b, relu=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        head_kernels.conv_relu_pool(x, w9, b)
+    with pytest.raises(ValueError, match="CUDA"):
+        head_kernels.conv_relu_pool(x, w9, b, with_pre=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g)
+    assert _launch_counts() == before
 
 
 def test_cpu_tensors_take_the_plain_version():
     rng = np.random.default_rng(0)
     layers = [torch.from_numpy(rng.normal(size=(8, 8, 3)).astype(np.float32))]
     grid = torch.from_numpy(rng.uniform(-1, 1, (1, 3, 3, 2)).astype(np.float32))
-    before = gs.gather_layers.launches
+    before = _launch_counts()
     torch.testing.assert_close(gs.gather_layers(layers, grid),
                                gs.gather_layers_plain(layers, grid))
-    assert gs.gather_layers.launches == before
+    x, w9, w9t, b, g = _conv_inputs("cpu")
+    for relu in (True, False):
+        assert torch.equal(conv_kernels.conv3x3(x, w9, b, relu=relu),
+                           conv_kernels.conv3x3_plain(x, w9, b, relu))
+    assert torch.equal(head_kernels.conv_relu_pool(x, w9, b),
+                       head_kernels.conv_relu_pool_plain(x, w9, b))
+    for got, want in zip(head_kernels.conv_relu_pool(x, w9, b, with_pre=True),
+                         head_kernels.conv_relu_pool_plain(x, w9, b, True)):
+        assert torch.equal(got, want)
+    assert torch.equal(head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g),
+                       head_kernels.conv_relu_pool_bwd_plain(x, w9, w9t, b, g))
+    assert _launch_counts() == before

@@ -9,13 +9,18 @@ On the card, without JAX installed:
 
 Tolerances, relative to the plain output's largest value: sampling 1e-5
 (float32, fused multiply-adds), splat 1e-5 (float32 atomics order), Gram
-sums 1e-4 (float32 sums in another order), Gram gradient two bf16 ulps.
+sums 1e-4 (float32 sums in another order), Gram gradient two bf16 ulps;
+the trunk's convs K5-K8 1e-2 (about two bf16 ulps: float32 sums in another
+order, then one rounding). Between the kernels themselves the checks are
+exact: K6 is the pool of K5's output and K7 is K6 and K5 bit for bit (one
+K loop and one epilogue), and K8 is within one bf16 ulp per element of the
+composed backward built from K5.
 """
 
 import pytest
 import torch
 
-from stylemesh_tpu_torch.ops import gram_kernels
+from stylemesh_tpu_torch.ops import conv_kernels, gram_kernels, head_kernels
 from stylemesh_tpu_torch.ops import grid_sample as gs
 
 pytestmark = pytest.mark.cuda
@@ -32,6 +37,9 @@ def _close(got, want, rel):
     got = got if isinstance(got, (list, tuple)) else [got]
     want = want if isinstance(want, (list, tuple)) else [want]
     for g, w in zip(got, want):
+        assert g.shape == w.shape
+        if w.numel() == 0:
+            continue
         scale = w.float().abs().max().item()
         err = (g.float() - w.float()).abs().max().item()
         assert err <= rel * scale, (err, scale)
@@ -98,3 +106,92 @@ def test_wrappers_refuse_bad_inputs(cuda):
     m = torch.zeros((1, 1, 16), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="multiple of 64"):
         gram_kernels.masked_gram_sums(f, m)
+
+
+TRUNK_PAIRS = [(64, 64), (64, 128), (128, 64), (128, 128), (128, 256),
+               (256, 128), (256, 256), (256, 512), (512, 256), (512, 512)]
+EDGE_SHAPES = [(1, 1, 1), (1, 2, 3), (3, 1, 17), (2, 3, 2), (1, 17, 33),
+               (2, 20, 37)]
+
+
+def _conv_inputs(cuda, v, h, w, cin, cout, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed + cin + cout + h + w)
+    x = torch.randn((v, h, w, cin), generator=gen, device=cuda).to(torch.bfloat16)
+    weight = torch.randn((cout, cin, 3, 3), generator=gen, device=cuda)
+    weight = weight * (2.0 / (9 * cin)) ** 0.5
+    b = torch.randn((cout,), generator=gen, device=cuda) * 0.05
+    return (x, conv_kernels.w9_from_oihw(weight),
+            conv_kernels.flipped_w9_from_oihw(weight), b)
+
+
+@pytest.mark.parametrize("cin,cout", TRUNK_PAIRS)
+def test_conv3x3_trunk_pairs(cuda, cin, cout):
+    x, w9, _, b = _conv_inputs(cuda, 2, 23, 29, cin, cout)
+    for relu in (True, False):
+        _close(conv_kernels.conv3x3(x, w9, b, relu),
+               conv_kernels.conv3x3_plain(x, w9, b, relu), 1e-2)
+    _close(conv_kernels.conv3x3(x, w9), conv_kernels.conv3x3_plain(x, w9), 1e-2)
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_conv3x3_edge_shapes(cuda, shape):
+    x, w9, _, b = _conv_inputs(cuda, *shape, 128, 64)
+    _close(conv_kernels.conv3x3(x, w9, b, True),
+           conv_kernels.conv3x3_plain(x, w9, b, True), 1e-2)
+
+
+@pytest.mark.parametrize("c", [64, 128])
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_conv_relu_pool_is_pool_of_k5(cuda, c, shape):
+    """K6 equals maxpool2 of K5's relu output bit for bit; K7's pooled map
+    equals K6's and its pre-pool map equals K5's, bit for bit."""
+    x, w9, _, b = _conv_inputs(cuda, *shape, c, c)
+    y = conv_kernels.conv3x3(x, w9, b, True)
+    pooled = head_kernels.conv_relu_pool(x, w9, b)
+    assert torch.equal(pooled, head_kernels.maxpool2(y))
+    dual, pre = head_kernels.conv_relu_pool(x, w9, b, with_pre=True)
+    assert torch.equal(dual, pooled)
+    assert torch.equal(pre, y)
+    _close(pooled, head_kernels.conv_relu_pool_plain(x, w9, b), 1e-2)
+
+
+def _ulps_apart(got, want):
+    """Largest |got - want| in bf16 ulps of the larger magnitude."""
+    got, want = got.float(), want.float()
+    if want.numel() == 0:
+        return 0.0
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return ((got - want).abs() / ulp).max().item()
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES + [(4, 33, 57)])
+def test_conv_relu_pool_bwd(cuda, shape):
+    """K8 against the composed backward built from K5 (recompute, first-max
+    and relu routing, K5 with the flipped kernel): within one bf16 ulp per
+    element; and against its plain version."""
+    x, w9, w9t, b = _conv_inputs(cuda, *shape, 64, 64)
+    v, h, w = shape
+    gen = torch.Generator(device=cuda).manual_seed(h * w)
+    g = torch.randn((v, h // 2, w // 2, 64), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    got = head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g)
+    r = conv_kernels.conv3x3(x, w9, b, True)
+    composed = conv_kernels.conv3x3(head_kernels.pool_route(r, g), w9t)
+    assert _ulps_apart(got, composed) <= 1.0
+    if h >= 2 and w >= 2:
+        _close(got, head_kernels.conv_relu_pool_bwd_plain(x, w9, w9t, b, g),
+               1e-2)
+
+
+def test_conv_wrappers_refuse_bad_inputs(cuda):
+    x, w9, w9t, b = _conv_inputs(cuda, 1, 8, 8, 128, 128)
+    with pytest.raises(ValueError, match="multiple"):
+        conv_kernels.conv3x3(x[..., :48].contiguous(), w9[:9 * 48].contiguous())
+    with pytest.raises(ValueError):
+        conv_kernels.conv3x3(x, w9[:9 * 64].contiguous())
+    with pytest.raises(TypeError):
+        conv_kernels.conv3x3(x.float(), w9)
+    g = torch.zeros((1, 4, 4, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="64"):
+        head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g)

@@ -10,7 +10,11 @@ on in both packages — 2e-2 relative on the losses and the Gram targets, and
 bf16 at every layer in both packages after differently ordered sums, a
 rounding can flip a relu or a pool's argmax, and within either package the
 bf16 gradient of this test already differs from its float32 gradient by
-10-16% normwise.
+10-16% normwise. In bf16 the JAX side runs the accelerator branch of its
+VGG trunk (Pallas kernels in interpret mode, composed in
+``test_torch_vgg.py``): the port's bf16 trunk computes that branch's
+numerics (float32 bias added before the one bf16 rounding), not those of
+the JAX package's CPU path.
 """
 
 import jax
@@ -27,6 +31,7 @@ from stylemesh_tpu.ops import gram_pallas
 from stylemesh_tpu_torch.models import losses as tlosses
 from stylemesh_tpu_torch.models import vgg as tvgg
 from stylemesh_tpu_torch.ops import gram_kernels
+from test_torch_vgg import _jax_accelerator_features
 
 LEVELS = ((24, 32), (36, 48))
 
@@ -113,7 +118,11 @@ def test_loss_float32(mode):
 def test_loss_bf16_fused_gram_routing(mode, monkeypatch):
     """Layers of >= MIN_PX pixels go to the fused Gram in both packages:
     the Pallas kernel in interpret mode in JAX, the K3/K4 plain versions
-    here. MIN_PX is lowered so that the small test layers qualify."""
+    here. MIN_PX is lowered so that the small test layers qualify. The JAX
+    loss encodes with its accelerator-branch trunk, as the port does."""
+    monkeypatch.setattr(jlosses, "vgg_features",
+                        lambda params, x, keys, **kw: _jax_accelerator_features(
+                            params, x, list(keys)))
     monkeypatch.setattr(gram_pallas, "MIN_PX", 100)
     monkeypatch.setattr(gram_kernels, "MIN_PX", 100)
     r = _run(mode, bf16=True)

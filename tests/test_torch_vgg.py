@@ -6,7 +6,9 @@ activation's largest value (differently ordered float32 sums through up to
 16 convolutions). bf16: both packages round every activation to bf16 but
 their convolutions accumulate in different orders, so a value can land one
 bf16 rounding apart and the difference compounds through the trunk; 5e-2 of
-each activation's largest value.
+each activation's largest value. The bf16 trunk on the port's kernels
+against the JAX package's accelerator branch: the same 5e-2, and 1e-1
+normwise on its input gradient (see that test).
 """
 
 import jax
@@ -120,3 +122,111 @@ def test_input_gradient(pool):
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-4 * np.abs(want).max())
     assert not any(p.requires_grad for c in tp.values() for p in c.values())
+
+
+def _jax_accelerator_features(jp, x, keys):
+    """The JAX package's accelerator branch of ``vgg_features`` (bf16,
+    default precision), composed here because its gates route only on a
+    TPU: ``conv3x3_im2col`` for conv1_1, ``_conv3x3_relu_v2`` for the other
+    convs and ``_conv_relu_pool_frozen`` for the block tails whose conv
+    activation is not requested, all in interpret mode; the other pools
+    ``_maxpool2_raw``."""
+    from stylemesh_tpu.ops.conv_im2col import conv3x3_im2col
+
+    wanted = set(keys)
+    last = max(i for i, (name, _) in enumerate(jvgg._TRUNK) if name in wanted)
+    h, outs, skip_pool = x.astype(jnp.bfloat16), {}, False
+    for i, (name, conv) in enumerate(jvgg._TRUNK):
+        if conv is not None:
+            k = jp[conv]["kernel"].astype(jnp.bfloat16)
+            b = jp[conv]["bias"]
+            if (i + 1 <= last and jvgg._TRUNK[i + 1][1] is None
+                    and name not in wanted and h.shape[-1] == k.shape[-1]
+                    and h.shape[-1] in (64, 128)):
+                h = jvgg._conv_relu_pool_frozen(h, k, b.astype(jnp.float32), True)
+                skip_pool = True
+                continue
+            if h.shape[-1] < 32:
+                h = conv3x3_im2col(h, k, b, relu=True)
+            else:
+                h = jvgg._conv3x3_relu_v2(h, k, b.astype(jnp.float32), True)
+        elif skip_pool:
+            skip_pool = False
+        else:
+            h = jvgg._maxpool2_raw(h)
+        if name in wanted:
+            outs[name] = h
+        if i == last:
+            break
+    return {k: outs[k] for k in keys}
+
+
+DEFAULT_LAYERS = ["r11", "r21", "r31", "r41", "r51", "r42"]
+
+
+@pytest.mark.parametrize("keys", [ALL, DEFAULT_LAYERS], ids=["all", "default"])
+def test_kernel_trunk_matches_jax_accelerator_branch(keys):
+    """The bf16 / default-precision trunk (im2col, K5, and with the default
+    layers the fused K6 / K7 / K8 block tails; their plain versions here)
+    against the JAX accelerator branch in interpret mode: every activation
+    within 5e-2 of its largest value, and the input gradient of a random
+    linear function of the activations within 1e-1 normwise. Both sides
+    round every activation to bf16 once after float32 sums taken in
+    different orders; a rounding that lands on the other side of a relu or
+    of a pool's tie moves a gradient entry, and the move compounds through
+    the backward of up to 13 convs, so the gradient is compared normwise
+    (0.5-5.3% over five input draws)."""
+    jp, tp = _params()
+    rng = np.random.default_rng(17)
+    x = ((rng.random((1, 32, 40, 3), dtype=np.float32) - 0.45) * 255.0)
+    xt = torch.from_numpy(x).requires_grad_()
+    got = tvgg.vgg_features(tp, xt, keys, compute_dtype=torch.bfloat16,
+                            precision="default")
+    cts = {k: rng.normal(size=tuple(got[k].shape)).astype(np.float32)
+           for k in keys}
+
+    @jax.jit
+    def forward_and_grad(t, c):
+        out, vjp = jax.vjp(lambda u: _jax_accelerator_features(jp, u, keys), t)
+        return out, vjp({k: v.astype(jnp.bfloat16) for k, v in c.items()})[0]
+
+    want, want_grad = forward_and_grad(jnp.asarray(x), cts)
+    for name in keys:
+        w = np.asarray(want[name].astype(jnp.float32))
+        assert got[name].dtype == torch.bfloat16, name
+        assert tuple(got[name].shape) == w.shape, name
+        np.testing.assert_allclose(got[name].detach().float().numpy(), w,
+                                   rtol=0, atol=5e-2 * np.abs(w).max(),
+                                   err_msg=name)
+    (grad,) = torch.autograd.grad(
+        [got[k] for k in keys],
+        [xt], [torch.from_numpy(cts[k]).to(torch.bfloat16) for k in keys])
+    want_grad = np.asarray(want_grad, np.float32)
+    err = (np.linalg.norm(grad.float().numpy() - want_grad)
+           / np.linalg.norm(want_grad))
+    assert err < 1e-1, err
+
+
+def test_kernel_layout_matches_jax_kernels():
+    """The kernel route's weights, from ``convert.vgg_params_from_jax``,
+    equal the JAX package's ``kernel.reshape(9 * Cin, Cout)`` and
+    ``flip(kernel, (0, 1)).transpose(0, 1, 3, 2)`` in bf16 bit for bit,
+    and are built once per parameter set."""
+    jp = jvgg.init_vgg_params(rng=13, he=True)
+    tp = vgg_params_from_jax(
+        {k: {n: np.asarray(a) for n, a in v.items()} for k, v in jp.items()},
+        device="cpu")
+    for name, cin, cout in jvgg.VGG_CONVS:
+        kernel = jp[name]["kernel"].astype(jnp.bfloat16)
+        w9, w9t, bias = tvgg.kernel_layout(tp[name])
+        assert w9.dtype == w9t.dtype == torch.bfloat16
+        assert bias.dtype == torch.float32
+        np.testing.assert_array_equal(
+            w9.float().numpy(),
+            np.asarray(kernel.reshape(9 * cin, cout).astype(jnp.float32)))
+        kt = jnp.flip(kernel, (0, 1)).transpose(0, 1, 3, 2)
+        np.testing.assert_array_equal(
+            w9t.float().numpy(),
+            np.asarray(kt.reshape(9 * cout, cin).astype(jnp.float32)))
+        np.testing.assert_array_equal(bias.numpy(), np.asarray(jp[name]["bias"]))
+        assert tvgg.kernel_layout(tp[name])[0] is w9
