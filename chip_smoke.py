@@ -9,14 +9,25 @@ phase fails. Phases:
 
 1. main path: the full-method bench workload (4096² x 4 Laplacian atlas,
    V = 4 views, content 256x341, UV levels 256..784 px high, multi style
-   pyramid, bf16 VGG trunk on the conv kernels K5-K8, Adam) through
-   ``TexturePipeline.prepare_batch`` and ``train_step``; every loss must be
-   finite, every kernel's launch count over the timed steps above zero, and
-   the profile of a step must show no cuDNN convolution;
+   pyramid, bf16 VGG trunk on the conv kernels K5-K8, float32 K1/K2, Adam)
+   through ``TexturePipeline.prepare_batch`` and ``train_step``; every loss
+   must be finite, K1-K8's launch counts over the timed steps above zero,
+   and the profile of a step must show no cuDNN convolution;
 2. reference: a small configuration trained on the card and on the CPU
    (plain versions), float32, losses compared;
 2b. the same small configuration in bf16 (the kernel trunk), the losses of
    the first step compared;
+4. run loop: a ScanNet-layout scene of 16 views (480x640 photos, UV levels
+   256..784) written to a temporary directory, trained by the port's CLI
+   (``--preset scannet_full --bfloat16``: K1/K2 in their bf16 mode, the
+   kernel trunk) for one epoch of batches of 4 views repeated twice; the
+   losses must be finite, ``texture.npz`` written, and K1/K2's bf16 mode,
+   K3-K8 launched;
+5. K9: the same CLI call with ``STYLEMESH_CONV_FLIPVJP=0
+   STYLEMESH_FAST_CONV=1`` (the unfused trunk), one step per batch; K9 must
+   be launched and K5-K8 not, and the profile of a bench step under the same
+   settings must show no cuDNN convolution but conv1_1's forward and input
+   gradient;
 3. kernels: each kernel against its plain PyTorch version at the main path's
    shapes and inputs, timed with CUDA events beside the plain version and one
    PyTorch library call computing the same function, with its bound on an
@@ -28,15 +39,18 @@ line and the ``{"ok": true, "device": ...}`` JSON line.
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from stylemesh_tpu_torch import kernels
+from stylemesh_tpu_torch import cli, kernels
 from stylemesh_tpu_torch.data.synthetic import synthetic_view_batch
 from stylemesh_tpu_torch.models.pipeline import PipelineConfig, TexturePipeline
 from stylemesh_tpu_torch.models import vgg
@@ -55,9 +69,17 @@ KERNELS = {  # launches: (wrapper, attribute holding its launch count)
     "K1_gather": dict(source="stylemesh_tpu_torch/kernels/csrc/sample.cu",
                       replaces="stylemesh_tpu/ops/splat_pallas.py:486",
                       launches=(gs.gather_layers, "launches"), rel_tol=1e-5),
+    "K1_gather_bf16": dict(source="stylemesh_tpu_torch/kernels/csrc/sample.cu",
+                           replaces="stylemesh_tpu/ops/splat_pallas.py:486",
+                           launches=(gs.gather_layers, "bf16_launches"),
+                           rel_tol=1e-5),
     "K2_splat": dict(source="stylemesh_tpu_torch/kernels/csrc/sample.cu",
                      replaces="stylemesh_tpu/ops/splat_pallas.py:421",
                      launches=(gs.splat_layers, "launches"), rel_tol=1e-4),
+    "K2_splat_bf16": dict(source="stylemesh_tpu_torch/kernels/csrc/sample.cu",
+                          replaces="stylemesh_tpu/ops/splat_pallas.py:421",
+                          launches=(gs.splat_layers, "bf16_launches"),
+                          rel_tol=1e-4),
     "K3_gram_fwd": dict(source="stylemesh_tpu_torch/kernels/csrc/gram.cu",
                         replaces="stylemesh_tpu/ops/gram_pallas.py:140",
                         launches=(gram_kernels.masked_gram_sums, "launches"),
@@ -81,10 +103,23 @@ KERNELS = {  # launches: (wrapper, attribute holding its launch count)
         source=CONV_SRC, replaces="stylemesh_tpu/ops/head_pallas.py:413",
         launches=(head_kernels.conv_relu_pool_bwd, "launches"), rel_tol=1e-2,
         max_share=2e-3),
+    "K9_conv3x3_mxu": dict(source=CONV_SRC,
+                           replaces="stylemesh_tpu/ops/conv_pallas.py:136",
+                           launches=(conv_kernels.conv3x3_mxu, "launches"),
+                           rel_tol=1e-2),
 }
+# the kernels each driven path must launch
+BENCH_KERNELS = ("K1_gather", "K2_splat", "K3_gram_fwd", "K4_gram_bwd",
+                 "K5_conv3x3", "K6_conv_relu_pool", "K7_conv_relu_pool_dual",
+                 "K8_conv_relu_pool_bwd")
+TRUNK_KERNELS = BENCH_KERNELS[4:]
+RUN_KERNELS = ("K1_gather_bf16", "K2_splat_bf16") + BENCH_KERNELS[2:]
+K9_ENV = {"STYLEMESH_CONV_FLIPVJP": "0", "STYLEMESH_FAST_CONV": "1"}
 # Tolerances, relative to the largest |value| of the plain version:
-# K1 float32, the same arithmetic but fused multiply-adds: 1e-5.
-# K2 float32 atomics sum in another order than index_add_: 1e-4.
+# K1 float32, the same arithmetic but fused multiply-adds: 1e-5 (its bf16
+#    mode: the same arithmetic, unfused, 1e-5 as well).
+# K2 float32 atomics sum in another order than index_add_: 1e-4 (either
+#    mode).
 # K3 float32 sums over up to 819 280 pixels in another order: 1e-3.
 # K4 rounds a float32 sum to bf16: two bf16 ulps of the largest element
 #    (2 * 2^-8 ~ 1e-2).
@@ -92,6 +127,7 @@ KERNELS = {  # launches: (wrapper, attribute holding its launch count)
 # K8 as K5, but a value that rounds differently can break a tie in a pool
 #    window and route that window's gradient to another pixel: at most 2e-3
 #    of the elements may lie farther than 1e-2 from the plain version.
+# K9 is K5 without bias and relu: 1e-2.
 
 
 def log(msg):
@@ -107,6 +143,7 @@ def bench_config(compute_dtype=torch.bfloat16, **overrides):
         content_weight=7e1, style_weight=1e-4, tex_reg_weight=5e3,
         style_pyramid_mode="multi", angle_threshold=30.0,
         learning_rate=1.0, decay_step_size=3,
+        remat_vgg=False, remat_min_px=600_000,
         compute_dtype=compute_dtype,
         precision="default" if compute_dtype == torch.bfloat16 else "highest")
     cfg.update(overrides)
@@ -177,9 +214,9 @@ def main_path():
         log(f"[main] step {i}: " + json.dumps(l))
         if not all(math.isfinite(x) for x in l.values()):
             raise RuntimeError(f"non-finite loss at step {i}: {l}")
-    for name, n in counts.items():
-        log(f"[main] {name}: {n} launches in {STEPS} steps")
-        if n == 0:
+    for name in BENCH_KERNELS:
+        log(f"[main] {name}: {counts[name]} launches in {STEPS} steps")
+        if counts[name] == 0:
             raise RuntimeError(f"{name} was not launched on the main path")
     result = dict(step_ms=wall / STEPS * 1e3,
                   views_per_s=STEPS * batch.num_views / wall,
@@ -269,6 +306,175 @@ def reference_check_bf16():
         log(f"[reference bf16] step 0 {k}: cuda {a!r} cpu {b!r} rel {rel:.3e}")
         if not rel <= 2e-2:
             raise RuntimeError(f"bf16 reference check failed for {k}")
+
+
+# ------------------------------------------------------------ phases 4, 5
+
+SCENE = "scene0000_00"
+SCENE_HW = (480, 640)
+SCENE_LEVELS = (256, 432, 608, 784)
+
+
+def write_scene(root, n=16):
+    """A ScanNet-layout scene of ``n`` views under ``root/train/images``
+    (the layout of tests/test_data.py) from a synthetic panning camera:
+    color jpg and uint16 depth png (mm) at 480x640, ``uv_<h>/<i>.npy``
+    holding (u, v) in [0, 1] and zeros where no surface is seen,
+    ``uv/<i>.angle.npy``, poses and ``<scene>.txt`` intrinsics; plus a
+    512x683 style jpg. Returns the style image's path."""
+    from PIL import Image
+
+    b = synthetic_view_batch(num_views=n, content_hw=SCENE_HW,
+                             level_heights=SCENE_LEVELS,
+                             aspect=SCENE_HW[1] / SCENE_HW[0], min_depth=0.25,
+                             seed=0, depth_range=(0.4, 7.0), numpy_arrays=True)
+    sp = root / "train" / "images" / SCENE
+    for sub in ["color", "depth", "pose", "uv"] + [f"uv_{h}" for h in SCENE_LEVELS]:
+        (sp / sub).mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    h, w = SCENE_HW
+    mask = b.mask[..., 0] > 0
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+            sp / "color" / f"{i}.jpg", quality=95)
+        depth_mm = np.where(mask[i], np.round(b.depth[i, ..., 0] * 1000.0), 0)
+        Image.fromarray(depth_mm.astype(np.uint16)).save(sp / "depth" / f"{i}.png")
+        np.savetxt(sp / "pose" / f"{i}.txt", b.extrinsics[i])
+        np.save(sp / "uv" / f"{i}.angle.npy",
+                np.repeat(b.angle_guidance[i], 3, axis=-1))
+        for lh, grid in zip(SCENE_LEVELS, b.uv):
+            lw = grid.shape[2]
+            m = mask[i][(np.arange(lh) * h) // lh][:, (np.arange(lw) * w) // lw]
+            uv = np.where(m[..., None], (grid[i] + 1.0) * 0.5, 0.0)
+            np.save(sp / f"uv_{lh}" / f"{i}.npy", uv.astype(np.float32))
+    with open(sp / f"{SCENE}.txt", "w") as f:
+        f.write(f"fx_color = {w}.0\nfy_color = {w}.0\nmx_color = {w / 2}\n"
+                f"my_color = {h / 2}\ncolorWidth = {w}\ncolorHeight = {h}\n")
+    style = root / "style.jpg"
+    Image.fromarray(rng.integers(0, 256, (512, 683, 3), dtype=np.uint8)).save(style)
+    return str(style)
+
+
+def cli_run(tag, root, style, index_repeat, required, forbidden=()):
+    """One CLI training run on the scene; the launch counts of this run
+    alone (set to 0 just before it, read just after)."""
+    argv = ["--preset", "scannet_full", "--root_path", str(root),
+            "--scene", SCENE, "--style_image_path", style, "--bfloat16",
+            "--batch_size", "4", "--max_epochs", "1",
+            "--index_repeat", str(index_repeat), "--no_post_steps",
+            "--log_dir", str(root / f"runs_{tag}")]
+    log(f"[{tag}] python -m stylemesh_tpu_torch.cli " + " ".join(argv))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, log_dir = cli.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    totals = [r["value"] for r in records if r["tag"] == "Batch/Loss/train/total"]
+    if not totals or not all(math.isfinite(r["value"]) for r in records):
+        raise RuntimeError(f"[{tag}] missing or non-finite losses")
+    if not os.path.exists(os.path.join(log_dir, "texture.npz")):
+        raise RuntimeError(f"[{tag}] texture.npz was not written")
+    with open(os.path.join(log_dir, "wallclock.json")) as f:
+        wall = json.load(f)
+    steps = wall["train_steps"]["steps"]
+    result = dict(steps=steps, state_step=state.step, wall_s=wall_s,
+                  step_ms=wall["train_steps"]["total_s"] / max(steps - 1, 1) * 1e3,
+                  views_per_s=(steps - 1) * 4 / wall["train_steps"]["total_s"],
+                  peak_mem_gb=peak_gb, first_total=totals[0],
+                  last_total=totals[-1],
+                  phases={k: v["total_s"] for k, v in wall.items()
+                          if "total_s" in v})
+    log(f"[{tag}] " + json.dumps(result))
+    for name, n in counts.items():
+        log(f"[{tag}] {name}: {n} launches in {steps} steps")
+    for name in required:
+        if counts[name] == 0:
+            raise RuntimeError(f"[{tag}] {name} was not launched")
+    for name in forbidden:
+        if counts[name] != 0:
+            raise RuntimeError(f"[{tag}] {name} was launched {counts[name]} times")
+    return counts, steps
+
+
+def conv1_1_only(prof):
+    """Raise unless every library convolution op of the profile (forward or
+    backward) is conv1_1's: its weight [64, 3, 3, 3] among the op's input
+    shapes."""
+    seen, bad = [], []
+    for e in prof.key_averages(group_by_input_shape=True):
+        if not (e.key.startswith("aten::") and "conv" in e.key):
+            continue
+        shapes = [list(x) for x in e.input_shapes if x]
+        (seen if [64, 3, 3, 3] in shapes else bad).append(f"{e.key} {shapes}")
+    for line in seen:
+        log(f"[k9] conv1_1 op: {line}")
+    if bad:
+        raise RuntimeError(f"the K9 step ran other library convolutions: {bad}")
+    if not seen:
+        raise RuntimeError("the K9 step's profile shows no conv1_1 op")
+
+
+def k9_step(pipe, state, batch, aux):
+    """The bench step under the K9 settings: profiled once (conv routes),
+    then timed over STEPS steps. Returns K9's launches per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    reset_counts()
+    pipe.train_step(state, batch, aux)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        pipe.train_step(state, batch, aux)
+        torch.cuda.synchronize()
+    conv1_1_only(prof)
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        losses = pipe.train_step(state, batch, aux)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / STEPS * 1e3
+    counts = read_counts()
+    if not all(math.isfinite(float(v)) for v in losses.values()):
+        raise RuntimeError("non-finite loss in the K9 bench step")
+    log(f"[k9] bench step on the unfused trunk: {step_ms:.3f} ms "
+        f"({STEPS * batch.num_views / (step_ms * STEPS / 1e3):.3f} views/s); "
+        f"K9 {counts['K9_conv3x3_mxu']} launches in {STEPS + 2} steps")
+    if counts["K9_conv3x3_mxu"] == 0 or any(counts[k] for k in TRUNK_KERNELS):
+        raise RuntimeError(f"the K9 bench step launched {counts}")
+    return counts["K9_conv3x3_mxu"] / (STEPS + 2)
+
+
+def run_loop_phases(pipe, state, batch, aux):
+    """Phases 4 and 5; returns {kernel: (launches, launches per step)} for
+    the kernels these runs drive first: K1/K2's bf16 mode (the CLI run) and
+    K9 (the K9 CLI run; per step from the K9 bench step, since the run's
+    count also holds the style targets', content targets' and validation's
+    launches)."""
+    with tempfile.TemporaryDirectory(prefix="stylemesh_chip_smoke_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        style = write_scene(root)
+        log(f"[run] scene written in {time.perf_counter() - t0:.3f} s")
+        counts, steps = cli_run("run", root, style, 2, RUN_KERNELS,
+                                forbidden=("K9_conv3x3_mxu",))
+        launches = {k: (counts[k], counts[k] / steps)
+                    for k in ("K1_gather_bf16", "K2_splat_bf16")}
+        os.environ.update(K9_ENV)
+        try:
+            counts, steps = cli_run("k9", root, style, 1, ("K9_conv3x3_mxu",),
+                                    forbidden=TRUNK_KERNELS)
+            launches["K9_conv3x3_mxu"] = (counts["K9_conv3x3_mxu"],
+                                          k9_step(pipe, state, batch, aux))
+        finally:
+            for k in K9_ENV:
+                os.environ.pop(k, None)
+    return launches
 
 
 # ---------------------------------------------------------------- phase 3
@@ -424,25 +630,79 @@ def k5_backward(at, g, w9t, wt_lib, flops, add):
         g.numel() * 2 + w9t.numel() * 2 + dx.numel() * 2, flops)
 
 
-def kernel_phase(pipe, state, batch, aux, counts):
-    rows = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                       by_bytes=0.0, by_ops=0.0, err=0.0, tol=0.0)
+def k9_kernels(where, pipe, pred, add):
+    """K9 at one pyramid level: the unfused trunk walked as ``vgg_features``
+    walks it under the K9 settings for the loss's layers; every conv with
+    Cin >= 64 forward, and as an input gradient (flipped kernel) of a random
+    cotangent masked by the relu, against its plain version."""
+    nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731
+    keys = pipe.loss.layers
+    last = max(i for i, (name, _) in enumerate(vgg._TRUNK) if name in keys)
+    h = pred.to(torch.bfloat16).contiguous()
+    for i, (name, conv) in enumerate(vgg._TRUNK[:last + 1]):
+        if conv is None:
+            h = vgg._pool_nhwc(h, "max")
+            continue
+        p = pipe.vgg_params[conv]
+        if h.shape[-1] < 64:  # conv1_1 stays on the library conv
+            with torch.no_grad():
+                h = torch.relu(vgg._conv3x3(h, p, "default"))
+            continue
+        w9, w9t, _ = vgg.kernel_layout(p)
+        w_lib = p["weight"].to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        wt_lib = p["weight"].flip(2, 3).transpose(0, 1).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        v, hh, ww, cin = h.shape
+        cout = w9.shape[1]
+        flops = 2.0 * 9 * cin * cout * v * hh * ww
+        at = f"{where} {conv} {tuple(h.shape)}->{cout}"
+        y = conv_kernels.conv3x3_mxu(h, w9)
+        err = check("K9_conv3x3_mxu", y, conv_kernels.conv3x3_mxu_plain(h, w9), at)
+        add("K9_conv3x3_mxu", at + " forward", err,
+            cuda_ms(lambda x=h: conv_kernels.conv3x3_mxu(x, w9)),
+            cuda_ms(lambda x=h: conv_kernels.conv3x3_mxu_plain(x, w9)),
+            cuda_ms(lambda x=h: F.conv2d(nchw(x), w_lib, padding=1)),
+            h.numel() * 2 + w9.numel() * 2 + y.numel() * 2, flops)
+        h = torch.relu(y + p["bias"].to(torch.bfloat16))
+        g = cotangent(h, h > 0, seed=i)
+        dx = conv_kernels.conv3x3_mxu(g, w9t)
+        err = check("K9_conv3x3_mxu", dx, conv_kernels.conv3x3_mxu_plain(g, w9t), at)
+        add("K9_conv3x3_mxu", at + " input gradient", err,
+            cuda_ms(lambda: conv_kernels.conv3x3_mxu(g, w9t)),
+            cuda_ms(lambda: conv_kernels.conv3x3_mxu_plain(g, w9t)),
+            cuda_ms(lambda: F.conv2d(nchw(g), wt_lib, padding=1)),
+            g.numel() * 2 + w9t.numel() * 2 + dx.numel() * 2, flops)
+
+
+def kernel_phase(pipe, state, batch, aux, launches):
+    rows = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, f32_mode_ms=0.0,
+                       bound_ms=0.0, by_bytes=0.0, by_ops=0.0, err=0.0, tol=0.0)
             for name in KERNELS}
 
-    def add(name, where, err_tol, ms, plain_ms, library_ms, nbytes, flops=0.0):
+    def add(name, where, err_tol, ms, plain_ms, library_ms, nbytes, flops=0.0,
+            f32_mode_ms=None):
         """Accumulate one launch's numbers; its bound is the larger of its
-        bytes over HBM bandwidth and its flops over the bf16 peak."""
+        bytes over HBM bandwidth and its flops over the bf16 peak. A bf16
+        mode has no library call computing its function (``library_ms``
+        None); it is timed beside its f32 mode instead."""
         r = rows[name]
         r["err"] = max(r["err"], err_tol[0])
         r["tol"] = max(r["tol"], err_tol[1])
         r["ms"] += ms
         r["plain_ms"] += plain_ms
-        r["library_ms"] += library_ms
+        if library_ms is None:
+            r["library_ms"] = None
+            r["f32_mode_ms"] += f32_mode_ms
+        else:
+            r["library_ms"] += library_ms
         b_ms, b_by = bound_ms(nbytes, flops)
         r["bound_ms"] += b_ms
         r["by_bytes" if b_by == "bytes" else "by_ops"] += b_ms
+        other = (f"library {library_ms:.4f}" if library_ms is not None
+                 else f"f32 mode {f32_mode_ms:.4f}")
         log(f"[kernel] {name} {where}: {ms:.4f} ms (bound {b_ms:.4f} by {b_by}), "
-            f"plain {plain_ms:.4f}, library {library_ms:.4f}")
+            f"plain {plain_ms:.4f}, {other}")
 
     layers = [l.detach() for l in state.texture.layers]
     shapes = [tuple(l.shape[:2]) for l in layers]
@@ -453,6 +713,7 @@ def kernel_phase(pipe, state, batch, aux, counts):
         with torch.no_grad():
             pred = sample_texture(state.texture, grid)
         trunk_kernels(f"level {i}", pipe, pred, add)
+        k9_kernels(f"level {i}", pipe, pred, add)
         # K1: the sum over layers of the bilinear sample
         lib_in = [l.expand(v, -1, -1, -1) for l in layers_cf]
 
@@ -463,11 +724,17 @@ def kernel_phase(pipe, state, batch, aux, counts):
 
         err = check("K1_gather", gs.gather_layers(layers, grid),
                     gs.gather_layers_plain(layers, grid))
-        add("K1_gather", f"level {i}", err,
-            cuda_ms(lambda: gs.gather_layers(layers, grid)),
+        gather_bytes = npx * (8 + 12) + 12 * touched_texels(grid, layers)
+        k1_ms = cuda_ms(lambda: gs.gather_layers(layers, grid))
+        add("K1_gather", f"level {i}", err, k1_ms,
             cuda_ms(lambda: gs.gather_layers_plain(layers, grid)),
-            cuda_ms(library_gather),
-            npx * (8 + 12) + 12 * touched_texels(grid, layers))
+            cuda_ms(library_gather), gather_bytes)
+        err = check("K1_gather_bf16", gs.gather_layers(layers, grid, "bf16"),
+                    gs.gather_layers_plain_bf16(layers, grid))
+        add("K1_gather_bf16", f"level {i}", err,
+            cuda_ms(lambda: gs.gather_layers(layers, grid, "bf16")),
+            cuda_ms(lambda: gs.gather_layers_plain_bf16(layers, grid)),
+            None, gather_bytes, f32_mode_ms=k1_ms)
         # K2: cotangent zero where the level's gradient weight is zero, as on
         # the main path
         gen = torch.Generator(device="cuda").manual_seed(i)
@@ -480,12 +747,20 @@ def kernel_phase(pipe, state, batch, aux, counts):
                                     padding_mode="border", align_corners=True)
                       for x in lib_leaf)
         g_cf = g.permute(0, 3, 1, 2)
-        add("K2_splat", f"level {i}", err,
-            cuda_ms(lambda: gs.splat_layers(g, grid, shapes)),
+        splat_bytes = npx * (12 + 8) + 12 * sum(a * b for a, b in shapes)
+        k2_ms = cuda_ms(lambda: gs.splat_layers(g, grid, shapes))
+        add("K2_splat", f"level {i}", err, k2_ms,
             cuda_ms(lambda: gs.splat_layers_plain(g, grid, shapes)),
             cuda_ms(lambda: torch.autograd.grad(lib_out, lib_leaf, g_cf,
                                                 retain_graph=True)),
-            npx * (12 + 8) + 12 * sum(a * b for a, b in shapes))
+            splat_bytes)
+        del lib_out, lib_leaf
+        err = check("K2_splat_bf16", gs.splat_layers(g, grid, shapes, "bf16"),
+                    gs.splat_layers_plain_bf16(g, grid, shapes))
+        add("K2_splat_bf16", f"level {i}", err,
+            cuda_ms(lambda: gs.splat_layers(g, grid, shapes, "bf16")),
+            cuda_ms(lambda: gs.splat_layers_plain_bf16(g, grid, shapes)),
+            None, splat_bytes, f32_mode_ms=k2_ms)
 
         # K3 / K4 at the fused (level, layer) pairs
         fused = aux.loss_aux["gram_masks"][i]
@@ -527,14 +802,18 @@ def kernel_phase(pipe, state, batch, aux, counts):
     out = []
     for name, spec in KERNELS.items():
         r = rows[name]
-        out.append(dict(
+        n, per_step = launches[name]
+        row = dict(
             name=name, route="cuda", source=spec["source"],
-            replaces=spec["replaces"], launches=counts[name],
-            launches_per_step=counts[name] / STEPS,
+            replaces=spec["replaces"], launches=n,
+            launches_per_step=per_step,
             max_abs_err=r["err"], tol=r["tol"], ms=r["ms"],
             kernel_ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by="bytes" if r["by_bytes"] >= r["by_ops"] else "operations",
-            library_ms=r["library_ms"]))
+            library_ms=r["library_ms"])
+        if r["library_ms"] is None:
+            row["f32_mode_ms"] = r["f32_mode_ms"]
+        out.append(row)
     return out
 
 
@@ -552,13 +831,17 @@ def main():
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
 
     pipe, state, batch, aux, counts = main_path()
+    launches = {k: (counts[k], counts[k] / STEPS) for k in BENCH_KERNELS}
     reference_check()
     reference_check_bf16()
-    rows = kernel_phase(pipe, state, batch, aux, counts)
+    launches.update(run_loop_phases(pipe, state, batch, aux))
+    rows = kernel_phase(pipe, state, batch, aux, launches)
     for r in rows:
+        other = (f"library {r['library_ms']:.4f}" if r["library_ms"] is not None
+                 else f"f32 mode {r['f32_mode_ms']:.4f}")
         log(f"[kernel] {r['name']}: {r['ms']:.4f} ms/step (bound {r['bound_ms']:.4f} "
-            f"by {r['bound_by']}), plain {r['plain_ms']:.4f}, "
-            f"library {r['library_ms']:.4f}, {r['launches_per_step']:g} launches/step")
+            f"by {r['bound_by']}), plain {r['plain_ms']:.4f}, {other}, "
+            f"{r['launches_per_step']:g} launches/step")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,9 @@ numpy arrays (the port imports nothing of JAX).
 - ``batch_from_numpy``: a ``ViewBatch``-shaped tuple of numpy arrays (the JAX
   ``ViewBatch`` fields in order; ``splat_plans`` is dropped) -> the port's
   :class:`ViewBatch` on a device.
+- ``train_state_from_numpy``: texture layers, Adam moments and step (a JAX
+  ``TrainState``'s ``texture.layers``, ``opt_state[0].mu`` / ``.nu`` and
+  ``step``, as numpy) -> the port's :class:`TrainState` on a device.
 """
 
 import numpy as np
@@ -14,6 +17,7 @@ import torch
 
 from stylemesh_tpu_torch import resolve_device
 from stylemesh_tpu_torch.data.schema import ViewBatch, to_device
+from stylemesh_tpu_torch.models.pipeline import TrainState
 from stylemesh_tpu_torch.models.texture import Texture
 from stylemesh_tpu_torch.models.vgg import _params_from_hwio
 
@@ -34,3 +38,14 @@ def batch_from_numpy(batch, device=None):
                                  for name in ViewBatch._fields]),
                      resolve_device(device))
 
+
+
+def train_state_from_numpy(layers, mu, nu, step, device=None):
+    device = resolve_device(device)
+
+    def tensors(arrays):
+        return [torch.as_tensor(np.array(a, np.float32)).to(device)
+                for a in arrays]
+
+    return TrainState(texture=Texture.from_arrays(layers, device=device),
+                      mu=tensors(mu), nu=tensors(nu), step=int(step))

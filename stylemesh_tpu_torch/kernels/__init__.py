@@ -26,8 +26,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry point -> argument types (every entry point returns an int status)
 _SIGNATURES = {
-    "stylemesh_gather": [_P, _P, _L, _P, _P, _P, _I, _P],
-    "stylemesh_splat": [_P, _P, _L, _P, _P, _P, _I, _P],
+    "stylemesh_gather": [_P, _P, _L, _P, _P, _P, _I, _I, _P],
+    "stylemesh_splat": [_P, _P, _L, _P, _P, _P, _I, _I, _P],
     "stylemesh_gram_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "stylemesh_gram_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "stylemesh_conv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

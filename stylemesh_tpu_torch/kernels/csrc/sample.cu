@@ -25,11 +25,21 @@
 // the many background pixels off texel (0,0). The sum is equal to the
 // sequential scatter-add only up to summation order.
 //
-// The TPU kernels' planned windows, residual lists and bf16 weight rounding
-// were devices for the TPU's matrix unit and are not carried over: this is the
-// exact float32 function.
+// Two modes, one template parameter of each kernel:
+//   f32   the exact float32 function (grid_sample.py::grid_sample);
+//   bf16  the TPU kernels' compute="bf16" numerics (splat_pallas.py
+//         _window_onehots / _gather_kernel / _splat_kernel): both 1-D weights
+//         are computed in float32 as the tent max(1 - |p - i|, 0) and rounded
+//         to bf16; the gather rounds the texel values to bf16 and takes the
+//         products and sums in float32; the splat rounds the cotangent, both
+//         weights and the product row_w * g to bf16 and accumulates in
+//         float32. A background pixel (grid exactly (-1, -1), the TPU
+//         wrappers' analytic texel-(0,0) term) stays exact float32 in both.
+// The TPU kernels' planned windows and residual lists were devices for the
+// TPU's matrix unit and are not carried over.
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 #define SM_MAX_LAYERS 8
@@ -69,27 +79,60 @@ __device__ __forceinline__ Corners corners(float gx, float gy, int h, int w) {
   return c;
 }
 
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// bf16 mode: the weights of the lower / upper corner, the tent
+// max(1 - |p - i|, 0) at i = floor(p) and floor(p) + 1, each rounded to bf16
+__device__ __forceinline__ void tent_bf16(float frac, float* w0, float* w1) {
+  float u = __fsub_rn(1.0f, frac);
+  *w0 = bf16r(u);
+  *w1 = bf16r(__fsub_rn(1.0f, u));
+}
+
+template <bool BF16>
 __global__ void __launch_bounds__(256) gather_kernel(
     const float2* __restrict__ grid, float* __restrict__ out, long long n,
     Layers layers) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float2 g = grid[i];
+  const bool round = BF16 && !(g.x == -1.0f && g.y == -1.0f);
   float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
   for (int l = 0; l < layers.n; ++l) {
     Corners c = corners(g.x, g.y, layers.h[l], layers.w[l]);
     const float* t = layers.ptr[l];
-    float ux = 1.0f - c.wx, uy = 1.0f - c.wy;
     float v[3];
+    if (round) {
+      // every product of two bf16 values is exact in float32, so the
+      // x-interpolation is the same with or without a fused multiply-add;
+      // the y-interpolation is written out unfused, as the plain version
+      float ux, wx, uy, wy;
+      tent_bf16(c.wx, &ux, &wx);
+      tent_bf16(c.wy, &uy, &wy);
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      float v00 = __ldg(t + 3 * c.i00 + ch);
-      float v01 = __ldg(t + 3 * c.i01 + ch);
-      float v10 = __ldg(t + 3 * c.i10 + ch);
-      float v11 = __ldg(t + 3 * c.i11 + ch);
-      float top = v00 * ux + v01 * c.wx;
-      float bot = v10 * ux + v11 * c.wx;
-      v[ch] = top * uy + bot * c.wy;
+      for (int ch = 0; ch < 3; ++ch) {
+        float v00 = bf16r(__ldg(t + 3 * c.i00 + ch));
+        float v01 = bf16r(__ldg(t + 3 * c.i01 + ch));
+        float v10 = bf16r(__ldg(t + 3 * c.i10 + ch));
+        float v11 = bf16r(__ldg(t + 3 * c.i11 + ch));
+        float top = __fadd_rn(v00 * ux, v01 * wx);
+        float bot = __fadd_rn(v10 * ux, v11 * wx);
+        v[ch] = __fadd_rn(__fmul_rn(top, uy), __fmul_rn(bot, wy));
+      }
+    } else {
+      float ux = 1.0f - c.wx, uy = 1.0f - c.wy;
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        float v00 = __ldg(t + 3 * c.i00 + ch);
+        float v01 = __ldg(t + 3 * c.i01 + ch);
+        float v10 = __ldg(t + 3 * c.i10 + ch);
+        float v11 = __ldg(t + 3 * c.i11 + ch);
+        float top = v00 * ux + v01 * c.wx;
+        float bot = v10 * ux + v11 * c.wx;
+        v[ch] = top * uy + bot * c.wy;
+      }
     }
     a0 += v[0];
     a1 += v[1];
@@ -111,6 +154,19 @@ __device__ __forceinline__ void add_corner(float* t, int idx, float wy_c,
   atomicAdd(t + 3 * idx + 2, (g2 * wy_c) * wx_c);
 }
 
+// bf16 mode: adds bf16(wy_c * g) * wx_c with g, wy_c and wx_c already
+// rounded to bf16 (the TPU kernel's bf16 row_w * g times the bf16 col_w, a
+// product exact in float32)
+__device__ __forceinline__ void add_corner_bf16(float* t, int idx, float wy_c,
+                                                float wx_c, float g0, float g1,
+                                                float g2) {
+  if (wy_c == 0.0f || wx_c == 0.0f) return;
+  atomicAdd(t + 3 * idx + 0, bf16r(wy_c * g0) * wx_c);
+  atomicAdd(t + 3 * idx + 1, bf16r(wy_c * g1) * wx_c);
+  atomicAdd(t + 3 * idx + 2, bf16r(wy_c * g2) * wx_c);
+}
+
+template <bool BF16>
 __global__ void __launch_bounds__(256) splat_kernel(
     const float2* __restrict__ grid, const float* __restrict__ cot,
     long long n, Layers grads) {
@@ -119,14 +175,30 @@ __global__ void __launch_bounds__(256) splat_kernel(
   float g0 = cot[3 * i + 0], g1 = cot[3 * i + 1], g2 = cot[3 * i + 2];
   if (g0 == 0.0f && g1 == 0.0f && g2 == 0.0f) return;
   float2 g = grid[i];
+  const bool round = BF16 && !(g.x == -1.0f && g.y == -1.0f);
+  if (round) {
+    g0 = bf16r(g0);
+    g1 = bf16r(g1);
+    g2 = bf16r(g2);
+  }
   for (int l = 0; l < grads.n; ++l) {
     Corners c = corners(g.x, g.y, grads.h[l], grads.w[l]);
     float* t = grads.ptr[l];
-    float ux = 1.0f - c.wx, uy = 1.0f - c.wy;
-    add_corner(t, c.i00, uy, ux, g0, g1, g2);
-    add_corner(t, c.i01, uy, c.wx, g0, g1, g2);
-    add_corner(t, c.i10, c.wy, ux, g0, g1, g2);
-    add_corner(t, c.i11, c.wy, c.wx, g0, g1, g2);
+    if (round) {
+      float ux, wx, uy, wy;
+      tent_bf16(c.wx, &ux, &wx);
+      tent_bf16(c.wy, &uy, &wy);
+      add_corner_bf16(t, c.i00, uy, ux, g0, g1, g2);
+      add_corner_bf16(t, c.i01, uy, wx, g0, g1, g2);
+      add_corner_bf16(t, c.i10, wy, ux, g0, g1, g2);
+      add_corner_bf16(t, c.i11, wy, wx, g0, g1, g2);
+    } else {
+      float ux = 1.0f - c.wx, uy = 1.0f - c.wy;
+      add_corner(t, c.i00, uy, ux, g0, g1, g2);
+      add_corner(t, c.i01, uy, c.wx, g0, g1, g2);
+      add_corner(t, c.i10, c.wy, ux, g0, g1, g2);
+      add_corner(t, c.i11, c.wy, c.wx, g0, g1, g2);
+    }
   }
 }
 
@@ -142,27 +214,39 @@ static Layers make_layers(void* const* ptrs, const int* hs, const int* ws,
   return l;
 }
 
+// bf16: 0 = the exact float32 function, 1 = the bf16 mode
 extern "C" int stylemesh_gather(const void* grid, void* out, long long n_px,
                                 void* const* layer_ptrs, const int* hs,
-                                const int* ws, int n_layers, void* stream) {
+                                const int* ws, int n_layers, int bf16,
+                                void* stream) {
   if (n_layers < 1 || n_layers > SM_MAX_LAYERS) return (int)cudaErrorInvalidValue;
   if (n_px == 0) return 0;
   Layers layers = make_layers(layer_ptrs, hs, ws, n_layers);
   unsigned blocks = (unsigned)((n_px + 255) / 256);
-  gather_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
-      (const float2*)grid, (float*)out, n_px, layers);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16)
+    gather_kernel<true><<<blocks, 256, 0, st>>>((const float2*)grid,
+                                                (float*)out, n_px, layers);
+  else
+    gather_kernel<false><<<blocks, 256, 0, st>>>((const float2*)grid,
+                                                 (float*)out, n_px, layers);
   return (int)cudaGetLastError();
 }
 
 extern "C" int stylemesh_splat(const void* grid, const void* cot,
                                long long n_px, void* const* grad_ptrs,
                                const int* hs, const int* ws, int n_layers,
-                               void* stream) {
+                               int bf16, void* stream) {
   if (n_layers < 1 || n_layers > SM_MAX_LAYERS) return (int)cudaErrorInvalidValue;
   if (n_px == 0) return 0;
   Layers grads = make_layers(grad_ptrs, hs, ws, n_layers);
   unsigned blocks = (unsigned)((n_px + 255) / 256);
-  splat_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
-      (const float2*)grid, (const float*)cot, n_px, grads);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16)
+    splat_kernel<true><<<blocks, 256, 0, st>>>((const float2*)grid,
+                                               (const float*)cot, n_px, grads);
+  else
+    splat_kernel<false><<<blocks, 256, 0, st>>>((const float2*)grid,
+                                                (const float*)cot, n_px, grads);
   return (int)cudaGetLastError();
 }

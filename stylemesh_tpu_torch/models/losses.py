@@ -1,6 +1,7 @@
 """Content + style losses over a multi-resolution prediction pyramid
 (counterpart of ``stylemesh_tpu/models/losses.py`` with its default
-``gram_mode='current'``; the Gram cache of ``'average'`` is not ported yet).
+``gram_mode='current'``; the Gram cache of ``'average'`` is not ported yet
+and raises, ROADMAP queue 1, item 2).
 
 - Variable-length masked feature sets are mask-weighted Grams / MSEs.
 - An empty pyramid level gets factor 0 and zero masked losses.
@@ -9,12 +10,18 @@
 - Style layers of at least ``gram_kernels.MIN_PX`` pixels go, in bf16, to the
   fused masked-Gram kernels K3/K4 (one feature read for both mask variants);
   the others stay on the plain masked Gram, as in the JAX package.
+- ``skip_levels`` (levels empty for every view) are neither encoded nor
+  scored, and the level factors are normalized over the other levels.
+- ``remat`` recomputes the VGG encode of every level with at least
+  ``remat_min_px`` pixels in the backward
+  (``torch.utils.checkpoint.checkpoint``); the numbers are the same.
 """
 
 import dataclasses
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from stylemesh_tpu_torch.models.vgg import vgg_features
 from stylemesh_tpu_torch.ops import gram_kernels
@@ -50,15 +57,25 @@ class ContentAndStyleLoss:
     content_weights: Tuple[float, ...] = DEFAULT_CONTENT_WEIGHTS
     angle_threshold: float = 60.0
     style_pyramid_mode: str = "single"  # 'single' | 'multi'
+    gram_mode: str = "current"
     pool: str = "max"
     num_style_levels: int = 5
     style_min_size: int = 256
+    remat: bool = True
+    remat_min_px: int = 0
     compute_dtype: Optional[torch.dtype] = None
     precision: str = "highest"
+    skip_levels: Tuple[int, ...] = ()
 
     def __post_init__(self):
         if self.style_pyramid_mode not in ("single", "multi"):
             raise ValueError(f"style_pyramid_mode {self.style_pyramid_mode!r}")
+        if self.gram_mode == "average":
+            raise NotImplementedError(
+                "gram_mode='average' (GramCache) is not ported yet "
+                "(ROADMAP queue 1, item 2)")
+        if self.gram_mode != "current":
+            raise ValueError(f"gram_mode {self.gram_mode!r}")
 
     @property
     def layers(self):
@@ -112,8 +129,9 @@ class ContentAndStyleLoss:
         gram_masks = [dict() for _ in range(num_levels)]
         gram_counts = [dict() for _ in range(num_levels)]
         use_fused = self.compute_dtype == torch.bfloat16
+        live = [i for i in range(num_levels) if i not in self.skip_levels]
 
-        for i in range(num_levels):
+        for i in live:
             mask = pyramid_masks[i].float()
             hw = tuple(mask.shape[1:3])
             passed = (resize_bilinear(angle_degrees.float(), hw)
@@ -154,9 +172,9 @@ class ContentAndStyleLoss:
         # normalize factors across levels per layer, guarded against
         # all-empty layers
         for k in self.layers:
-            total = sum(factors[i][k] for i in range(num_levels))
+            total = sum(factors[i][k] for i in live)
             safe = torch.where(total > 0, total, torch.ones_like(total))
-            for i in range(num_levels):
+            for i in live:
                 factors[i][k] = torch.where(total > 0, factors[i][k] / safe,
                                             torch.zeros_like(total))
 
@@ -173,7 +191,8 @@ class ContentAndStyleLoss:
         """Compute (style_loss, content_loss), scalar means over the views.
 
         Args:
-            pred_pyramid: per level ``[V, H_i, W_i, 3]`` sampled textures.
+            pred_pyramid: per level ``[V, H_i, W_i, 3]`` sampled textures,
+                None for a level of ``skip_levels``.
             target_content: ``[V, H, W, 3]`` Gatys-preprocessed photo.
             pyramid_masks: per level ``[V, H_i, W_i, 1]`` 0/1 float.
             angle_degrees: ``[V, H, W, 1]`` viewing angle in degrees.
@@ -181,9 +200,11 @@ class ContentAndStyleLoss:
         """
         num_levels = len(pred_pyramid)
         v = target_content.shape[0]
+        live = [i for i in range(num_levels)
+                if i not in self.skip_levels and pred_pyramid[i] is not None]
         if aux is None:
             aux = self.precompute_aux(
-                vgg_params, [p.shape[1:3] for p in pred_pyramid],
+                vgg_params, [tuple(m.shape[1:3]) for m in pyramid_masks],
                 target_content, pyramid_masks, angle_degrees)
         masks = aux["masks"]
         masks_failed = aux["masks_failed"]
@@ -192,8 +213,15 @@ class ContentAndStyleLoss:
         style_loss = torch.zeros((), dtype=torch.float32, device=device)
         content_loss = torch.zeros((), dtype=torch.float32, device=device)
 
-        for i in range(num_levels):
-            encs = self._encode(vgg_params, pred_pyramid[i], self.layers)
+        def encode(p):
+            return self._encode(vgg_params, p, self.layers)
+
+        for i in live:
+            p = pred_pyramid[i]
+            if self.remat and p.shape[1] * p.shape[2] >= self.remat_min_px:
+                encs = checkpoint(encode, p, use_reentrant=False)
+            else:
+                encs = encode(p)
             grams, failed_grams = {}, {}
             for k in self.style_layers:
                 if k in aux["gram_masks"][i]:

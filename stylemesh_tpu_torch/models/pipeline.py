@@ -8,6 +8,11 @@
 - Adam (0.9, 0.999, eps 1e-8) with a staircase StepLR, written out as optax
   computes it, followed by the clamp of the texture to the Gatys range. The
   texture and the Adam moments are updated in place.
+- ``skip_levels`` are neither rendered nor encoded and add no loss term;
+  ``stop_grad_levels`` are rendered and scored but their prediction is
+  detached (the run loop picks both from the scene, ``optimize.py``).
+- ``gram_mode="average"`` (the JAX package's ``GramCache``) is not ported
+  yet: building a pipeline with it raises (ROADMAP queue 1, item 2).
 """
 
 import dataclasses
@@ -96,6 +101,7 @@ class PipelineConfig:
     use_depth_scaling: bool = True
     angle_threshold: float = 60.0
     style_pyramid_mode: str = "single"
+    gram_mode: str = "current"  # "average" is not ported yet (raises)
     num_style_levels: int = 5
     style_min_size: int = 256
 
@@ -113,9 +119,17 @@ class PipelineConfig:
     # warning (as in the JAX package)
     steps_per_epoch: int = 0
 
-    # numerics
+    # numerics / kernels
     compute_dtype: Optional[torch.dtype] = None  # torch.bfloat16 on the card
     precision: str = "highest"  # 'highest': float32 convolutions without TF32
+    kernel_compute: str = "f32"  # K1/K2 numerics: "f32" | "bf16"
+    remat_vgg: bool = True  # recompute VGG activations in the backward
+    remat_min_px: int = 0  # remat only levels with >= this many pixels
+    # pyramid levels empty for every view: not rendered, encoded or scored
+    skip_levels: Tuple[int, ...] = ()
+    # pyramid levels whose gradient weight is zero at every pixel: value
+    # kept, prediction detached
+    stop_grad_levels: Tuple[int, ...] = ()
 
     def resolved_tex_reg_weights(self):
         if self.tex_reg_weights is not None:
@@ -137,10 +151,14 @@ class PipelineConfig:
             content_weights=self.content_weights,
             angle_threshold=self.angle_threshold,
             style_pyramid_mode=self.style_pyramid_mode,
+            gram_mode=self.gram_mode,
             num_style_levels=self.num_style_levels,
             style_min_size=self.style_min_size,
+            remat=self.remat_vgg,
+            remat_min_px=self.remat_min_px,
             compute_dtype=self.compute_dtype,
             precision=self.precision,
+            skip_levels=self.skip_levels,
         )
 
 
@@ -253,11 +271,18 @@ class TexturePipeline:
         cfg = self.config
         if aux is None:
             aux = self.prepare_batch(batch)
-        # 1. render: sample the atlas at every UV pyramid level (K1 / K2)
-        pred_pyramid = [sample_texture(texture, uv) for uv in batch.uv]
+        # 1. render: sample the atlas at every live UV pyramid level (K1 / K2)
+        skip, sgl = set(cfg.skip_levels), set(cfg.stop_grad_levels)
+        pred_pyramid = [
+            None if i in skip else
+            sample_texture(texture, uv, compute=cfg.kernel_compute)
+            for i, uv in enumerate(batch.uv)]
+        # gradient-dead levels: value kept, backward dropped
+        pred_pyramid = [p.detach() if p is not None and i in sgl else p
+                        for i, p in enumerate(pred_pyramid)]
         # 2. gradient weighting (forward-mode equivalent of the hooks)
         if aux.grad_weights is not None:
-            pred_pyramid = [_grad_scale(p, w)
+            pred_pyramid = [p if p is None else _grad_scale(p, w)
                             for p, w in zip(pred_pyramid, aux.grad_weights)]
         # 3. content + style
         style_loss, content_loss = self.loss(

@@ -48,8 +48,10 @@ class Texture(nn.Module):
 
     @staticmethod
     def from_arrays(arrays, device=None):
+        """Layers copied from ``arrays`` (the optimizer updates them in
+        place, so they never share memory with the caller's arrays)."""
         device = resolve_device(device)
-        return Texture([torch.as_tensor(a, dtype=torch.float32).to(device)
+        return Texture([torch.tensor(a, dtype=torch.float32, device=device)
                         for a in arrays])
 
 
@@ -61,10 +63,11 @@ def clamp_texture(texture: Texture) -> Texture:
     return texture
 
 
-def sample_texture(texture: Texture, grid):
+def sample_texture(texture: Texture, grid, compute="f32"):
     """Sample all layers at ``grid [..., 2]`` and sum: one K1 launch per grid
-    on the card, its K2 splat in the backward."""
-    return sample_layers(list(texture.layers), grid)
+    on the card, its K2 splat in the backward. ``compute``: ``"f32"`` (exact)
+    or ``"bf16"``, the kernels' bf16 mode (``ops/grid_sample.py``)."""
+    return sample_layers(list(texture.layers), grid, compute)
 
 
 def texture_regularizer(texture: Texture, weights):

@@ -20,11 +20,27 @@ Two routes, as in the JAX package:
   tensors in ``channels_last`` memory, as the JAX package keeps its float32
   path on XLA.
 
+Two environment variables of the JAX package choose the route, read at
+every call of :func:`vgg_features` as the JAX package reads them, with the
+same defaults:
+
+- ``STYLEMESH_CONV_FLIPVJP`` (default ``1``): ``0`` turns off every fused
+  route above. Every conv is then ``relu(conv3x3(h) + b)`` with autograd's
+  relu and every pool the plain ``F.max_pool2d`` / ``F.avg_pool2d``
+  (:func:`_unfused_trunk`).
+- ``STYLEMESH_FAST_CONV`` (default ``0``): on that unfused route, ``1``
+  sends each bf16 / ``precision='default'`` conv with Cin >= 64 to K9
+  (``conv_kernels._ConvFrozen``) followed by a bf16 bias add, as the JAX
+  package's ``_conv3x3`` does; conv1_1 and every other conv stay on
+  ``F.conv2d`` (cuDNN on the card) with autograd.
+
 Parameters are stored OIHW (PyTorch's layout; the JAX package's are HWIO).
 The kernel route lays each conv's weights out once, at its first use, as
 ``w9`` / ``w9_flipped`` bf16 matrices and a float32 bias kept in the conv's
 parameter dict (:func:`kernel_layout`).
 """
+
+import os
 
 import numpy as np
 import torch
@@ -257,6 +273,41 @@ def _kernel_trunk(params, x, wanted, last_needed, pool):
     return outs
 
 
+def _conv3x3(h, p, precision):
+    """The unfused route's ``conv3x3(h) + b`` (the JAX package's
+    ``_conv3x3`` with the flip VJP off), channel-last. K9 under
+    ``STYLEMESH_FAST_CONV=1`` for bf16 at default precision and Cin >= 64,
+    with the bias added in bf16 after K9's rounding; ``F.conv2d`` with
+    autograd otherwise."""
+    if (h.dtype == torch.bfloat16 and precision == "default"
+            and h.shape[-1] >= 64
+            and os.environ.get("STYLEMESH_FAST_CONV", "0") == "1"):
+        w9, w9_flipped, _ = kernel_layout(p)
+        out = conv_kernels._ConvFrozen.apply(h.contiguous(), w9, w9_flipped)
+        return out + p["bias"].to(out.dtype)
+    w = p["weight"].to(h.dtype).contiguous(memory_format=torch.channels_last)
+    with _conv_flags(h, precision):
+        out = F.conv2d(h.permute(0, 3, 1, 2), w, padding=1)
+    return (out + p["bias"].to(out.dtype).view(1, -1, 1, 1)).permute(0, 2, 3, 1)
+
+
+def _unfused_trunk(params, x, wanted, last_needed, pool, precision):
+    """``STYLEMESH_CONV_FLIPVJP=0``: every conv is ``relu(_conv3x3(h))``
+    with autograd's relu, every pool the plain one; channel-last."""
+    outs = {}
+    h = x
+    for i, (name, conv) in enumerate(_TRUNK):
+        if conv is not None:
+            h = torch.relu(_conv3x3(h, params[conv], precision))
+        else:
+            h = _pool_nhwc(h, pool)
+        if name in wanted:
+            outs[name] = h
+        if i == last_needed:
+            break
+    return outs
+
+
 def vgg_features(params, x, out_keys, pool="max", compute_dtype=None,
                  precision="highest"):
     """Run the VGG-16 trunk and return the requested activations.
@@ -278,6 +329,10 @@ def vgg_features(params, x, out_keys, pool="max", compute_dtype=None,
     wanted = set(out_keys)
     last_needed = max(i for i, (name, _) in enumerate(_TRUNK) if name in wanted)
     dtype = compute_dtype or x.dtype
+    if os.environ.get("STYLEMESH_CONV_FLIPVJP", "1") == "0":
+        outs = _unfused_trunk(params, x.to(dtype), wanted, last_needed, pool,
+                              precision)
+        return {k: outs[k] for k in out_keys}
     if dtype == torch.bfloat16 and precision == "default":
         outs = _kernel_trunk(params, x.to(dtype), wanted, last_needed, pool)
         return {k: outs[k] for k in out_keys}

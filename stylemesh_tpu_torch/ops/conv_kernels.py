@@ -1,6 +1,7 @@
 """3x3 stride-1 SAME convolution with the bias and relu fused: kernel K5
 (counterpart of ``stylemesh_tpu/ops/conv_pallas.py::conv3x3_v2``, which
-reaches ``_conv3x3_v2_raw``).
+reaches ``_conv3x3_v2_raw``), and the plain convolution K9 (counterpart of
+``conv_pallas.py::conv3x3_mxu`` and its ``conv3x3_frozen`` VJP).
 
     y = bf16(act(conv3x3(x, w) + b)),   act = relu or identity
 
@@ -12,10 +13,16 @@ as the TPU kernel does. The trunk's input gradients are the same function
 with the flipped, io-swapped kernel (:func:`flipped_w9_from_oihw`), no bias
 and relu off.
 
-The TPU kernel's width packing of narrow channel counts, 8-column alignment
-pads and VMEM tile heuristics are not carried over: the Hopper kernel
-(``kernels/csrc/conv.cu``) tiles output pixels itself and masks the ragged
-edge.
+K9 computes ``bf16(conv3x3(x, w9))``: bf16 inputs, float32 sums, no bias,
+no relu. That is K5 with ``bias=None, relu=False``, so K9 is that entry of
+``conv.cu`` under its own wrapper (:func:`conv3x3_mxu`) and launch count;
+:class:`_ConvFrozen` gives it the frozen-VGG VJP (input gradient = K9 with
+the flipped kernel, no weight gradient).
+
+The TPU kernels' width packing of narrow channel counts, lane padding of
+Cin to 128, 8-column alignment pads and VMEM tile heuristics are not
+carried over: the Hopper kernel (``kernels/csrc/conv.cu``) tiles output
+pixels itself and masks the ragged edge.
 """
 
 import contextlib
@@ -86,12 +93,7 @@ def check_conv(x, w9, bias):
         raise ValueError(f"bias {tuple(bias.shape)} vs Cout {cout}")
 
 
-def conv3x3(x, w9, bias=None, relu=False):
-    """K5: ``bf16(act(conv3x3(x, w9) + bias))`` ``[V, H, W, Cout]``. CPU
-    tensors take the plain version; CUDA tensors launch the kernel or raise.
-    Equal to the plain version up to the order of the float32 sums."""
-    if x.device.type == "cpu":
-        return conv3x3_plain(x, w9, bias, relu)
+def _launch_conv3x3(x, w9, bias, relu):
     check_conv(x, w9, bias)
     v, h, w, cin = x.shape
     cout = w9.shape[1]
@@ -99,8 +101,55 @@ def conv3x3(x, w9, bias=None, relu=False):
     kernels.launch("stylemesh_conv3x3", x.device, x.data_ptr(), w9.data_ptr(),
                    None if bias is None else bias.data_ptr(), y.data_ptr(),
                    None, v, h, w, cin, cout, int(relu), 0)
+    return y
+
+
+def conv3x3(x, w9, bias=None, relu=False):
+    """K5: ``bf16(act(conv3x3(x, w9) + bias))`` ``[V, H, W, Cout]``. CPU
+    tensors take the plain version; CUDA tensors launch the kernel or raise.
+    Equal to the plain version up to the order of the float32 sums."""
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, w9, bias, relu)
+    y = _launch_conv3x3(x, w9, bias, relu)
     conv3x3.launches += 1
     return y
 
 
 conv3x3.launches = 0
+
+
+def conv3x3_mxu_plain(x, w9):
+    """Plain version of K9: the float32 convolution of the bf16 values, one
+    rounding to bf16."""
+    return conv3x3_plain(x, w9)
+
+
+def conv3x3_mxu(x, w9):
+    """K9: ``bf16(conv3x3(x, w9))`` ``[V, H, W, Cout]``, no bias, no relu.
+    CPU tensors take :func:`conv3x3_mxu_plain`; CUDA tensors launch the
+    kernel or raise."""
+    if x.device.type == "cpu":
+        return conv3x3_mxu_plain(x, w9)
+    y = _launch_conv3x3(x, w9, None, False)
+    conv3x3_mxu.launches += 1
+    return y
+
+
+conv3x3_mxu.launches = 0
+
+
+class _ConvFrozen(torch.autograd.Function):
+    """K9 with the JAX package's ``conv3x3_frozen`` VJP: the input gradient
+    is K9 with the flipped, io-swapped kernel applied to the bf16
+    cotangent; the weights get no gradient (the VGG is frozen)."""
+
+    @staticmethod
+    def forward(ctx, x, w9, w9_flipped):
+        ctx.save_for_backward(w9_flipped)
+        return conv3x3_mxu(x, w9)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w9_flipped,) = ctx.saved_tensors
+        dx = conv3x3_mxu(g.to(torch.bfloat16).contiguous(), w9_flipped)
+        return dx, None, None

@@ -14,6 +14,19 @@ tensors that lie on the CPU; a CUDA tensor launches the kernel or raises.
 Conventions: texture layers ``[H, W, C]`` channel-last float32; grids
 ``[..., 2]`` with ``(x, y)`` in ``[-1, 1]``, where -1 maps to pixel 0 and
 +1 to pixel ``size - 1``.
+
+``compute`` selects the kernels' numerics, as ``sample_texture(...,
+compute=)`` of the JAX package does for its planned TPU kernels:
+
+- ``"f32"``: the exact float32 function;
+- ``"bf16"``: the TPU kernels' bf16 mode (``splat_pallas.py``). Both 1-D
+  bilinear weights are the float32 tent ``max(1 - |p - i|, 0)`` rounded to
+  bf16. The gather rounds the texel values to bf16 and takes products and
+  sums in float32; the splat rounds the cotangent and ``row_w * g`` to bf16
+  too, and accumulates in float32. The JAX package rounds only the pixels
+  inside its planned windows; the port has no planner, so it rounds every
+  pixel except the background pixels at grid exactly ``(-1, -1)``, which
+  stay exact float32 there as here.
 """
 
 import ctypes
@@ -23,6 +36,7 @@ import torch
 from stylemesh_tpu_torch import kernels
 
 MAX_LAYERS = 8  # SM_MAX_LAYERS in kernels/csrc/sample.cu
+COMPUTE_MODES = ("f32", "bf16")
 
 
 def _corner_indices_weights(grid, h, w):
@@ -71,8 +85,64 @@ def _splat_plain(g, grid, h, w):
     return dtex.reshape(h, w, c)
 
 
+def _bf16r(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _tent_bf16(frac):
+    """bf16 mode: the lower / upper corner weights, the float32 tent
+    ``max(1 - |p - i|, 0)`` at ``i = floor(p)`` and ``floor(p) + 1``, each
+    rounded to bf16."""
+    u = 1.0 - frac
+    return _bf16r(u), _bf16r(1.0 - u)
+
+
+def _background(grid):
+    """``[...]`` bool: pixels at grid exactly (-1, -1)."""
+    return (grid[..., 0] == -1.0) & (grid[..., 1] == -1.0)
+
+
+def _gather_plain_bf16(texture, grid):
+    h, w, c = texture.shape
+    iy0, iy1, ix0, ix1, wy1, wx1 = _corner_indices_weights(grid, h, w)
+    flat = _bf16r(texture).reshape(h * w, c)
+
+    def pix(iy, ix):
+        idx = iy * w + ix
+        return flat[idx.reshape(-1)].reshape(idx.shape + (c,))
+
+    ux, wx = (t[..., None] for t in _tent_bf16(wx1))
+    uy, wy = (t[..., None] for t in _tent_bf16(wy1))
+    top = pix(iy0, ix0) * ux + pix(iy0, ix1) * wx
+    bot = pix(iy1, ix0) * ux + pix(iy1, ix1) * wx
+    out = top * uy + bot * wy
+    return torch.where(_background(grid)[..., None],
+                       _gather_plain(texture, grid), out)
+
+
+def _splat_plain_bf16(g, grid, h, w):
+    c = g.shape[-1]
+    iy0, iy1, ix0, ix1, wy1, wx1 = _corner_indices_weights(grid, h, w)
+    bg = _background(grid).reshape(-1, 1)
+    g2 = g.reshape(-1, c)
+    gb = _bf16r(g2)
+    ux, wx = (t.reshape(-1, 1) for t in _tent_bf16(wx1))
+    uy, wy = (t.reshape(-1, 1) for t in _tent_bf16(wy1))
+    wy1f, wx1f = wy1.reshape(-1, 1), wx1.reshape(-1, 1)
+    dtex = torch.zeros((h * w, c), dtype=g.dtype, device=g.device)
+    for iy, ix, exact, row_w, col_w in (
+            (iy0, ix0, g2 * (1.0 - wy1f) * (1.0 - wx1f), uy, ux),
+            (iy0, ix1, g2 * (1.0 - wy1f) * wx1f, uy, wx),
+            (iy1, ix0, g2 * wy1f * (1.0 - wx1f), wy, ux),
+            (iy1, ix1, g2 * wy1f * wx1f, wy, wx)):
+        contrib = torch.where(bg, exact, _bf16r(row_w * gb) * col_w)
+        dtex.index_add_(0, (iy * w + ix).reshape(-1), contrib)
+    return dtex.reshape(h, w, c)
+
+
 def gather_layers_plain(layers, grid):
-    """Plain version of K1: sum over layers of the bilinear sample."""
+    """Plain version of K1 (f32 mode): sum over layers of the bilinear
+    sample."""
     out = None
     for layer in layers:
         y = _gather_plain(layer, grid)
@@ -80,9 +150,29 @@ def gather_layers_plain(layers, grid):
     return out
 
 
+def gather_layers_plain_bf16(layers, grid):
+    """Plain version of K1's bf16 mode."""
+    out = None
+    for layer in layers:
+        y = _gather_plain_bf16(layer, grid)
+        out = y if out is None else out + y
+    return out
+
+
 def splat_layers_plain(g, grid, shapes):
-    """Plain version of K2: per-layer scatter-add of the cotangent ``g``."""
+    """Plain version of K2 (f32 mode): per-layer scatter-add of the
+    cotangent ``g``."""
     return [_splat_plain(g, grid, h, w) for (h, w) in shapes]
+
+
+def splat_layers_plain_bf16(g, grid, shapes):
+    """Plain version of K2's bf16 mode."""
+    return [_splat_plain_bf16(g, grid, h, w) for (h, w) in shapes]
+
+
+def _check_compute(compute):
+    if compute not in COMPUTE_MODES:
+        raise ValueError(f"compute must be one of {COMPUTE_MODES}, got {compute!r}")
 
 
 def _layer_table(tensors):
@@ -104,38 +194,50 @@ def _check_sampling(layers, grid):
     kernels.require_cuda(grid, *layers, dtype=torch.float32)
 
 
-def gather_layers(layers, grid):
+def gather_layers(layers, grid, compute="f32"):
     """K1: ``sum_l bilinear(layers[l], grid)`` -> ``grid.shape[:-1] + (3,)``.
 
-    CPU tensors take :func:`gather_layers_plain`; CUDA tensors launch the
-    kernel (one launch for all layers) or raise.
+    CPU tensors take :func:`gather_layers_plain` (or its bf16 twin); CUDA
+    tensors launch the kernel (one launch for all layers) or raise. Counts
+    its launches in ``.launches`` (f32) and ``.bf16_launches``.
     """
+    _check_compute(compute)
+    bf16 = compute == "bf16"
     if grid.device.type == "cpu":
-        return gather_layers_plain(layers, grid)
+        return (gather_layers_plain_bf16 if bf16
+                else gather_layers_plain)(layers, grid)
     _check_sampling(layers, grid)
     out = torch.empty(grid.shape[:-1] + (3,), dtype=torch.float32,
                       device=grid.device)
     ptrs, hs, ws = _layer_table(layers)
     kernels.launch("stylemesh_gather", grid.device, grid.data_ptr(),
                    out.data_ptr(), grid.numel() // 2, ptrs, hs, ws,
-                   len(layers))
-    gather_layers.launches += 1
+                   len(layers), int(bf16))
+    if bf16:
+        gather_layers.bf16_launches += 1
+    else:
+        gather_layers.launches += 1
     return out
 
 
 gather_layers.launches = 0
+gather_layers.bf16_launches = 0
 
 
-def splat_layers(g, grid, shapes):
+def splat_layers(g, grid, shapes, compute="f32"):
     """K2: the atlas gradients of :func:`gather_layers` for cotangent ``g``,
     one zero-initialised float32 ``[H_l, W_l, 3]`` per ``shapes[l]``.
 
-    CPU tensors take :func:`splat_layers_plain`; CUDA tensors launch the
-    kernel (one launch for all layers) or raise. Equal to the sequential
-    scatter-add up to the order of the float32 atomics.
+    CPU tensors take :func:`splat_layers_plain` (or its bf16 twin); CUDA
+    tensors launch the kernel (one launch for all layers) or raise. Equal to
+    the sequential scatter-add up to the order of the float32 atomics.
+    Counts its launches in ``.launches`` (f32) and ``.bf16_launches``.
     """
+    _check_compute(compute)
+    bf16 = compute == "bf16"
     if grid.device.type == "cpu":
-        return splat_layers_plain(g, grid, shapes)
+        return (splat_layers_plain_bf16 if bf16
+                else splat_layers_plain)(g, grid, shapes)
     grads = [torch.zeros((h, w, 3), dtype=torch.float32, device=grid.device)
              for (h, w) in shapes]
     _check_sampling(grads, grid)
@@ -144,12 +246,17 @@ def splat_layers(g, grid, shapes):
         raise ValueError(f"cotangent {tuple(g.shape)} vs grid {tuple(grid.shape)}")
     ptrs, hs, ws = _layer_table(grads)
     kernels.launch("stylemesh_splat", grid.device, grid.data_ptr(),
-                   g.data_ptr(), grid.numel() // 2, ptrs, hs, ws, len(grads))
-    splat_layers.launches += 1
+                   g.data_ptr(), grid.numel() // 2, ptrs, hs, ws, len(grads),
+                   int(bf16))
+    if bf16:
+        splat_layers.bf16_launches += 1
+    else:
+        splat_layers.launches += 1
     return grads
 
 
 splat_layers.launches = 0
+splat_layers.bf16_launches = 0
 
 
 class _SampleLayers(torch.autograd.Function):
@@ -157,21 +264,23 @@ class _SampleLayers(torch.autograd.Function):
     layers only (UV grids are baked batch constants)."""
 
     @staticmethod
-    def forward(ctx, grid, *layers):
+    def forward(ctx, grid, compute, *layers):
         ctx.save_for_backward(grid)
         ctx.shapes = [tuple(l.shape[:2]) for l in layers]
-        return gather_layers(layers, grid)
+        ctx.compute = compute
+        return gather_layers(layers, grid, compute)
 
     @staticmethod
     def backward(ctx, g):
         (grid,) = ctx.saved_tensors
-        grads = splat_layers(g.contiguous(), grid, ctx.shapes)
-        return (None, *grads)
+        grads = splat_layers(g.contiguous(), grid, ctx.shapes, ctx.compute)
+        return (None, None, *grads)
 
 
-def sample_layers(layers, grid):
-    """``sum_l grid_sample(layers[l], grid)`` with the K1/K2 autograd pair."""
-    return _SampleLayers.apply(grid.contiguous(),
+def sample_layers(layers, grid, compute="f32"):
+    """``sum_l grid_sample(layers[l], grid)`` with the K1/K2 autograd pair
+    in the given ``compute`` mode."""
+    return _SampleLayers.apply(grid.contiguous(), compute,
                                *[l.contiguous() for l in layers])
 
 

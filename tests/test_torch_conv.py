@@ -1,8 +1,9 @@
-"""Port parity: the 3x3 conv K5 (``ops/conv_kernels.py``), conv1_1's im2col
-product (``ops/conv_im2col.py``) and the input gradients of the trunk's
-conv + relu, against the JAX package's Pallas kernel ``conv3x3_v2`` in
-interpret mode and its ``conv3x3_im2col``, on the CPU (where the port runs
-the kernels' plain versions).
+"""Port parity: the 3x3 convs K5 and K9 (``ops/conv_kernels.py``), conv1_1's
+im2col product (``ops/conv_im2col.py``) and the input gradients of the
+trunk's conv + relu and of K9's frozen VJP, against the JAX package's Pallas
+kernels ``conv3x3_v2`` and ``conv3x3_mxu`` / ``conv3x3_frozen`` in interpret
+mode and its ``conv3x3_im2col``, on the CPU (where the port runs the
+kernels' plain versions).
 
 Tolerances (both sides: bf16 operands, float32 sums in different orders,
 float32 bias, relu, one bf16 rounding):
@@ -10,7 +11,8 @@ float32 bias, relu, one bf16 rounding):
   |diff| < 5e-3 (the JAX package's own bounds for its conv kernels);
 - input gradients: at most 2e-3 of the elements outside
   ``0.05 + 0.05 * |ref|``, since a value that rounds to the other side of
-  zero flips a relu mask.
+  zero flips a relu mask. K9 has no relu: its input gradient is held to the
+  forward's bound.
 """
 
 import jax
@@ -21,7 +23,7 @@ import torch
 
 from stylemesh_tpu.models.vgg import _conv3x3_relu_v2
 from stylemesh_tpu.ops.conv_im2col import conv3x3_im2col as j_im2col
-from stylemesh_tpu.ops.conv_pallas import conv3x3_v2
+from stylemesh_tpu.ops.conv_pallas import conv3x3_frozen, conv3x3_mxu, conv3x3_v2
 from stylemesh_tpu_torch.models import vgg as tvgg
 from stylemesh_tpu_torch.ops import conv_kernels
 from stylemesh_tpu_torch.ops.conv_im2col import conv3x3_im2col
@@ -115,3 +117,38 @@ def test_im2col_matches_jax(relu):
     (got,) = torch.autograd.grad(out, [xt], _bf16(ct))
     _assert_forward(out.detach(), y)
     _assert_grad(got, want)
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 64), (64, 128), (128, 256),
+                                      (256, 512)])
+def test_conv3x3_mxu_matches_pallas(cin, cout):
+    """K9 (``conv3x3_mxu_plain`` here) against ``conv3x3_mxu`` in interpret
+    mode: no bias, no relu, one bf16 rounding."""
+    _, x, k, _ = _inputs(100 + cin + cout, 2, 9, 11, cin, cout)
+    want = conv3x3_mxu(jnp.asarray(x, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
+                       interpret=True)
+    w9, _ = _port_layout(k)
+    got = conv_kernels.conv3x3_mxu(_bf16(x), w9)
+    assert got.dtype == torch.bfloat16
+    _assert_forward(got, want)
+    _assert_forward(conv_kernels.conv3x3_mxu_plain(_bf16(x), w9), want)
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 128), (256, 256)])
+def test_conv_frozen_input_gradient_matches_jax(cin, cout):
+    """``_ConvFrozen`` (K9 forward, K9 with the flipped kernel on the bf16
+    cotangent) against ``jax.vjp`` of ``conv3x3_frozen`` in interpret mode;
+    the weights get no gradient in either."""
+    rng, x, k, _ = _inputs(50 + cin, 2, 10, 13, cin, cout)
+    ct = rng.normal(0, 1, (2, 10, 13, cout)).astype(np.float32)
+    y, vjp = jax.vjp(lambda t: conv3x3_frozen(t, jnp.asarray(k, jnp.bfloat16),
+                                              True),
+                     jnp.asarray(x, jnp.bfloat16))
+    (want,) = vjp(jnp.asarray(ct, jnp.bfloat16))
+    w9, w9t = _port_layout(k)
+    xt = _bf16(x).requires_grad_()
+    out = conv_kernels._ConvFrozen.apply(xt, w9, w9t)
+    (got,) = torch.autograd.grad(out, [xt], _bf16(ct))
+    _assert_forward(out.detach(), y)
+    assert got.dtype == torch.bfloat16
+    _assert_forward(got, want)

@@ -153,3 +153,41 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g),
                        head_kernels.conv_relu_pool_bwd_plain(x, w9, w9t, b, g))
     assert _launch_counts() == before
+
+
+def test_slice3_entry_points_stay_on_the_card(monkeypatch, tmp_path):
+    """The run loop and the CLI default to CUDA and raise without it before
+    writing anything; the bf16 mode of K1/K2 and K9 refuse tensors that are
+    not on the CPU or a card, counting no launch; data parallelism over
+    more than one card raises until the multi-device item lands."""
+    from stylemesh_tpu_torch import cli, optimize
+
+    before = (gs.gather_layers.bf16_launches, gs.splat_layers.bf16_launches,
+              conv_kernels.conv3x3_mxu.launches)
+    meta = torch.device("meta")
+    grid = torch.zeros((1, 4, 4, 2), device=meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        gs.gather_layers([torch.zeros((8, 8, 3), device=meta)], grid, "bf16")
+    with pytest.raises(ValueError, match="CUDA"):
+        gs.splat_layers(torch.zeros((1, 4, 4, 3), device=meta), grid, [(8, 8)],
+                        "bf16")
+    x, w9, _, _, _ = _conv_inputs(meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        conv_kernels.conv3x3_mxu(x, w9)
+    assert (gs.gather_layers.bf16_launches, gs.splat_layers.bf16_launches,
+            conv_kernels.conv3x3_mxu.launches) == before
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    run = optimize.RunConfig(data_parallel=True)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        optimize._check_single_device(run, torch.device("cuda"))
+    optimize._check_single_device(run, torch.device("cpu"))  # one device
+
+    _no_cuda(monkeypatch)
+    log_dir = tmp_path / "runs"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        optimize.run_training(optimize.RunConfig(log_dir=str(log_dir)),
+                              PipelineConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["--no_post_steps", "--log_dir", str(log_dir)])
+    assert not log_dir.exists()

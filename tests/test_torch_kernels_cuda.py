@@ -8,13 +8,15 @@ On the card, without JAX installed:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py -q
 
 Tolerances, relative to the plain output's largest value: sampling 1e-5
-(float32, fused multiply-adds), splat 1e-5 (float32 atomics order), Gram
-sums 1e-4 (float32 sums in another order), Gram gradient two bf16 ulps;
-the trunk's convs K5-K8 1e-2 (about two bf16 ulps: float32 sums in another
-order, then one rounding). Between the kernels themselves the checks are
-exact: K6 is the pool of K5's output and K7 is K6 and K5 bit for bit (one
-K loop and one epilogue), and K8 is within one bf16 ulp per element of the
-composed backward built from K5.
+(float32, fused multiply-adds; 1e-6 in the bf16 mode, whose products of
+bf16 values are exact and whose other operations are unfused), splat 1e-5
+(float32 atomics order), Gram sums 1e-4 (float32 sums in another order),
+Gram gradient two bf16 ulps; the trunk's convs K5-K9 1e-2 (about two bf16
+ulps: float32 sums in another order, then one rounding). Between the
+kernels themselves the checks are exact: K6 is the pool of K5's output and
+K7 is K6 and K5 bit for bit (one K loop and one epilogue), K9 is K5
+without bias and relu bit for bit, and K8 is within one bf16 ulp per
+element of the composed backward built from K5.
 """
 
 import pytest
@@ -63,6 +65,39 @@ def test_gather_and_splat(cuda, n_layers, size):
            gs.splat_layers_plain(g, grid, shapes), 1e-5)
     zero = gs.splat_layers(torch.zeros_like(g), grid, shapes)
     assert all(z.abs().max().item() == 0.0 for z in zero)
+
+
+@pytest.mark.parametrize("n_layers,size", [(1, (5, 7)), (4, (257, 129)),
+                                           (8, (512, 512))])
+def test_gather_and_splat_bf16_mode(cuda, n_layers, size):
+    """K1/K2's bf16 mode: the same roundings as the plain versions (gather
+    within 1e-6, splat 1e-5 for the atomics' order), background pixels at
+    (-1, -1) exact float32, and an odd pixel count."""
+    gen = torch.Generator(device=cuda).manual_seed(10 + n_layers)
+    grid = torch.rand((3, 19, 23, 2), generator=gen, device=cuda) * 2.4 - 1.2
+    grid[:, :3, :4] = -1.0  # background pixels
+    layers = [torch.randn((max(size[0] >> l, 1), max(size[1] >> l, 1), 3),
+                          generator=gen, device=cuda) * 50
+              for l in range(n_layers)]
+    got = gs.gather_layers(layers, grid, "bf16")
+    want = gs.gather_layers_plain_bf16(layers, grid)
+    _close(got, want, 1e-6)
+    exact = gs.gather_layers_plain(layers, grid)
+    assert torch.equal(got[:, :3, :4], exact[:, :3, :4])
+    assert (got - exact).abs().max().item() > 0.0  # the mode rounds
+    g = torch.randn((3, 19, 23, 3), generator=gen, device=cuda)
+    g[:, 7:] = 0.0  # skipped pixels
+    shapes = [tuple(l.shape[:2]) for l in layers]
+    _close(gs.splat_layers(g, grid, shapes, "bf16"),
+           gs.splat_layers_plain_bf16(g, grid, shapes), 1e-5)
+    # only background pixels: their gradient lands on texel (0, 0) unrounded
+    g_bg = torch.zeros_like(g)
+    g_bg[:, :3, :4] = g[:, :3, :4]
+    for d in gs.splat_layers(g_bg, grid, shapes, "bf16"):
+        torch.testing.assert_close(d[0, 0], g_bg.sum(dim=(0, 1, 2)),
+                                   rtol=1e-6, atol=1e-5)
+        assert d.abs().sum().item() == pytest.approx(
+            d[0, 0].abs().sum().item())
 
 
 def test_sampling_autograd_matches_cpu(cuda):
@@ -195,3 +230,28 @@ def test_conv_wrappers_refuse_bad_inputs(cuda):
     g = torch.zeros((1, 4, 4, 128), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="64"):
         head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g)
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 64), (64, 128), (128, 256),
+                                      (256, 512), (512, 512), (128, 64)])
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_conv3x3_mxu(cuda, cin, cout, shape):
+    """K9 (K5's entry without bias and relu, its own launch count) at sizes
+    1-3 and odd widths: bit for bit K5 with ``bias=None, relu=False``, within
+    1e-2 of its plain version; ``_ConvFrozen``'s input gradient is K9 with
+    the flipped kernel and the weights get none."""
+    x, w9, w9t, _ = _conv_inputs(cuda, *shape, cin, cout)
+    k5_before = conv_kernels.conv3x3.launches
+    before = conv_kernels.conv3x3_mxu.launches
+    y = conv_kernels.conv3x3_mxu(x, w9)
+    assert conv_kernels.conv3x3_mxu.launches == before + 1
+    assert torch.equal(y, conv_kernels.conv3x3(x, w9))
+    assert conv_kernels.conv3x3.launches == k5_before + 1
+    _close(y, conv_kernels.conv3x3_mxu_plain(x, w9), 1e-2)
+    xt = x.clone().requires_grad_()
+    out = conv_kernels._ConvFrozen.apply(xt, w9, w9t)
+    g = torch.randn(out.shape, device=cuda).to(torch.bfloat16)
+    (dx,) = torch.autograd.grad(out, [xt], g)
+    assert torch.equal(out, y)
+    assert torch.equal(dx, conv_kernels.conv3x3_mxu(g, w9t))
+    _close(dx, conv_kernels.conv3x3_mxu_plain(g, w9t), 1e-2)

@@ -63,6 +63,7 @@ def _run(mode, bf16):
         precision=jax.lax.Precision.DEFAULT if bf16 else jax.lax.Precision.HIGHEST,
         **kw)
     tloss = tlosses.ContentAndStyleLoss(
+        remat=False,
         compute_dtype=torch.bfloat16 if bf16 else None,
         precision="default" if bf16 else "highest", **kw)
     jp = jvgg.init_vgg_params(rng=5, he=True)

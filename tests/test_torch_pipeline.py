@@ -80,6 +80,7 @@ def _run_jax(bf16):
 def _run_torch(bf16):
     batch, style, layers = _inputs()
     cfg = tpipeline.PipelineConfig(
+        remat_vgg=False,
         compute_dtype=torch.bfloat16 if bf16 else None,
         precision="default" if bf16 else "highest", **CFG)
     vgg = vgg_params_from_jax(
@@ -150,7 +151,7 @@ def test_prepare_batch_matches_jax(angle, depth):
         jpipeline.PipelineConfig(remat_vgg=False, **cfg), vgg,
         jnp.asarray(style), style_targets=JStyleTargets(grams={}))
     tpipe = tpipeline.TexturePipeline(
-        tpipeline.PipelineConfig(**cfg),
+        tpipeline.PipelineConfig(remat_vgg=False, **cfg),
         vgg_params_from_jax({k: {n: np.asarray(a) for n, a in p.items()}
                              for k, p in vgg.items()}, device="cpu"),
         torch.from_numpy(style), style_targets=TStyleTargets(grams={}),
@@ -178,3 +179,93 @@ def test_learning_rate_schedule_matches_optax():
     for step in range(20):
         np.testing.assert_allclose(tpipe.learning_rate(step),
                                    float(schedule(step)), rtol=1e-6)
+
+
+def _option_batch(option):
+    """Three levels. "skip": level 0 empty in every view (every depth level
+    >= 1). "stop_grad": level 0 gradient-dead (depth_level_weight 0 kills
+    the rounded term, no pixel has other == 0) but scored."""
+    batch = synthetic_view_batch(num_views=2, content_hw=(32, 43),
+                                 level_heights=(32, 40, 48), seed=9,
+                                 depth_range=(0.2, 0.45), jnp_arrays=False)
+    if option == "skip":
+        batch = batch._replace(
+            rounded_depth_level=np.maximum(batch.rounded_depth_level, 1),
+            other_depth_level=np.maximum(batch.other_depth_level, 1))
+    elif option == "stop_grad":
+        v, h, w = batch.mask.shape[:3]
+        rounded = np.zeros((v, h, w, 1), np.float32)
+        rounded[:, h // 2:] = 1
+        batch = batch._replace(
+            rounded_depth_level=rounded, other_depth_level=rounded + 1,
+            depth_level_weight=np.zeros((v, h, w, 1), np.float32))
+    return batch
+
+
+OPTIONS = {"skip": dict(skip_levels=(0,)),
+           "stop_grad": dict(stop_grad_levels=(0,)),
+           "remat": dict(remat_vgg=True, remat_min_px=1500)}
+
+
+def _run_option_torch(batch, style, layers, vgg, **opts):
+    cfg = tpipeline.PipelineConfig(**{**CFG, "remat_vgg": False, **opts})
+    pipe = tpipeline.TexturePipeline(cfg, vgg, torch.from_numpy(style),
+                                     device="cpu")
+    tbatch = batch_from_numpy(batch, device="cpu")
+    state = pipe.init()
+    with torch.no_grad():
+        for p, l in zip(state.texture.layers, layers):
+            p.copy_(torch.from_numpy(l))
+    aux = pipe.prepare_batch(tbatch)
+    history = [{k: v.item() for k, v in pipe.train_step(state, tbatch, aux).items()}
+               for _ in range(2)]
+    return history, [l.detach().numpy() for l in state.texture.layers]
+
+
+@pytest.mark.parametrize("option", list(OPTIONS))
+def test_level_options_match_full_and_jax(option):
+    """``skip_levels`` (an empty level), ``stop_grad_levels`` (a
+    gradient-dead level) and ``remat_vgg`` (the levels of at least 1500
+    pixels recomputed in the backward) each leave the port's losses and
+    texture as they are without the option (1e-6 relative, 1e-5 absolute on
+    the texture), and match the JAX pipeline with the same option (float32:
+    1e-4 relative per loss, texture within the normwise bound above)."""
+    batch = _option_batch(option)
+    _, style, layers = _inputs()
+    jvgg_params = jvgg.init_vgg_params(rng=1, he=True)
+    vgg = vgg_params_from_jax(
+        {k: {n: np.asarray(a) for n, a in p.items()}
+         for k, p in jvgg_params.items()}, device="cpu")
+    full, full_layers = _run_option_torch(batch, style, layers, vgg)
+    got, got_layers = _run_option_torch(batch, style, layers, vgg,
+                                        **OPTIONS[option])
+    for f, g in zip(full, got):
+        assert f["style"] > 0
+        for k in f:
+            np.testing.assert_allclose(g[k], f[k], rtol=1e-6, err_msg=k)
+    for a, b in zip(got_layers, full_layers):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+
+    cfg = jpipeline.PipelineConfig(**{**CFG, "remat_vgg": False,
+                                      **OPTIONS[option]})
+    pipe = jpipeline.TexturePipeline(cfg, jvgg_params, jnp.asarray(style))
+    jbatch = jax.tree.map(jnp.asarray, batch)
+    texture = JTexture.from_arrays(layers)
+    state = pipe.init()._replace(texture=texture,
+                                 opt_state=pipe.optimizer.init(texture))
+    aux = pipe.prepare_batch(jbatch)
+    for step in range(2):
+        state, losses = pipe.train_step(state, jbatch, aux)
+        for k, v in losses.items():
+            np.testing.assert_allclose(got[step][k], float(v), rtol=1e-4,
+                                       err_msg=f"step {step} {k}")
+    for t, j, s in zip(got_layers, state.texture.layers, layers):
+        j = np.asarray(j)
+        assert np.linalg.norm(t - j) / np.linalg.norm(j - s) < 1e-2
+
+
+def test_gram_mode_average_is_not_ported():
+    cfg = tpipeline.PipelineConfig(gram_mode="average", **CFG)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 2"):
+        tpipeline.TexturePipeline(cfg, {}, None, device="cpu",
+                                  style_targets=TStyleTargets(grams={}))

@@ -126,3 +126,112 @@ def test_against_planned_pallas_kernels():
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(jfwd), **F32)
     np.testing.assert_allclose(grad.numpy(),
                                np.asarray(jbwd).transpose(1, 2, 0), **F32)
+
+
+def test_bf16_mode_against_planned_pallas_kernels():
+    """K1/K2's bf16 mode (their plain versions here) against the TPU
+    kernels' ``compute="bf16"`` (gather_with_residual / splat_with_residual
+    in interpret mode) with the 128x256 plan above. The JAX package rounds
+    only the pixels inside its plan windows and keeps its residual corners
+    float32; the port rounds every pixel but the (-1, -1) background.
+    Tolerance 1e-2 of the largest value: a bf16 rounding of a texel, weight
+    or ``row_w * g`` is at most 2^-9 relative, so a sample or gradient entry
+    moves by a few such units; the float32 tent positions (window-local in
+    JAX, texel-local here) can also round one weight to the neighbouring
+    bf16 value. On this input every pixel lies in a plan window and the
+    two agree to 7e-8 (forward) and 1.4e-7 (gradient) of the largest value.
+    The background pixels stay exact float32."""
+    v, h, w = 2, 24, 70
+    ys, xs = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
+    uv = np.stack([np.stack([(0.15 + 0.18 * xs + 0.02 * i) * 2 - 1,
+                             (0.15 + 0.18 * ys) * 2 - 1], -1)
+                   for i in range(v)]).astype(np.float32)
+    uv[:, :2, :2] = -1.0
+    tex = RNG.normal(0, 1, (128, 256, 3)).astype(np.float32)
+    ct = RNG.normal(size=(v, h, w, 3)).astype(np.float32)
+    plan = plan_arrays_for_views(uv, 128, 256)
+    jfwd = np.asarray(gather_with_residual(
+        jnp.asarray(tex).transpose(2, 0, 1), jnp.asarray(uv), plan,
+        compute="bf16", interpret=True))
+    jbwd = np.asarray(splat_with_residual(
+        jnp.asarray(ct), jnp.asarray(uv), plan, 128, 256, compute="bf16",
+        interpret=True)).transpose(1, 2, 0)
+
+    layer = torch.from_numpy(tex).requires_grad_()
+    out = tgs.sample_layers([layer], torch.from_numpy(uv), compute="bf16")
+    (grad,) = torch.autograd.grad(out, [layer], torch.from_numpy(ct))
+    out, grad = out.detach().numpy(), grad.numpy()
+    np.testing.assert_allclose(out, jfwd, rtol=0,
+                               atol=1e-2 * np.abs(jfwd).max())
+    np.testing.assert_allclose(grad, jbwd, rtol=0,
+                               atol=1e-2 * np.abs(jbwd).max())
+    # the mode does round: it differs from the exact function
+    exact = tgs.gather_layers_plain([torch.from_numpy(tex)],
+                                    torch.from_numpy(uv)).numpy()
+    assert np.abs(out - exact).max() > 1e-4
+    # background pixels stay float32: texel (0, 0) exactly, and texel
+    # (0, 0)'s gradient holds their cotangent sum exactly as in JAX
+    np.testing.assert_array_equal(out[:, :2, :2], np.broadcast_to(
+        tex[0, 0], (v, 2, 2, 3)))
+    np.testing.assert_allclose(grad[0, 0], jbwd[0, 0], rtol=1e-6)
+
+
+def test_bf16_mode_plain_versions():
+    """The bf16 plain versions on several layers and a grid past the border:
+    the bf16 rounding of texels and weights written out independently
+    (numpy), the background exact, and both modes reached through
+    ``sample_texture(compute=)`` and its autograd pair."""
+    layers = _layers(n=3)
+    grid = _grid(2, 9, 11)
+    ct = RNG.normal(size=(2, 9, 11, 3)).astype(np.float32)
+    tl = [torch.from_numpy(l) for l in layers]
+    tg = torch.from_numpy(grid)
+
+    def bf(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            torch.bfloat16).float().numpy()
+
+    want = np.zeros((2, 9, 11, 3), np.float32)
+    for layer in layers:
+        hh, ww = layer.shape[:2]
+        px = np.clip((grid[..., 0] + 1.0) * 0.5 * (ww - 1), 0, ww - 1)
+        py = np.clip((grid[..., 1] + 1.0) * 0.5 * (hh - 1), 0, hh - 1)
+        x0, y0 = np.floor(px).astype(int), np.floor(py).astype(int)
+        x1, y1 = np.minimum(x0 + 1, ww - 1), np.minimum(y0 + 1, hh - 1)
+        fx, fy = (px - x0).astype(np.float32), (py - y0).astype(np.float32)
+        ux, uy = np.float32(1) - fx, np.float32(1) - fy
+        wx0, wx1 = bf(ux)[..., None], bf(np.float32(1) - ux)[..., None]
+        wy0, wy1 = bf(uy)[..., None], bf(np.float32(1) - uy)[..., None]
+        t = bf(layer)
+        top = t[y0, x0] * wx0 + t[y0, x1] * wx1
+        bot = t[y1, x0] * wx0 + t[y1, x1] * wx1
+        want += top * wy0 + bot * wy1
+    bg = (grid[..., 0] == -1) & (grid[..., 1] == -1)
+    want[bg] = sum(l[0, 0] for l in layers)
+    got = tgs.gather_layers(tl, tg, compute="bf16").numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-4)
+
+    ttex = texture_from_jax(layers, device="cpu")
+    for compute in ("f32", "bf16"):
+        out = ttexture.sample_texture(ttex, tg, compute=compute)
+        grads = torch.autograd.grad(out, list(ttex.layers), torch.from_numpy(ct))
+        plain = (tgs.splat_layers_plain_bf16 if compute == "bf16"
+                 else tgs.splat_layers_plain)(
+            torch.from_numpy(ct), tg, [l.shape[:2] for l in layers])
+        for a, b in zip(grads, plain):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+    with pytest.raises(ValueError, match="compute"):
+        tgs.gather_layers(tl, tg, compute="f16")
+
+
+def test_texture_from_arrays_copies():
+    """The optimizer updates layers in place; a texture built from numpy
+    arrays must not write through to them."""
+    layers = _layers(n=2)
+    before = [l.copy() for l in layers]
+    ttex = texture_from_jax(layers, device="cpu")
+    with torch.no_grad():
+        for p in ttex.layers:
+            p.add_(1.0)
+    for l, b in zip(layers, before):
+        np.testing.assert_array_equal(l, b)

@@ -230,3 +230,86 @@ def test_kernel_layout_matches_jax_kernels():
             np.asarray(kt.reshape(9 * cout, cin).astype(jnp.float32)))
         np.testing.assert_array_equal(bias.numpy(), np.asarray(jp[name]["bias"]))
         assert tvgg.kernel_layout(tp[name])[0] is w9
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unfused_trunk_matches_jax(monkeypatch, dtype):
+    """``STYLEMESH_CONV_FLIPVJP=0 STYLEMESH_FAST_CONV=1``, read at call time
+    by both packages: every conv ``relu(conv + b)`` with autograd's relu,
+    plain pools; in bf16 every conv with Cin >= 64 on K9 (the JAX package
+    runs ``conv3x3_frozen`` in interpret mode on the CPU by itself) and
+    conv1_1 on the library conv. Against JAX ``vgg_features`` under the same
+    settings: float32 1e-4 of each activation's largest value and of the
+    input gradient's; bf16 5e-2 of each activation's largest value and 1e-1
+    normwise on the input gradient (the bounds of the kernel-trunk test
+    above, for the same reasons)."""
+    monkeypatch.setenv("STYLEMESH_CONV_FLIPVJP", "0")
+    monkeypatch.setenv("STYLEMESH_FAST_CONV", "1")
+    bf16 = dtype == "bfloat16"
+    jp, tp = _params()
+    rng = np.random.default_rng(41)
+    x = ((rng.random((1, 24, 32, 3), dtype=np.float32) - 0.45) * 255.0)
+    keys = DEFAULT_LAYERS
+    xt = torch.from_numpy(x).requires_grad_()
+    got = tvgg.vgg_features(tp, xt, keys,
+                            compute_dtype=torch.bfloat16 if bf16 else None,
+                            precision="default" if bf16 else "highest")
+    cts = {k: rng.normal(size=tuple(got[k].shape)).astype(np.float32)
+           for k in keys}
+
+    def jfeatures(u):
+        return jvgg.vgg_features(
+            jp, u, keys, compute_dtype=jnp.bfloat16 if bf16 else None,
+            precision=(jax.lax.Precision.DEFAULT if bf16
+                       else jax.lax.Precision.HIGHEST))
+
+    want, vjp = jax.vjp(jfeatures, jnp.asarray(x))
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    (want_grad,) = vjp({k: jnp.asarray(v, jdt) for k, v in cts.items()})
+    rel = 5e-2 if bf16 else 1e-4
+    for name in keys:
+        w = np.asarray(want[name].astype(jnp.float32))
+        assert got[name].dtype == getattr(torch, dtype), name
+        np.testing.assert_allclose(got[name].detach().float().numpy(), w,
+                                   rtol=0, atol=rel * np.abs(w).max(),
+                                   err_msg=name)
+    (grad,) = torch.autograd.grad(
+        [got[k] for k in keys], [xt],
+        [torch.from_numpy(cts[k]).to(got[k].dtype) for k in keys])
+    want_grad = np.asarray(want_grad, np.float32)
+    grad = grad.float().numpy()
+    if bf16:
+        err = np.linalg.norm(grad - want_grad) / np.linalg.norm(want_grad)
+        assert err < 1e-1, err
+    else:
+        np.testing.assert_allclose(grad, want_grad, rtol=0,
+                                   atol=1e-4 * np.abs(want_grad).max())
+
+
+def test_unfused_trunk_routes(monkeypatch):
+    """Which convs take K9: with both variables set, every bf16 conv but
+    conv1_1; without ``STYLEMESH_FAST_CONV``, none; the variables are read
+    at each call, and unset they leave the default kernel trunk."""
+    _, tp = _params()
+    x = torch.from_numpy(_image(16, 20))
+    calls = []
+    real = tvgg.conv_kernels._ConvFrozen.apply
+    monkeypatch.setattr(tvgg.conv_kernels._ConvFrozen, "apply",
+                        lambda *a: calls.append(a[0].shape[-1]) or real(*a))
+    kw = dict(compute_dtype=torch.bfloat16, precision="default")
+    monkeypatch.setenv("STYLEMESH_CONV_FLIPVJP", "0")
+    monkeypatch.setenv("STYLEMESH_FAST_CONV", "1")
+    tvgg.vgg_features(tp, x, ["r51"], **kw)
+    # conv1_2 .. conv5_1 by input width
+    assert calls == [64, 64, 128, 128, 256, 256, 256, 256, 512, 512, 512, 512]
+    calls.clear()
+    tvgg.vgg_features(tp, x, ["r51"])  # float32: no K9
+    monkeypatch.setenv("STYLEMESH_FAST_CONV", "0")
+    tvgg.vgg_features(tp, x, ["r51"], **kw)
+    monkeypatch.delenv("STYLEMESH_CONV_FLIPVJP")
+    monkeypatch.delenv("STYLEMESH_FAST_CONV")
+    default = tvgg.vgg_features(tp, x, ["r51"], **kw)
+    assert calls == []
+    monkeypatch.setattr(tvgg, "_unfused_trunk", None)  # never reached
+    again = tvgg.vgg_features(tp, x, ["r51"], **kw)
+    assert torch.equal(default["r51"], again["r51"])
