@@ -1,6 +1,7 @@
 """Drive the PyTorch port's main path on one CUDA card and check its kernels.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --multi-card   # phase 6 alone, one rank per card
 
 Needs one NVIDIA Hopper card (the kernels are built for sm_90a at first use
 into build/torch_ext) and the ``stylemesh_tpu_torch`` package beside this
@@ -28,10 +29,30 @@ phase fails. Phases:
    be launched and K5-K8 not, and the profile of a bench step under the same
    settings must show no cuDNN convolution but conv1_1's forward and input
    gradient;
+6. multi-device, on the same scene, each CLI call also run on one rank (in
+   this process) as its reference; the 2-rank calls go through
+   ``python -m torch.distributed.run --standalone --nproc_per_node 2``, both
+   ranks on this one card over gloo, so their step times are not
+   multi-card numbers:
+   [atlas] ``--shard_atlas`` over 2 ranks, in the CLI's bf16 K1/K2 mode and
+   again with ``--kernel_compute f32``: every rank must launch the banded
+   K1/K2 of its mode and no unbanded K1/K2 in its train steps, the first
+   step's losses must lie within 1e-4 relative of the one-rank run's, and
+   the exported texture must have the full shapes and be finite;
+   [dp] ``--data_parallel`` over 2 ranks, the first step's losses within
+   1e-4; then ``--preset scannet_dip`` (``gram_mode='average'``) over 2
+   ranks: finite losses and the Gram cache's count equal to one rank's;
+   [multistyle] two ``--style_image_path`` on one rank: style 0's first
+   step within 1e-4 of the single-style run, one export per style; then
+   one style per rank, each style's first step within 1e-4 of the
+   one-rank sweep's. ``--multi-card`` runs this phase alone, one rank per
+   card (NCCL);
 3. kernels: each kernel against its plain PyTorch version at the main path's
    shapes and inputs, timed with CUDA events beside the plain version and one
    PyTorch library call computing the same function, with its bound on an
-   H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16).
+   H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16); the banded K1/K2 for
+   the 4 bands of D = 4 (each against its plain version, their sum against
+   the unbanded K1/K2), timed for rank 0's band of D = 2.
 
 The last two lines of standard output are the ``{"kernels": [...]}`` JSON
 line and the ``{"ok": true, "device": ...}`` JSON line.
@@ -40,6 +61,8 @@ line and the ``{"ok": true, "device": ...}`` JSON line.
 import json
 import math
 import os
+import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -64,6 +87,8 @@ BF16_FLOP_PER_S = 989e12   # dense bf16 tensor-core peak
 STEPS = 5                  # timed train steps
 REPS = 5                   # launches per kernel timing
 
+REPO = Path(__file__).resolve().parent
+SAMPLE_SRC = "stylemesh_tpu_torch/kernels/csrc/sample.cu"
 CONV_SRC = "stylemesh_tpu_torch/kernels/csrc/conv.cu"
 KERNELS = {  # launches: (wrapper, attribute holding its launch count)
     "K1_gather": dict(source="stylemesh_tpu_torch/kernels/csrc/sample.cu",
@@ -107,6 +132,21 @@ KERNELS = {  # launches: (wrapper, attribute holding its launch count)
                            replaces="stylemesh_tpu/ops/conv_pallas.py:136",
                            launches=(conv_kernels.conv3x3_mxu, "launches"),
                            rel_tol=1e-2),
+    # the banded form, reached through grid_sample.py::grid_sample_banded_cf
+    "K1_gather_banded": dict(
+        source=SAMPLE_SRC, replaces="stylemesh_tpu/ops/grid_sample.py:185",
+        launches=(gs.gather_layers_banded, "banded_launches"), rel_tol=1e-5),
+    "K1_gather_banded_bf16": dict(
+        source=SAMPLE_SRC, replaces="stylemesh_tpu/ops/grid_sample.py:185",
+        launches=(gs.gather_layers_banded, "banded_bf16_launches"),
+        rel_tol=1e-5),
+    "K2_splat_banded": dict(
+        source=SAMPLE_SRC, replaces="stylemesh_tpu/ops/grid_sample.py:210",
+        launches=(gs.splat_layers_banded, "banded_launches"), rel_tol=1e-4),
+    "K2_splat_banded_bf16": dict(
+        source=SAMPLE_SRC, replaces="stylemesh_tpu/ops/grid_sample.py:210",
+        launches=(gs.splat_layers_banded, "banded_bf16_launches"),
+        rel_tol=1e-4),
 }
 # the kernels each driven path must launch
 BENCH_KERNELS = ("K1_gather", "K2_splat", "K3_gram_fwd", "K4_gram_bwd",
@@ -117,9 +157,11 @@ RUN_KERNELS = ("K1_gather_bf16", "K2_splat_bf16") + BENCH_KERNELS[2:]
 K9_ENV = {"STYLEMESH_CONV_FLIPVJP": "0", "STYLEMESH_FAST_CONV": "1"}
 # Tolerances, relative to the largest |value| of the plain version:
 # K1 float32, the same arithmetic but fused multiply-adds: 1e-5 (its bf16
-#    mode: the same arithmetic, unfused, 1e-5 as well).
+#    mode: the same arithmetic, unfused, 1e-5 as well). The same for the
+#    banded K1 against its plain version, and for the sum of its band
+#    partials against the unbanded K1 (one more float32 sum per pixel).
 # K2 float32 atomics sum in another order than index_add_: 1e-4 (either
-#    mode).
+#    mode, banded or not).
 # K3 float32 sums over up to 819 280 pixels in another order: 1e-3.
 # K4 rounds a float32 sum to bf16: two bf16 ulps of the largest element
 #    (2 * 2^-8 ~ 1e-2).
@@ -355,14 +397,53 @@ def write_scene(root, n=16):
     return str(style)
 
 
-def cli_run(tag, root, style, index_repeat, required, forbidden=()):
-    """One CLI training run on the scene; the launch counts of this run
-    alone (set to 0 just before it, read just after)."""
-    argv = ["--preset", "scannet_full", "--root_path", str(root),
-            "--scene", SCENE, "--style_image_path", style, "--bfloat16",
-            "--batch_size", "4", "--max_epochs", "1",
-            "--index_repeat", str(index_repeat), "--no_post_steps",
-            "--log_dir", str(root / f"runs_{tag}")]
+def cli_argv(tag, root, style, index_repeat, extra=(), preset="scannet_full"):
+    return ["--preset", preset, "--root_path", str(root), "--scene", SCENE,
+            "--style_image_path", style, "--bfloat16", "--batch_size", "4",
+            "--max_epochs", "1", "--index_repeat", str(index_repeat),
+            "--no_post_steps", "--log_dir", str(root / f"runs_{tag}"),
+            *extra]
+
+
+def read_metrics(log_dir):
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def first_step_losses(log_dir):
+    """The logged train losses of step 1, by key."""
+    prefix = "Batch/Loss/train/"
+    return {r["tag"][len(prefix):]: r["value"] for r in read_metrics(log_dir)
+            if r["tag"].startswith(prefix) and r["step"] == 1}
+
+
+def run_result(tag, log_dir, exports=("texture.npz",)):
+    """Check a run's logs and exports; its step time from wallclock.json."""
+    records = read_metrics(log_dir)
+    totals = [r["value"] for r in records
+              if r["tag"].startswith("Batch/Loss/train/total")]
+    if not totals or not all(math.isfinite(r["value"]) for r in records):
+        raise RuntimeError(f"[{tag}] missing or non-finite losses")
+    for name in exports:
+        if not os.path.exists(os.path.join(log_dir, name)):
+            raise RuntimeError(f"[{tag}] {name} was not written")
+    with open(os.path.join(log_dir, "wallclock.json")) as f:
+        wall = json.load(f)
+    steps = wall["train_steps"]["steps"]
+    return dict(steps=steps,
+                step_ms=wall["train_steps"]["total_s"] / max(steps - 1, 1) * 1e3,
+                views_per_s=(steps - 1) * 4 / wall["train_steps"]["total_s"],
+                first_total=totals[0], last_total=totals[-1],
+                phases={k: v["total_s"] for k, v in wall.items()
+                        if "total_s" in v})
+
+
+def cli_run(tag, root, style, index_repeat, required, forbidden=(), extra=(),
+            preset="scannet_full", exports=("texture.npz",)):
+    """One CLI training run on the scene, on one rank in this process; the
+    launch counts of this run alone (set to 0 just before it, read just
+    after)."""
+    argv = cli_argv(tag, root, style, index_repeat, extra, preset)
     log(f"[{tag}] python -m stylemesh_tpu_torch.cli " + " ".join(argv))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -372,35 +453,20 @@ def cli_run(tag, root, style, index_repeat, required, forbidden=()):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = read_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
-    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
-        records = [json.loads(line) for line in f]
-    totals = [r["value"] for r in records if r["tag"] == "Batch/Loss/train/total"]
-    if not totals or not all(math.isfinite(r["value"]) for r in records):
-        raise RuntimeError(f"[{tag}] missing or non-finite losses")
-    if not os.path.exists(os.path.join(log_dir, "texture.npz")):
-        raise RuntimeError(f"[{tag}] texture.npz was not written")
-    with open(os.path.join(log_dir, "wallclock.json")) as f:
-        wall = json.load(f)
-    steps = wall["train_steps"]["steps"]
-    result = dict(steps=steps, state_step=state.step, wall_s=wall_s,
-                  step_ms=wall["train_steps"]["total_s"] / max(steps - 1, 1) * 1e3,
-                  views_per_s=(steps - 1) * 4 / wall["train_steps"]["total_s"],
-                  peak_mem_gb=peak_gb, first_total=totals[0],
-                  last_total=totals[-1],
-                  phases={k: v["total_s"] for k, v in wall.items()
-                          if "total_s" in v})
+    result = run_result(tag, log_dir, exports)
+    result.update(state_step=state.step, wall_s=wall_s,
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     log(f"[{tag}] " + json.dumps(result))
     for name, n in counts.items():
-        log(f"[{tag}] {name}: {n} launches in {steps} steps")
+        log(f"[{tag}] {name}: {n} launches in {result['steps']} steps")
     for name in required:
         if counts[name] == 0:
             raise RuntimeError(f"[{tag}] {name} was not launched")
     for name in forbidden:
         if counts[name] != 0:
             raise RuntimeError(f"[{tag}] {name} was launched {counts[name]} times")
-    return counts, steps
+    return dict(counts=counts, steps=result["steps"], log_dir=log_dir,
+                state=state)
 
 
 def conv1_1_only(prof):
@@ -451,29 +517,207 @@ def k9_step(pipe, state, batch, aux):
 
 
 def run_loop_phases(pipe, state, batch, aux):
-    """Phases 4 and 5; returns {kernel: (launches, launches per step)} for
-    the kernels these runs drive first: K1/K2's bf16 mode (the CLI run) and
-    K9 (the K9 CLI run; per step from the K9 bench step, since the run's
-    count also holds the style targets', content targets' and validation's
-    launches)."""
+    """Phases 4, 5 and 6; returns {kernel: (launches, launches per step)}
+    for the kernels these runs drive first: K1/K2's bf16 mode (the CLI
+    run), K9 (the K9 CLI run; per step from the K9 bench step, since the
+    run's count also holds the style targets', content targets' and
+    validation's launches) and the banded K1/K2 (rank 0 of the atlas
+    runs)."""
     with tempfile.TemporaryDirectory(prefix="stylemesh_chip_smoke_") as tmp:
         root = Path(tmp)
         t0 = time.perf_counter()
         style = write_scene(root)
         log(f"[run] scene written in {time.perf_counter() - t0:.3f} s")
-        counts, steps = cli_run("run", root, style, 2, RUN_KERNELS,
-                                forbidden=("K9_conv3x3_mxu",))
-        launches = {k: (counts[k], counts[k] / steps)
+        run = cli_run("run", root, style, 2, RUN_KERNELS,
+                      forbidden=("K9_conv3x3_mxu",))
+        launches = {k: (run["counts"][k], run["counts"][k] / run["steps"])
                     for k in ("K1_gather_bf16", "K2_splat_bf16")}
         os.environ.update(K9_ENV)
         try:
-            counts, steps = cli_run("k9", root, style, 1, ("K9_conv3x3_mxu",),
-                                    forbidden=TRUNK_KERNELS)
-            launches["K9_conv3x3_mxu"] = (counts["K9_conv3x3_mxu"],
+            run = cli_run("k9", root, style, 1, ("K9_conv3x3_mxu",),
+                          forbidden=TRUNK_KERNELS)
+            launches["K9_conv3x3_mxu"] = (run["counts"]["K9_conv3x3_mxu"],
                                           k9_step(pipe, state, batch, aux))
         finally:
             for k in K9_ENV:
                 os.environ.pop(k, None)
+        launches.update(multi_device_phases(root, style))
+    return launches
+
+
+# ---------------------------------------------------------------- phase 6
+
+TORCHRUN_TIMEOUT_S = 420
+RANK_LINE = re.compile(r"\[rank (\d+)/\d+\] (?=\{)")
+UNBANDED = ("gather", "gather_bf16", "splat", "splat_bf16")
+
+
+def torchrun(tag, argv, nproc):
+    """The CLI on ``nproc`` ranks; returns each rank's closing line
+    (run_training's JSON: backend, device, train-step launches, Gram cache
+    count, memory). Raises when a rank fails. The ranks are killed with
+    their launcher at the time limit."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), "-m", "stylemesh_tpu_torch.cli",
+           *argv]
+    log(f"[{tag}] " + " ".join(cmd[1:]))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=TORCHRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        log(out[-6000:])
+        raise RuntimeError(f"[{tag}] did not finish in {TORCHRUN_TIMEOUT_S} s")
+    wall_s = time.perf_counter() - t0
+    for line in out.splitlines():
+        if line.startswith("[rank") or line.startswith("epoch"):
+            log(f"[{tag}] {line}")
+    if proc.returncode != 0:
+        log(out[-6000:])
+        raise RuntimeError(f"[{tag}] exited with {proc.returncode}")
+    decoder = json.JSONDecoder()
+    ranks = {int(m.group(1)): decoder.raw_decode(out, m.end())[0]
+             for m in RANK_LINE.finditer(out)}
+    if sorted(ranks) != list(range(nproc)):
+        raise RuntimeError(f"[{tag}] closing lines of ranks {sorted(ranks)}")
+    log(f"[{tag}] {nproc} ranks in {wall_s:.3f} s")
+    return ranks
+
+
+def compare_first_step(tag, log_dir, ref_losses, rtol=1e-4, key_map=None):
+    got = first_step_losses(log_dir)
+    for k, want in ref_losses.items():
+        v = got[(key_map or {}).get(k, k)]
+        rel = abs(v - want) / max(abs(want), 1e-30)
+        log(f"[{tag}] step 1 {k}: {v!r} vs one rank {want!r} (rel {rel:.3e})")
+        if not rel <= rtol:
+            raise RuntimeError(f"[{tag}] step 1 {k} differs from one rank")
+
+
+def check_ranks(tag, ranks, launched, not_launched):
+    """Each rank on a card, over NCCL when every rank has a card of its own
+    and gloo otherwise; the kernels it launched in its train steps."""
+    backend = ("nccl" if len(ranks) <= torch.cuda.device_count() else "gloo")
+    for r, line in sorted(ranks.items()):
+        counts = line["train_launches"]
+        if line["backend"] != backend or not line["device"].startswith("cuda"):
+            raise RuntimeError(f"[{tag}] rank {r} ran on {line}, "
+                               f"expected {backend}")
+        for k in launched:
+            if counts[k] == 0:
+                raise RuntimeError(f"[{tag}] rank {r} did not launch {k}")
+        for k in not_launched:
+            if counts[k] != 0:
+                raise RuntimeError(f"[{tag}] rank {r} launched {k} "
+                                   f"{counts[k]} times")
+
+
+def check_export(tag, log_dir, ref_dir):
+    """The exported texture has the one-rank run's full shapes and is
+    finite; its normwise distance from the one-rank export is printed."""
+    got = np.load(os.path.join(log_dir, "texture.npz"))
+    want = np.load(os.path.join(ref_dir, "texture.npz"))
+    if got.files != want.files:
+        raise RuntimeError(f"[{tag}] texture.npz holds {got.files}")
+    for k in want.files:
+        a, b = got[k], want[k]
+        if a.shape != b.shape or not np.isfinite(a).all():
+            raise RuntimeError(f"[{tag}] {k}: shape {a.shape}, finite "
+                               f"{np.isfinite(a).all()}")
+        dist = np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
+        log(f"[{tag}] texture {k} {a.shape}: normwise distance from one "
+            f"rank {dist:.3e}")
+
+
+def extra_styles(root, n):
+    """``n`` random style images besides phase 4's."""
+    from PIL import Image
+
+    paths = []
+    for i in range(n):
+        paths.append(str(root / f"style{i + 2}.jpg"))
+        Image.fromarray(np.random.default_rng(i + 1).integers(
+            0, 256, (480, 600 + 8 * i, 3), dtype=np.uint8)).save(paths[-1])
+    return paths
+
+
+def multi_device_phases(root, style, nproc=2):
+    """Phase 6 on the scene of phase 4, over ``nproc`` ranks. Returns the
+    banded K1/K2's launches (rank 0 of the atlas runs) and launches per
+    train step."""
+    one = cli_run("one_rank", root, style, 1, RUN_KERNELS,
+                  extra=["--shard_atlas"])
+    ref = first_step_losses(one["log_dir"])
+    launches = {}
+    for tag, mode, names in (
+            ("atlas", "bf16", ("K1_gather_banded_bf16", "K2_splat_banded_bf16")),
+            ("atlas_f32", "f32", ("K1_gather_banded", "K2_splat_banded"))):
+        extra = ["--shard_atlas"] + (["--kernel_compute", "f32"]
+                                     if mode == "f32" else [])
+        ranks = torchrun(tag, cli_argv(tag, root, style, 1, extra), nproc)
+        suffix = "_bf16" if mode == "bf16" else ""
+        check_ranks(tag, ranks, ("gather_banded" + suffix,
+                                 "splat_banded" + suffix), UNBANDED)
+        log_dir = str(root / f"runs_{tag}" / "version_0")
+        result = run_result(tag, log_dir)
+        log(f"[{tag}] " + json.dumps(result))
+        if mode == "bf16":  # the one-rank run is the CLI's bf16 mode
+            compare_first_step(tag, log_dir, ref)
+        check_export(tag, log_dir, one["log_dir"])
+        steps = ranks[0]["train_steps"]
+        for name, key in zip(names, ("gather_banded" + suffix,
+                                     "splat_banded" + suffix)):
+            n = ranks[0]["train_launches"][key]
+            launches[name] = (n, n / steps)
+
+    ranks = torchrun("dp", cli_argv("dp", root, style, 1, ["--data_parallel"]),
+                     nproc)
+    check_ranks("dp", ranks, ("gather_bf16", "splat_bf16"),
+                ("gather_banded_bf16", "splat_banded_bf16"))
+    log_dir = str(root / "runs_dp" / "version_0")
+    log("[dp] " + json.dumps(run_result("dp", log_dir)))
+    compare_first_step("dp", log_dir, ref)
+
+    dip = cli_run("dip_one_rank", root, style, 1,
+                  ("K1_gather_bf16", "K2_splat_bf16"), preset="scannet_dip")
+    count = int(dip["state"].gram_cache.count)
+    ranks = torchrun("dip", cli_argv("dip", root, style, 1, ["--data_parallel"],
+                                     preset="scannet_dip"), nproc)
+    log("[dip] " + json.dumps(run_result(
+        "dip", str(root / "runs_dip" / "version_0"))))
+    for r, line in ranks.items():
+        log(f"[dip] rank {r}: Gram cache count {line['gram_cache_count']} "
+            f"(one rank: {count})")
+        if line["gram_cache_count"] != count:
+            raise RuntimeError("[dip] the Gram cache count differs")
+
+    # a sweep of 2 styles on one rank, then of one style per rank
+    styles = extra_styles(root, max(nproc - 1, 1))
+    sweep = cli_run("multistyle", root, style, 1, RUN_KERNELS,
+                    extra=["--style_image_path", styles[0]],
+                    exports=("texture_style0.npz", "texture_style1.npz"))
+    compare_first_step("multistyle", sweep["log_dir"],
+                       {"total": ref["total"]},
+                       key_map={"total": "total_style0"})
+    sweep_ref = first_step_losses(sweep["log_dir"])
+    ranks = torchrun("multistyle_ranks", cli_argv(
+        "multistyle_ranks", root, style, 1,
+        [a for p in styles[:nproc - 1] for a in ("--style_image_path", p)]),
+        nproc)
+    check_ranks("multistyle_ranks", ranks, ("gather_bf16", "splat_bf16"),
+                ("gather_banded_bf16", "splat_banded_bf16"))
+    log_dir = str(root / "runs_multistyle_ranks" / "version_0")
+    log("[multistyle_ranks] " + json.dumps(run_result(
+        "multistyle_ranks", log_dir,
+        [f"texture_style{s}.npz" for s in range(nproc)])))
+    compare_first_step("multistyle_ranks", log_dir,
+                       {k: sweep_ref[k] for k in ("total_style0",
+                                                  "total_style1")})
     return launches
 
 
@@ -506,16 +750,87 @@ def check(name, got, want, where=""):
     return err, tol
 
 
-def touched_texels(grid, layers):
+def touched_texels(grid, layers, row0s=None, heights=None):
+    """Distinct texels the grid's corners read, over the layers; for bands
+    (``row0s``, ``heights`` of the full layers) only those in the band."""
     total = 0
-    for layer in layers:
+    for l, layer in enumerate(layers):
+        h = layer.shape[0] if heights is None else heights[l]
+        row0 = 0 if row0s is None else row0s[l]
         iy0, iy1, ix0, ix1, _, _ = gs._corner_indices_weights(
-            grid, layer.shape[0], layer.shape[1])
+            grid, h, layer.shape[1])
         w = layer.shape[1]
         idx = torch.cat([(iy * w + ix).reshape(-1) for iy, ix in
                          ((iy0, ix0), (iy0, ix1), (iy1, ix0), (iy1, ix1))])
+        rows = idx // w
+        idx = idx[(rows >= row0) & (rows < row0 + layer.shape[0])]
         total += torch.unique(idx).numel()
     return total
+
+
+def bands_of(layers, rank, d):
+    """Rank ``rank``'s row bands of every layer when split into ``d``."""
+    heights = [l.shape[0] for l in layers]
+    row0s = [rank * h // d for h in heights]
+    bands = [l[r:r + h // d].clone()  # a rank's own allocation
+             for l, r, h in zip(layers, row0s, heights)]
+    return bands, row0s, heights
+
+
+def banded_kernels(where, layers, grid, g, add):
+    """The banded K1/K2 at one pyramid level, in both modes: for D = 4 each
+    band against its plain version, the bands' partials summed against the
+    unbanded K1 and their gradients stacked against the unbanded K2; then
+    rank 0's band of D = 2, timed."""
+    shapes = [tuple(l.shape[:2]) for l in layers]
+    npx = grid.numel() // 2
+    f32_ms = {}
+    for compute, k1, k2 in (("f32", "K1_gather_banded", "K2_splat_banded"),
+                            ("bf16", "K1_gather_banded_bf16",
+                             "K2_splat_banded_bf16")):
+        errs = {k1: [], k2: []}
+        total, parts = 0, [[] for _ in layers]
+        for b in range(4):
+            bands, row0s, heights = bands_of(layers, b, 4)
+            bshapes = [tuple(x.shape[:2]) for x in bands]
+            out = gs.gather_layers_banded(bands, grid, row0s, heights, compute)
+            errs[k1].append(check(k1, out, gs.gather_layers_banded_plain(
+                bands, grid, row0s, heights, compute), f"{where} band {b} of 4"))
+            total = total + out
+            grads = gs.splat_layers_banded(g, grid, bshapes, row0s, heights,
+                                           compute)
+            errs[k2].append(check(k2, grads, gs.splat_layers_banded_plain(
+                g, grid, bshapes, row0s, heights, compute),
+                f"{where} band {b} of 4"))
+            for acc, x in zip(parts, grads):
+                acc.append(x)
+        errs[k1].append(check(k1, total, gs.gather_layers(layers, grid, compute),
+                              f"{where} 4 bands summed vs K1"))
+        errs[k2].append(check(k2, [torch.cat(p) for p in parts],
+                              gs.splat_layers(g, grid, shapes, compute),
+                              f"{where} 4 bands stacked vs K2"))
+        del total, parts
+        bands, row0s, heights = bands_of(layers, 0, 2)
+        bshapes = [tuple(x.shape[:2]) for x in bands]
+        at = f"{where} rank 0 of 2"
+        for name, fn, plain, nbytes in (
+                (k1, lambda: gs.gather_layers_banded(bands, grid, row0s, heights,
+                                                     compute),
+                 lambda: gs.gather_layers_banded_plain(bands, grid, row0s,
+                                                       heights, compute),
+                 npx * (8 + 12) + 12 * touched_texels(grid, bands, row0s,
+                                                      heights)),
+                (k2, lambda: gs.splat_layers_banded(g, grid, bshapes, row0s,
+                                                    heights, compute),
+                 lambda: gs.splat_layers_banded_plain(g, grid, bshapes, row0s,
+                                                      heights, compute),
+                 npx * (12 + 8) + 12 * sum(a * b for a, b in bshapes))):
+            err_tol = (max(e for e, _ in errs[name]),
+                       max(t for _, t in errs[name]))
+            ms = cuda_ms(fn)
+            f32_ms[name[:2]] = ms if compute == "f32" else f32_ms[name[:2]]
+            add(name, at, err_tol, ms, cuda_ms(plain), None, nbytes,
+                f32_mode_ms=None if compute == "f32" else f32_ms[name[:2]])
 
 
 def cotangent(like, mask=None, seed=0):
@@ -693,13 +1008,15 @@ def kernel_phase(pipe, state, batch, aux, launches):
         r["plain_ms"] += plain_ms
         if library_ms is None:
             r["library_ms"] = None
-            r["f32_mode_ms"] += f32_mode_ms
+            if f32_mode_ms is not None:
+                r["f32_mode_ms"] += f32_mode_ms
         else:
             r["library_ms"] += library_ms
         b_ms, b_by = bound_ms(nbytes, flops)
         r["bound_ms"] += b_ms
         r["by_bytes" if b_by == "bytes" else "by_ops"] += b_ms
         other = (f"library {library_ms:.4f}" if library_ms is not None
+                 else "library none" if f32_mode_ms is None
                  else f"f32 mode {f32_mode_ms:.4f}")
         log(f"[kernel] {name} {where}: {ms:.4f} ms (bound {b_ms:.4f} by {b_by}), "
             f"plain {plain_ms:.4f}, {other}")
@@ -761,6 +1078,7 @@ def kernel_phase(pipe, state, batch, aux, launches):
             cuda_ms(lambda: gs.splat_layers(g, grid, shapes, "bf16")),
             cuda_ms(lambda: gs.splat_layers_plain_bf16(g, grid, shapes)),
             None, splat_bytes, f32_mode_ms=k2_ms)
+        banded_kernels(f"level {i}", layers, grid, g, add)
 
         # K3 / K4 at the fused (level, layer) pairs
         fused = aux.loss_aux["gram_masks"][i]
@@ -811,13 +1129,28 @@ def kernel_phase(pipe, state, batch, aux, launches):
             kernel_ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by="bytes" if r["by_bytes"] >= r["by_ops"] else "operations",
             library_ms=r["library_ms"])
-        if r["library_ms"] is None:
+        if r["library_ms"] is None and name.endswith("_bf16"):
             row["f32_mode_ms"] = r["f32_mode_ms"]
         out.append(row)
     return out
 
 
-def main():
+def multi_card():
+    """``--multi-card``: phase 6 alone, one rank per card (NCCL), on the
+    scene of phase 4."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise RuntimeError(f"--multi-card needs 2 or more cards, found {n}")
+    with tempfile.TemporaryDirectory(prefix="stylemesh_chip_smoke_") as tmp:
+        root = Path(tmp)
+        style = write_scene(root)
+        launches = multi_device_phases(root, style, nproc=n)
+    for name, (count, per_step) in launches.items():
+        log(f"[multi-card] {name}: {count} launches on rank 0, "
+            f"{per_step:g} per step")
+
+
+def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -829,6 +1162,16 @@ def main():
     t0 = time.perf_counter()
     kernels.library()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    if argv == ["--multi-card"]:
+        multi_card()
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
 
     pipe, state, batch, aux, counts = main_path()
     launches = {k: (counts[k], counts[k] / STEPS) for k in BENCH_KERNELS}
@@ -838,7 +1181,8 @@ def main():
     rows = kernel_phase(pipe, state, batch, aux, launches)
     for r in rows:
         other = (f"library {r['library_ms']:.4f}" if r["library_ms"] is not None
-                 else f"f32 mode {r['f32_mode_ms']:.4f}")
+                 else f"f32 mode {r['f32_mode_ms']:.4f}" if "f32_mode_ms" in r
+                 else "library none")
         log(f"[kernel] {r['name']}: {r['ms']:.4f} ms/step (bound {r['bound_ms']:.4f} "
             f"by {r['bound_by']}), plain {r['plain_ms']:.4f}, {other}, "
             f"{r['launches_per_step']:g} launches/step")
@@ -851,4 +1195,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

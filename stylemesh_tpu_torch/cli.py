@@ -5,18 +5,23 @@
         --root_path <data root> --scene <scene> --style_image_path <style.jpg> \\
         --bfloat16 --no_post_steps
 
-``--platform cpu`` runs the kernels' plain versions on the CPU. Differences
-from the JAX CLI:
+``--platform cpu`` runs the kernels' plain versions on the CPU. Under
+``torchrun`` every rank runs this module (``parallel/mesh.py::
+init_from_env``): ``--shard_atlas`` bands the texture over the ranks,
+``--data_parallel`` splits each batch's views, and several
+``--style_image_path`` (or ``--style_dir``) make a multi-style sweep:
+
+    torchrun --nproc_per_node 2 -m stylemesh_tpu_torch.cli --shard_atlas ...
+
+Differences from the JAX CLI:
 
 - ``--bfloat16`` also sets ``precision="default"``, so the VGG trunk runs on
   the hand-written conv kernels. The JAX CLI keeps ``HIGHEST`` there, which
   for bf16 operands is the same function but keeps its convs off its TPU
   kernels.
 - Not ported yet; each raises before training: the eval and post chain
-  (every run without ``--no_post_steps``, ROADMAP queue 1, item 6),
-  ``--gram_mode average`` and so the two ``*_dip`` presets (item 2),
-  ``--tb_logs`` (item 5), and multi-style sweeps or ``--data_parallel`` /
-  ``--shard_atlas`` over more than one card (item 7).
+  (every run without ``--no_post_steps``, ROADMAP queue 1, item 6) and
+  ``--tb_logs`` (item 5).
 """
 
 import argparse
@@ -32,6 +37,7 @@ from stylemesh_tpu_torch.models.losses import (
 )
 from stylemesh_tpu_torch.models.pipeline import PipelineConfig
 from stylemesh_tpu_torch.optimize import RunConfig, run_training
+from stylemesh_tpu_torch.parallel.mesh import init_from_env, shutdown
 from stylemesh_tpu_torch.presets import PRESETS, apply_preset, explicit_cli_keys
 
 
@@ -78,12 +84,10 @@ def build_parser():
     p.add_argument("--vgg_gatys_model_path", default="", type=str)
     p.add_argument("--style_image_path", action="append", default=None,
                    type=str,
-                   help="repeatable: N paths ask for an N-style sweep "
-                        "(not ported yet)")
+                   help="repeatable: N paths ask for an N-style sweep")
     p.add_argument("--style_dir", default="", type=str,
                    help="one texture per image in this directory (a "
-                        "multi-style sweep, not ported yet); merged with "
-                        "--style_image_path")
+                        "multi-style sweep); merged with --style_image_path")
     p.add_argument("--style_layers", type=lambda s: s.split(","),
                    default=list(DEFAULT_STYLE_LAYERS))
     p.add_argument("--content_layers", type=lambda s: s.split(","),
@@ -109,9 +113,11 @@ def build_parser():
                    help="'cpu' runs the kernels' plain versions on the CPU; "
                         "the default is the CUDA card")
     p.add_argument("--data_parallel", default=False, action="store_true",
-                   help="a no-op on one card; raises with more than one")
+                   help="split each batch's views over the torchrun ranks "
+                        "(a no-op on one rank)")
     p.add_argument("--shard_atlas", default=False, action="store_true",
-                   help="a no-op on one card; raises with more than one")
+                   help="split the texture into row bands over the torchrun "
+                        "ranks (a no-op on one rank)")
     p.add_argument("--no_dynamic_level_skip", default=False,
                    action="store_true",
                    help="disable per-batch level specialization (skipping "
@@ -225,10 +231,6 @@ def check_ported(run: RunConfig, pipe_cfg: PipelineConfig):
         raise NotImplementedError(
             "the eval and post chain is not ported yet (ROADMAP queue 1, "
             "item 6): pass --no_post_steps")
-    if pipe_cfg.gram_mode == "average":
-        raise NotImplementedError(
-            "--gram_mode average (GramCache, the *_dip presets) is not "
-            "ported yet (ROADMAP queue 1, item 2)")
     if run.tb_logs:
         raise NotImplementedError(
             "--tb_logs (utils/tb_events.py) is not ported yet (ROADMAP "
@@ -243,8 +245,11 @@ def main(argv=None):
                             explicit=explicit_cli_keys(build_parser, argv))
     run, pipe_cfg = configs_from_args(args)
     check_ported(run, pipe_cfg)
-    device = "cpu" if args.platform == "cpu" else None
-    state, log_dir, _ = run_training(run, pipe_cfg, device=device)
+    mesh = init_from_env("cpu" if args.platform == "cpu" else None)
+    try:
+        state, log_dir, _ = run_training(run, pipe_cfg, mesh=mesh)
+    finally:
+        shutdown(mesh)
     return state, log_dir
 
 

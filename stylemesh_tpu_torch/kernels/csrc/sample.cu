@@ -37,6 +37,20 @@
 //         wrappers' analytic texel-(0,0) term) stays exact float32 in both.
 // The TPU kernels' planned windows and residual lists were devices for the
 // TPU's matrix unit and are not carried over.
+//
+// Banded form (a second template parameter, BANDED): atlas-sharded training
+// splits every layer into row bands, one per rank, and replaces the TPU
+// kernels' banded calls (ops/grid_sample.py::grid_sample_banded_cf, row0 and
+// include_background=False). Layers.ptr/h then hold the rank's band
+// [h, W, 3] of each layer, h_global the layer's full height and row0 the
+// band's first row. The corners and weights are those of the full layer; a
+// corner takes part only when its texel row lies in the band, at the
+// band-local row. Each rank reads the whole grid (and, in the splat, the
+// whole cotangent) but only its band's texels, so the work per rank is
+// bound by the grid bytes, and the partials of all bands sum to the full
+// function: the background's texel (0, 0) belongs to band 0. With
+// BANDED = false the in-band tests are constants and the kernels are the
+// unbanded K1/K2.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -46,15 +60,41 @@
 
 struct Layers {
   float* ptr[SM_MAX_LAYERS];
-  int h[SM_MAX_LAYERS];
+  int h[SM_MAX_LAYERS];  // rows of ptr[l]: the layer, or the band if BANDED
   int w[SM_MAX_LAYERS];
+  int h_global[SM_MAX_LAYERS];  // BANDED: the full layer's rows
+  int row0[SM_MAX_LAYERS];      // BANDED: the band's first row
   int n;
 };
 
 struct Corners {
   int i00, i01, i10, i11;  // flat texel indices
+  int iy0, iy1;            // texel rows of the y0 / y1 corners
   float wx, wy;            // weights of the x1 / y1 corners
 };
+
+// BANDED: whether layer l's band holds the rows of the y0 / y1 corners, and
+// the flat offset of the band's first texel; unbanded: the whole layer.
+struct Band {
+  bool in0, in1;
+  int off;
+};
+
+template <bool BANDED>
+__device__ __forceinline__ Band band_of(const Layers& layers, int l,
+                                        const Corners& c) {
+  Band b;
+  if (BANDED) {
+    int r0 = layers.row0[l], r1 = layers.row0[l] + layers.h[l];
+    b.in0 = c.iy0 >= r0 && c.iy0 < r1;
+    b.in1 = c.iy1 >= r0 && c.iy1 < r1;
+    b.off = r0 * layers.w[l];
+  } else {
+    b.in0 = b.in1 = true;
+    b.off = 0;
+  }
+  return b;
+}
 
 // ops/grid_sample.py::_corner_indices_weights: pix = (g + 1) / 2 * (size - 1),
 // clamp the coordinate to [0, size - 1], floor, upper corner clamped. The
@@ -76,6 +116,8 @@ __device__ __forceinline__ Corners corners(float gx, float gy, int h, int w) {
   c.i01 = iy0 * w + ix1;
   c.i10 = iy1 * w + ix0;
   c.i11 = iy1 * w + ix1;
+  c.iy0 = iy0;
+  c.iy1 = iy1;
   return c;
 }
 
@@ -91,7 +133,13 @@ __device__ __forceinline__ void tent_bf16(float frac, float* w0, float* w1) {
   *w1 = bf16r(__fsub_rn(1.0f, u));
 }
 
-template <bool BF16>
+// a corner's texel channel, 0 outside the band
+__device__ __forceinline__ float texel(const float* t, bool in, int idx,
+                                       int ch) {
+  return in ? __ldg(t + 3 * idx + ch) : 0.0f;
+}
+
+template <bool BF16, bool BANDED>
 __global__ void __launch_bounds__(256) gather_kernel(
     const float2* __restrict__ grid, float* __restrict__ out, long long n,
     Layers layers) {
@@ -101,8 +149,13 @@ __global__ void __launch_bounds__(256) gather_kernel(
   const bool round = BF16 && !(g.x == -1.0f && g.y == -1.0f);
   float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
   for (int l = 0; l < layers.n; ++l) {
-    Corners c = corners(g.x, g.y, layers.h[l], layers.w[l]);
+    Corners c = corners(g.x, g.y, BANDED ? layers.h_global[l] : layers.h[l],
+                        layers.w[l]);
+    Band b = band_of<BANDED>(layers, l, c);
+    if (!b.in0 && !b.in1) continue;
     const float* t = layers.ptr[l];
+    const int i00 = c.i00 - b.off, i01 = c.i01 - b.off;
+    const int i10 = c.i10 - b.off, i11 = c.i11 - b.off;
     float v[3];
     if (round) {
       // every product of two bf16 values is exact in float32, so the
@@ -113,10 +166,10 @@ __global__ void __launch_bounds__(256) gather_kernel(
       tent_bf16(c.wy, &uy, &wy);
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) {
-        float v00 = bf16r(__ldg(t + 3 * c.i00 + ch));
-        float v01 = bf16r(__ldg(t + 3 * c.i01 + ch));
-        float v10 = bf16r(__ldg(t + 3 * c.i10 + ch));
-        float v11 = bf16r(__ldg(t + 3 * c.i11 + ch));
+        float v00 = bf16r(texel(t, b.in0, i00, ch));
+        float v01 = bf16r(texel(t, b.in0, i01, ch));
+        float v10 = bf16r(texel(t, b.in1, i10, ch));
+        float v11 = bf16r(texel(t, b.in1, i11, ch));
         float top = __fadd_rn(v00 * ux, v01 * wx);
         float bot = __fadd_rn(v10 * ux, v11 * wx);
         v[ch] = __fadd_rn(__fmul_rn(top, uy), __fmul_rn(bot, wy));
@@ -125,10 +178,10 @@ __global__ void __launch_bounds__(256) gather_kernel(
       float ux = 1.0f - c.wx, uy = 1.0f - c.wy;
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) {
-        float v00 = __ldg(t + 3 * c.i00 + ch);
-        float v01 = __ldg(t + 3 * c.i01 + ch);
-        float v10 = __ldg(t + 3 * c.i10 + ch);
-        float v11 = __ldg(t + 3 * c.i11 + ch);
+        float v00 = texel(t, b.in0, i00, ch);
+        float v01 = texel(t, b.in0, i01, ch);
+        float v10 = texel(t, b.in1, i10, ch);
+        float v11 = texel(t, b.in1, i11, ch);
         float top = v00 * ux + v01 * c.wx;
         float bot = v10 * ux + v11 * c.wx;
         v[ch] = top * uy + bot * c.wy;
@@ -166,7 +219,7 @@ __device__ __forceinline__ void add_corner_bf16(float* t, int idx, float wy_c,
   atomicAdd(t + 3 * idx + 2, bf16r(wy_c * g2) * wx_c);
 }
 
-template <bool BF16>
+template <bool BF16, bool BANDED>
 __global__ void __launch_bounds__(256) splat_kernel(
     const float2* __restrict__ grid, const float* __restrict__ cot,
     long long n, Layers grads) {
@@ -182,36 +235,82 @@ __global__ void __launch_bounds__(256) splat_kernel(
     g2 = bf16r(g2);
   }
   for (int l = 0; l < grads.n; ++l) {
-    Corners c = corners(g.x, g.y, grads.h[l], grads.w[l]);
+    Corners c = corners(g.x, g.y, BANDED ? grads.h_global[l] : grads.h[l],
+                        grads.w[l]);
+    Band b = band_of<BANDED>(grads, l, c);
     float* t = grads.ptr[l];
+    const int i00 = c.i00 - b.off, i01 = c.i01 - b.off;
+    const int i10 = c.i10 - b.off, i11 = c.i11 - b.off;
     if (round) {
       float ux, wx, uy, wy;
       tent_bf16(c.wx, &ux, &wx);
       tent_bf16(c.wy, &uy, &wy);
-      add_corner_bf16(t, c.i00, uy, ux, g0, g1, g2);
-      add_corner_bf16(t, c.i01, uy, wx, g0, g1, g2);
-      add_corner_bf16(t, c.i10, wy, ux, g0, g1, g2);
-      add_corner_bf16(t, c.i11, wy, wx, g0, g1, g2);
+      if (b.in0) {
+        add_corner_bf16(t, i00, uy, ux, g0, g1, g2);
+        add_corner_bf16(t, i01, uy, wx, g0, g1, g2);
+      }
+      if (b.in1) {
+        add_corner_bf16(t, i10, wy, ux, g0, g1, g2);
+        add_corner_bf16(t, i11, wy, wx, g0, g1, g2);
+      }
     } else {
       float ux = 1.0f - c.wx, uy = 1.0f - c.wy;
-      add_corner(t, c.i00, uy, ux, g0, g1, g2);
-      add_corner(t, c.i01, uy, c.wx, g0, g1, g2);
-      add_corner(t, c.i10, c.wy, ux, g0, g1, g2);
-      add_corner(t, c.i11, c.wy, c.wx, g0, g1, g2);
+      if (b.in0) {
+        add_corner(t, i00, uy, ux, g0, g1, g2);
+        add_corner(t, i01, uy, c.wx, g0, g1, g2);
+      }
+      if (b.in1) {
+        add_corner(t, i10, c.wy, ux, g0, g1, g2);
+        add_corner(t, i11, c.wy, c.wx, g0, g1, g2);
+      }
     }
   }
 }
 
 static Layers make_layers(void* const* ptrs, const int* hs, const int* ws,
-                          int n_layers) {
+                          int n_layers, const int* h_globals = nullptr,
+                          const int* row0s = nullptr) {
   Layers l;
   l.n = n_layers;
   for (int i = 0; i < SM_MAX_LAYERS; ++i) {
-    l.ptr[i] = i < n_layers ? (float*)ptrs[i] : nullptr;
-    l.h[i] = i < n_layers ? hs[i] : 0;
-    l.w[i] = i < n_layers ? ws[i] : 0;
+    bool used = i < n_layers;
+    l.ptr[i] = used ? (float*)ptrs[i] : nullptr;
+    l.h[i] = used ? hs[i] : 0;
+    l.w[i] = used ? ws[i] : 0;
+    l.h_global[i] = used && h_globals ? h_globals[i] : l.h[i];
+    l.row0[i] = used && row0s ? row0s[i] : 0;
   }
   return l;
+}
+
+template <bool BANDED>
+static int launch_gather(const void* grid, void* out, long long n_px,
+                         const Layers& layers, int bf16, void* stream) {
+  if (n_px == 0) return 0;
+  unsigned blocks = (unsigned)((n_px + 255) / 256);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16)
+    gather_kernel<true, BANDED><<<blocks, 256, 0, st>>>(
+        (const float2*)grid, (float*)out, n_px, layers);
+  else
+    gather_kernel<false, BANDED><<<blocks, 256, 0, st>>>(
+        (const float2*)grid, (float*)out, n_px, layers);
+  return (int)cudaGetLastError();
+}
+
+template <bool BANDED>
+static int launch_splat(const void* grid, const void* cot, long long n_px,
+                        const Layers& grads, int bf16, void* stream) {
+  if (n_px == 0) return 0;
+  unsigned blocks = (unsigned)((n_px + 255) / 256);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16)
+    splat_kernel<true, BANDED><<<blocks, 256, 0, st>>>(
+        (const float2*)grid, (const float*)cot, n_px, grads);
+  else
+    splat_kernel<false, BANDED><<<blocks, 256, 0, st>>>(
+        (const float2*)grid, (const float*)cot, n_px, grads);
+  return (int)cudaGetLastError();
 }
 
 // bf16: 0 = the exact float32 function, 1 = the bf16 mode
@@ -220,17 +319,9 @@ extern "C" int stylemesh_gather(const void* grid, void* out, long long n_px,
                                 const int* ws, int n_layers, int bf16,
                                 void* stream) {
   if (n_layers < 1 || n_layers > SM_MAX_LAYERS) return (int)cudaErrorInvalidValue;
-  if (n_px == 0) return 0;
-  Layers layers = make_layers(layer_ptrs, hs, ws, n_layers);
-  unsigned blocks = (unsigned)((n_px + 255) / 256);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    gather_kernel<true><<<blocks, 256, 0, st>>>((const float2*)grid,
-                                                (float*)out, n_px, layers);
-  else
-    gather_kernel<false><<<blocks, 256, 0, st>>>((const float2*)grid,
-                                                 (float*)out, n_px, layers);
-  return (int)cudaGetLastError();
+  return launch_gather<false>(grid, out, n_px,
+                              make_layers(layer_ptrs, hs, ws, n_layers), bf16,
+                              stream);
 }
 
 extern "C" int stylemesh_splat(const void* grid, const void* cot,
@@ -238,15 +329,33 @@ extern "C" int stylemesh_splat(const void* grid, const void* cot,
                                const int* hs, const int* ws, int n_layers,
                                int bf16, void* stream) {
   if (n_layers < 1 || n_layers > SM_MAX_LAYERS) return (int)cudaErrorInvalidValue;
-  if (n_px == 0) return 0;
-  Layers grads = make_layers(grad_ptrs, hs, ws, n_layers);
-  unsigned blocks = (unsigned)((n_px + 255) / 256);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    splat_kernel<true><<<blocks, 256, 0, st>>>((const float2*)grid,
-                                               (const float*)cot, n_px, grads);
-  else
-    splat_kernel<false><<<blocks, 256, 0, st>>>((const float2*)grid,
-                                                (const float*)cot, n_px, grads);
-  return (int)cudaGetLastError();
+  return launch_splat<false>(grid, cot, n_px,
+                             make_layers(grad_ptrs, hs, ws, n_layers), bf16,
+                             stream);
+}
+
+// band_hs: rows of each band; h_globals: rows of each full layer; row0s:
+// each band's first row (0 <= row0, row0 + band_h <= h_global)
+extern "C" int stylemesh_gather_banded(const void* grid, void* out,
+                                       long long n_px, void* const* band_ptrs,
+                                       const int* band_hs, const int* ws,
+                                       const int* h_globals, const int* row0s,
+                                       int n_layers, int bf16, void* stream) {
+  if (n_layers < 1 || n_layers > SM_MAX_LAYERS) return (int)cudaErrorInvalidValue;
+  return launch_gather<true>(
+      grid, out, n_px,
+      make_layers(band_ptrs, band_hs, ws, n_layers, h_globals, row0s), bf16,
+      stream);
+}
+
+extern "C" int stylemesh_splat_banded(const void* grid, const void* cot,
+                                      long long n_px, void* const* grad_ptrs,
+                                      const int* band_hs, const int* ws,
+                                      const int* h_globals, const int* row0s,
+                                      int n_layers, int bf16, void* stream) {
+  if (n_layers < 1 || n_layers > SM_MAX_LAYERS) return (int)cudaErrorInvalidValue;
+  return launch_splat<true>(
+      grid, cot, n_px,
+      make_layers(grad_ptrs, band_hs, ws, n_layers, h_globals, row0s), bf16,
+      stream);
 }

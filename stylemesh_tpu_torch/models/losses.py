@@ -1,7 +1,5 @@
 """Content + style losses over a multi-resolution prediction pyramid
-(counterpart of ``stylemesh_tpu/models/losses.py`` with its default
-``gram_mode='current'``; the Gram cache of ``'average'`` is not ported yet
-and raises, ROADMAP queue 1, item 2).
+(counterpart of ``stylemesh_tpu/models/losses.py``).
 
 - Variable-length masked feature sets are mask-weighted Grams / MSEs.
 - An empty pyramid level gets factor 0 and zero masked losses.
@@ -15,6 +13,11 @@ and raises, ROADMAP queue 1, item 2).
 - ``remat`` recomputes the VGG encode of every level with at least
   ``remat_min_px`` pixels in the backward
   (``torch.utils.checkpoint.checkpoint``); the numbers are the same.
+- ``gram_mode="average"`` (the reference's rolling mean of the current and
+  up to 9 detached earlier Grams) carries a :class:`GramCache` from step to
+  step. Views are walked in order, view-outer and level-inner, so that a
+  view mixes against the pushes of the earlier views of its batch: V
+  consecutive reference steps. A level empty for a view does not push.
 """
 
 import dataclasses
@@ -34,11 +37,42 @@ DEFAULT_CONTENT_LAYERS = ("r42",)
 DEFAULT_STYLE_WEIGHTS = tuple(1e3 / n ** 2 for n in (64, 128, 256, 512, 512))
 DEFAULT_CONTENT_WEIGHTS = (1.0,)
 
+GRAM_CACHE_DEPTH = 10  # the current Gram + 9 detached ones
+
 
 class StyleTargets(NamedTuple):
     """Precomputed style Gram targets: layer name -> ``[num_levels, C, C]``."""
 
     grams: Dict[str, torch.Tensor]
+
+
+class GramCache(NamedTuple):
+    """State of ``gram_mode='average'``.
+
+    ``grams[layer]``: ``[GRAM_CACHE_DEPTH, C, C]`` float32 ring (slot 0 the
+    most recent push); ``count``: 0-d int64 tensor, the valid entries.
+    ``push_log`` is set only under ``ContentAndStyleLoss.collect_push_log``
+    (the view-parallel cache merge, ``parallel/train.py``): the walk's
+    pushes ``({layer: [P, C, C]}, [P] bool flags)`` in (view, level) order.
+    It is never kept in the train state.
+    """
+
+    grams: Dict[str, torch.Tensor]
+    count: torch.Tensor
+    push_log: Optional[Tuple[Dict[str, torch.Tensor], torch.Tensor]] = None
+
+    @staticmethod
+    def create(style_layers, layer_channels, device=None):
+        return GramCache(
+            grams={k: torch.zeros((GRAM_CACHE_DEPTH, layer_channels[k],
+                                   layer_channels[k]), device=device)
+                   for k in style_layers},
+            count=torch.zeros((), dtype=torch.int64, device=device))
+
+
+def _push(cache_k, gram):
+    """``cache_k`` with ``gram`` pushed into slot 0 (the oldest drops)."""
+    return torch.cat([gram[None], cache_k[:-1]], dim=0)
 
 
 def _mse_gram(y, y_hat):
@@ -66,15 +100,13 @@ class ContentAndStyleLoss:
     compute_dtype: Optional[torch.dtype] = None
     precision: str = "highest"
     skip_levels: Tuple[int, ...] = ()
+    # record the gram-average walk's pushes in GramCache.push_log
+    collect_push_log: bool = False
 
     def __post_init__(self):
         if self.style_pyramid_mode not in ("single", "multi"):
             raise ValueError(f"style_pyramid_mode {self.style_pyramid_mode!r}")
-        if self.gram_mode == "average":
-            raise NotImplementedError(
-                "gram_mode='average' (GramCache) is not ported yet "
-                "(ROADMAP queue 1, item 2)")
-        if self.gram_mode != "current":
+        if self.gram_mode not in ("current", "average"):
             raise ValueError(f"gram_mode {self.gram_mode!r}")
 
     @property
@@ -187,8 +219,12 @@ class ContentAndStyleLoss:
                  pred_pyramid: Sequence[torch.Tensor],
                  target_content: torch.Tensor,
                  pyramid_masks: Sequence[torch.Tensor],
-                 angle_degrees: torch.Tensor, aux=None):
-        """Compute (style_loss, content_loss), scalar means over the views.
+                 angle_degrees: torch.Tensor, aux=None,
+                 gram_cache: Optional[GramCache] = None):
+        """Compute (style_loss, content_loss, new_gram_cache): the losses
+        are scalar means over the views; the cache is ``gram_cache`` walked
+        through this batch under ``gram_mode='average'`` and ``gram_cache``
+        itself otherwise.
 
         Args:
             pred_pyramid: per level ``[V, H_i, W_i, 3]`` sampled textures,
@@ -197,6 +233,7 @@ class ContentAndStyleLoss:
             pyramid_masks: per level ``[V, H_i, W_i, 1]`` 0/1 float.
             angle_degrees: ``[V, H, W, 1]`` viewing angle in degrees.
             aux: optional :meth:`precompute_aux` result.
+            gram_cache: required under ``gram_mode='average'``.
         """
         num_levels = len(pred_pyramid)
         v = target_content.shape[0]
@@ -216,13 +253,16 @@ class ContentAndStyleLoss:
         def encode(p):
             return self._encode(vgg_params, p, self.layers)
 
+        # per live level: the prediction's Grams (the bad-angle ones under
+        # the multi mode) and the content loss
+        grams, failed_grams = {}, {}
         for i in live:
             p = pred_pyramid[i]
             if self.remat and p.shape[1] * p.shape[2] >= self.remat_min_px:
                 encs = checkpoint(encode, p, use_reentrant=False)
             else:
                 encs = encode(p)
-            grams, failed_grams = {}, {}
+            grams[i], failed_grams[i] = {}, {}
             for k in self.style_layers:
                 if k in aux["gram_masks"][i]:
                     sums = gram_kernels.fused_masked_grams(
@@ -230,19 +270,35 @@ class ContentAndStyleLoss:
                     counts = aux["gram_counts"][i][k]  # [K, V]
                     denom = torch.where(counts > 0, counts,
                                         torch.ones_like(counts))
-                    grams[k] = sums[:, 0] / denom[0][:, None, None]
+                    grams[i][k] = sums[:, 0] / denom[0][:, None, None]
                     if self.style_pyramid_mode == "multi":
-                        failed_grams[k] = sums[:, 1] / denom[1][:, None, None]
+                        failed_grams[i][k] = sums[:, 1] / denom[1][:, None, None]
                 else:
                     m = (aux["masks_passed"][i][k]
                          if self.style_pyramid_mode == "multi"
                          else masks[i][k])
-                    grams[k] = masked_gram(encs[k], m)
+                    grams[i][k] = masked_gram(encs[k], m)
+                    if self.style_pyramid_mode == "multi":
+                        failed_grams[i][k] = masked_gram(encs[k],
+                                                         masks_failed[i][k])
+            for li, k in enumerate(self.content_layers):
+                l = masked_mse(aux["content_targets"][i][k], encs[k],
+                               masks[i][k])
+                content_loss = content_loss + (
+                    self.content_weights[li] * factors[i][k] * l).mean()
 
+        new_cache = gram_cache
+        if self.gram_mode == "average":
+            if gram_cache is None:
+                raise ValueError("gram_mode='average' needs a GramCache")
+            grams, new_cache = self._average_walk(grams, gram_cache, live,
+                                                  pyramid_masks, v)
+
+        for i in live:
             for li, k in enumerate(self.style_layers):
                 w = self.style_weights[li]
                 f = factors[i][k]  # [V]
-                y_hat = grams[k]
+                y_hat = grams[i][k]
                 y = (style_targets.grams[k][2]
                      if self.style_pyramid_mode == "multi"
                      else style_targets.grams[k][0])
@@ -250,20 +306,54 @@ class ContentAndStyleLoss:
                 if self.style_pyramid_mode == "multi":
                     # bad-angle areas are stylized only with the larger style
                     # image, active only when non-empty
-                    y_hat_failed = (failed_grams[k] if k in failed_grams
-                                    else masked_gram(encs[k], masks_failed[i][k]))
                     has_failed = (masks_failed[i][k].reshape(v, -1).sum(dim=1)
                                   > 0).float()
-                    l = l + w * f * has_failed * _mse_gram(y, y_hat_failed)
+                    l = l + w * f * has_failed * _mse_gram(
+                        y, failed_grams[i][k])
                     if li > 2:
                         l = l + w * f * _mse_gram(style_targets.grams[k][0],
                                                   y_hat)
                 style_loss = style_loss + l.mean()
 
-            for li, k in enumerate(self.content_layers):
-                l = masked_mse(aux["content_targets"][i][k], encs[k],
-                               masks[i][k])
-                content_loss = content_loss + (
-                    self.content_weights[li] * factors[i][k] * l).mean()
+        return style_loss, content_loss, new_cache
 
-        return style_loss, content_loss
+    def _average_walk(self, grams, cache: GramCache, live, pyramid_masks, v):
+        """The view-outer cache walk of ``gram_mode='average'``: view ``vi``
+        at (level, layer) mixes its current Gram with the detached history,
+        which holds the pushes of earlier views and of view ``vi``'s earlier
+        levels. Returns the mixed Grams and the walked cache."""
+        nonempty = {i: pyramid_masks[i].float().reshape(v, -1).sum(dim=1) > 0
+                    for i in live}
+        slot = torch.arange(GRAM_CACHE_DEPTH,
+                            device=cache.count.device)[:, None, None]
+        cache_grams = dict(cache.grams)
+        count = cache.count
+        mixed = {i: {k: [] for k in self.style_layers} for i in live}
+        push_flags, push_grams = [], {k: [] for k in self.style_layers}
+        for vi in range(v):
+            for i in live:
+                ne = nonempty[i][vi]
+                push_flags.append(ne)
+                n_detached = torch.clamp(count, max=GRAM_CACHE_DEPTH - 1)
+                denom = (n_detached + 1).float()
+                for k in self.style_layers:
+                    cache_k = cache_grams[k]
+                    detached_sum = torch.where(
+                        slot < n_detached, cache_k,
+                        torch.zeros((), device=cache_k.device)).sum(dim=0)
+                    cur = grams[i][k][vi]
+                    mixed[i][k].append((cur + detached_sum) / denom)
+                    cur_det = cur.detach().float()
+                    push_grams[k].append(cur_det)
+                    cache_grams[k] = torch.where(ne, _push(cache_k, cur_det),
+                                                 cache_k)
+                count = torch.where(
+                    ne, torch.clamp(count + 1, max=GRAM_CACHE_DEPTH), count)
+        mixed = {i: {k: torch.stack(g, dim=0) for k, g in per.items()}
+                 for i, per in mixed.items()}
+        push_log = None
+        if self.collect_push_log and push_flags:
+            push_log = ({k: torch.stack(g) for k, g in push_grams.items()},
+                        torch.stack(push_flags))
+        return mixed, GramCache(grams=cache_grams, count=count,
+                                push_log=push_log)

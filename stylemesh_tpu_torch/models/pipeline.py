@@ -11,8 +11,12 @@
 - ``skip_levels`` are neither rendered nor encoded and add no loss term;
   ``stop_grad_levels`` are rendered and scored but their prediction is
   detached (the run loop picks both from the scene, ``optimize.py``).
-- ``gram_mode="average"`` (the JAX package's ``GramCache``) is not ported
-  yet: building a pipeline with it raises (ROADMAP queue 1, item 2).
+- ``gram_mode="average"`` carries the loss's ``GramCache`` in the train
+  state (``TrainState.gram_cache``).
+- The render (:meth:`TexturePipeline._render_pyramid`), the regularizer
+  (:meth:`TexturePipeline._tex_reg`) and the update
+  (:meth:`TexturePipeline.apply_update`) are the pieces the multi-device
+  pipelines of ``parallel/`` override or reuse.
 """
 
 import dataclasses
@@ -23,13 +27,18 @@ import torch
 
 from stylemesh_tpu_torch import resolve_device
 from stylemesh_tpu_torch.data.schema import ViewBatch
-from stylemesh_tpu_torch.models.losses import ContentAndStyleLoss, StyleTargets
+from stylemesh_tpu_torch.models.losses import (
+    ContentAndStyleLoss,
+    GramCache,
+    StyleTargets,
+)
 from stylemesh_tpu_torch.models.texture import (
     Texture,
     clamp_texture,
     sample_texture,
     texture_regularizer,
 )
+from stylemesh_tpu_torch.models.vgg import VGG_LAYER_CHANNELS
 from stylemesh_tpu_torch.ops.erosion import erode
 from stylemesh_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 
@@ -101,7 +110,7 @@ class PipelineConfig:
     use_depth_scaling: bool = True
     angle_threshold: float = 60.0
     style_pyramid_mode: str = "single"
-    gram_mode: str = "current"  # "average" is not ported yet (raises)
+    gram_mode: str = "current"  # "current" | "average"
     num_style_levels: int = 5
     style_min_size: int = 256
 
@@ -164,13 +173,15 @@ class PipelineConfig:
 
 @dataclasses.dataclass
 class TrainState:
-    """The texture, the Adam moments (one per layer) and the step count.
+    """The texture, the Adam moments (one per layer), the step count and,
+    under ``gram_mode='average'``, the Gram cache.
     :meth:`TexturePipeline.train_step` updates it in place."""
 
     texture: Texture
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
     step: int = 0
+    gram_cache: Optional[GramCache] = None
 
 
 class BatchAux(NamedTuple):
@@ -223,10 +234,15 @@ class TexturePipeline:
                                  random_init=cfg.random_texture_init,
                                  generator=generator, device=self.device)
         clamp_texture(texture)
+        gram_cache = None
+        if cfg.gram_mode == "average":
+            gram_cache = GramCache.create(cfg.style_layers, VGG_LAYER_CHANNELS,
+                                          device=self.device)
         return TrainState(
             texture=texture,
             mu=[torch.zeros_like(l) for l in texture.layers],
-            nu=[torch.zeros_like(l) for l in texture.layers])
+            nu=[torch.zeros_like(l) for l in texture.layers],
+            gram_cache=gram_cache)
 
     def learning_rate(self, step: int) -> float:
         """optax.exponential_decay(staircase=True) at optimizer count ``step``."""
@@ -266,18 +282,24 @@ class TexturePipeline:
                         loss_aux=loss_aux)
 
     def loss_fn(self, texture: Texture, batch: ViewBatch,
-                aux: Optional[BatchAux] = None):
-        """(total loss, dict of the weighted loss terms)."""
+                aux: Optional[BatchAux] = None,
+                gram_cache: Optional[GramCache] = None):
+        """(total loss, dict of the weighted loss terms, new Gram cache)."""
+        return self.loss_with_targets(texture, self.style_targets, batch, aux,
+                                      gram_cache)
+
+    def loss_with_targets(self, texture: Texture, style_targets: StyleTargets,
+                          batch: ViewBatch, aux: Optional[BatchAux] = None,
+                          gram_cache: Optional[GramCache] = None):
+        """:meth:`loss_fn` with explicit style targets (the multi-style
+        sweep's per-style loss, ``parallel/multistyle.py``)."""
         cfg = self.config
         if aux is None:
             aux = self.prepare_batch(batch)
         # 1. render: sample the atlas at every live UV pyramid level (K1 / K2)
-        skip, sgl = set(cfg.skip_levels), set(cfg.stop_grad_levels)
-        pred_pyramid = [
-            None if i in skip else
-            sample_texture(texture, uv, compute=cfg.kernel_compute)
-            for i, uv in enumerate(batch.uv)]
+        pred_pyramid = self._render_pyramid(texture, batch)
         # gradient-dead levels: value kept, backward dropped
+        sgl = set(cfg.stop_grad_levels)
         pred_pyramid = [p.detach() if p is not None and i in sgl else p
                         for i, p in enumerate(pred_pyramid)]
         # 2. gradient weighting (forward-mode equivalent of the hooks)
@@ -285,13 +307,13 @@ class TexturePipeline:
             pred_pyramid = [p if p is None else _grad_scale(p, w)
                             for p, w in zip(pred_pyramid, aux.grad_weights)]
         # 3. content + style
-        style_loss, content_loss = self.loss(
-            self.vgg_params, self.style_targets, pred_pyramid, batch.rgb,
-            aux.pyramid_masks, batch.angle_degrees, aux=aux.loss_aux)
+        style_loss, content_loss, new_cache = self.loss(
+            self.vgg_params, style_targets, pred_pyramid, batch.rgb,
+            aux.pyramid_masks, batch.angle_degrees, aux=aux.loss_aux,
+            gram_cache=gram_cache)
         # 4. texture regularizer
         if cfg.tex_reg_weight > 0:
-            tex_reg = texture_regularizer(texture,
-                                          cfg.resolved_tex_reg_weights())
+            tex_reg = self._tex_reg(texture)
         else:
             tex_reg = torch.zeros((), device=self.device)
         losses = {
@@ -301,7 +323,19 @@ class TexturePipeline:
         }
         total = losses["content"] + losses["style"] + losses["tex_reg"]
         losses["total"] = total
-        return total, losses
+        return total, losses, new_cache
+
+    def _render_pyramid(self, texture: Texture, batch: ViewBatch):
+        """The atlas sampled at every UV pyramid level, None for a skipped
+        level (one K1 launch per level, its K2 in the backward)."""
+        skip = set(self.config.skip_levels)
+        return [None if i in skip else
+                sample_texture(texture, uv, compute=self.config.kernel_compute)
+                for i, uv in enumerate(batch.uv)]
+
+    def _tex_reg(self, texture: Texture):
+        return texture_regularizer(texture,
+                                   self.config.resolved_tex_reg_weights())
 
     # ------------------------------------------------------------- steps
 
@@ -310,12 +344,20 @@ class TexturePipeline:
         """One optimization step; updates ``state`` in place and returns the
         loss terms (detached 0-d tensors, not synchronized)."""
         layers = list(state.texture.layers)
-        total, losses = self.loss_fn(state.texture, batch, aux)
+        total, losses, cache = self.loss_fn(state.texture, batch, aux,
+                                            state.gram_cache)
         grads = torch.autograd.grad(total, layers)
+        self.apply_update(state, grads, cache)
+        return {k: v.detach() for k, v in losses.items()}
+
+    def apply_update(self, state: TrainState, grads, gram_cache=None):
+        """Adam on the texture with ``grads``, the clamp, the step count and
+        the walked Gram cache (its push log dropped), all in place."""
         self._adam_update(state, grads)
         clamp_texture(state.texture)
         state.step += 1
-        return {k: v.detach() for k, v in losses.items()}
+        if gram_cache is not None:
+            state.gram_cache = gram_cache._replace(push_log=None)
 
     @torch.no_grad()
     def _adam_update(self, state: TrainState, grads):
@@ -336,6 +378,7 @@ class TexturePipeline:
     def eval_step(self, state: TrainState, batch: ViewBatch,
                   aux: Optional[BatchAux] = None) -> Dict[str, torch.Tensor]:
         """The loss terms without an update."""
-        _, losses = self.loss_fn(state.texture, batch, aux)
+        _, losses, _ = self.loss_fn(state.texture, batch, aux,
+                                    state.gram_cache)
         return losses
 

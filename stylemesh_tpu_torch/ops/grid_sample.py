@@ -27,6 +27,14 @@ compute=)`` of the JAX package does for its planned TPU kernels:
   inside its planned windows; the port has no planner, so it rounds every
   pixel except the background pixels at grid exactly ``(-1, -1)``, which
   stay exact float32 there as here.
+
+Atlas-sharded training splits every layer into row bands, one per rank.
+:func:`sample_layers_banded` is one rank's partial render: the banded K1
+(:func:`gather_layers_banded`) and K2 (:func:`splat_layers_banded`) take
+the corner indices and weights of the whole layer and keep the corners
+whose texel row lies in the rank's band, in either mode. The JAX package
+reaches the same function through ``grid_sample_banded_cf`` with
+``row0`` and ``include_background=False``.
 """
 
 import ctypes
@@ -170,6 +178,91 @@ def splat_layers_plain_bf16(g, grid, shapes):
     return [_splat_plain_bf16(g, grid, h, w) for (h, w) in shapes]
 
 
+def _band_corner(iy, ix, row0, band_h, w):
+    """Band-local flat texel index of a corner at global row ``iy`` (0 where
+    the row lies outside ``[row0, row0 + band_h)``) and its in-band flag."""
+    local = iy - row0
+    inside = (local >= 0) & (local < band_h)
+    return torch.where(inside, local, torch.zeros_like(local)) * w + ix, inside
+
+
+def _gather_plain_banded(band, grid, row0, h, bf16):
+    """One layer's band ``[band_h, W, C]`` of a texture ``h`` rows high: the
+    corners whose texel row lies in the band, read at their band-local row;
+    the others contribute nothing."""
+    band_h, w, c = band.shape
+    iy0, iy1, ix0, ix1, wy1, wx1 = _corner_indices_weights(grid, h, w)
+    flat = (_bf16r(band) if bf16 else band).reshape(band_h * w, c)
+
+    def pix(iy, ix):
+        idx, inside = _band_corner(iy, ix, row0, band_h, w)
+        v = flat[idx.reshape(-1)].reshape(idx.shape + (c,))
+        return torch.where(inside[..., None], v, torch.zeros((), dtype=v.dtype))
+
+    if bf16:
+        ux, wx = (t[..., None] for t in _tent_bf16(wx1))
+        uy, wy = (t[..., None] for t in _tent_bf16(wy1))
+    else:
+        wx, wy = wx1[..., None], wy1[..., None]
+        ux, uy = 1.0 - wx, 1.0 - wy
+    top = pix(iy0, ix0) * ux + pix(iy0, ix1) * wx
+    bot = pix(iy1, ix0) * ux + pix(iy1, ix1) * wx
+    out = top * uy + bot * wy
+    if bf16:  # background pixels stay exact float32
+        out = torch.where(_background(grid)[..., None],
+                          _gather_plain_banded(band, grid, row0, h, False), out)
+    return out
+
+
+def _splat_plain_banded(g, grid, band_hw, row0, h, bf16):
+    """One layer's band gradient: the scatter-add of :func:`_splat_plain`
+    (or its bf16 twin) restricted to the corners whose row lies in the
+    band."""
+    band_h, w = band_hw
+    c = g.shape[-1]
+    iy0, iy1, ix0, ix1, wy1, wx1 = _corner_indices_weights(grid, h, w)
+    g2 = g.reshape(-1, c)
+    wy1f, wx1f = wy1.reshape(-1, 1), wx1.reshape(-1, 1)
+    exact = ((iy0, ix0, g2 * (1.0 - wy1f) * (1.0 - wx1f)),
+             (iy0, ix1, g2 * (1.0 - wy1f) * wx1f),
+             (iy1, ix0, g2 * wy1f * (1.0 - wx1f)),
+             (iy1, ix1, g2 * wy1f * wx1f))
+    if bf16:
+        bg = _background(grid).reshape(-1, 1)
+        gb = _bf16r(g2)
+        ux, wx = (t.reshape(-1, 1) for t in _tent_bf16(wx1))
+        uy, wy = (t.reshape(-1, 1) for t in _tent_bf16(wy1))
+        exact = [(iy, ix, torch.where(bg, e, _bf16r(row_w * gb) * col_w))
+                 for (iy, ix, e), row_w, col_w in zip(
+                     exact, (uy, uy, wy, wy), (ux, wx, ux, wx))]
+    dtex = torch.zeros((band_h * w, c), dtype=g.dtype, device=g.device)
+    for iy, ix, contrib in exact:
+        idx, inside = _band_corner(iy, ix, row0, band_h, w)
+        contrib = torch.where(inside.reshape(-1, 1), contrib,
+                              torch.zeros((), dtype=contrib.dtype))
+        dtex.index_add_(0, idx.reshape(-1), contrib)
+    return dtex.reshape(band_h, w, c)
+
+
+def gather_layers_banded_plain(bands, grid, row0s, heights, compute="f32"):
+    """Plain version of the banded K1 (either mode): the sum over layers of
+    :func:`_gather_plain_banded`."""
+    _check_compute(compute)
+    out = None
+    for band, row0, h in zip(bands, row0s, heights):
+        y = _gather_plain_banded(band, grid, row0, h, compute == "bf16")
+        out = y if out is None else out + y
+    return out
+
+
+def splat_layers_banded_plain(g, grid, band_shapes, row0s, heights,
+                              compute="f32"):
+    """Plain version of the banded K2 (either mode)."""
+    _check_compute(compute)
+    return [_splat_plain_banded(g, grid, hw, row0, h, compute == "bf16")
+            for hw, row0, h in zip(band_shapes, row0s, heights)]
+
+
 def _check_compute(compute):
     if compute not in COMPUTE_MODES:
         raise ValueError(f"compute must be one of {COMPUTE_MODES}, got {compute!r}")
@@ -282,6 +375,134 @@ def sample_layers(layers, grid, compute="f32"):
     in the given ``compute`` mode."""
     return _SampleLayers.apply(grid.contiguous(), compute,
                                *[l.contiguous() for l in layers])
+
+
+def _check_bands(band_shapes, row0s, heights):
+    if not len(band_shapes) == len(row0s) == len(heights):
+        raise ValueError("one row0 and one height per band")
+    for (band_h, _), row0, h in zip(band_shapes, row0s, heights):
+        if not (0 <= row0 and row0 + band_h <= h):
+            raise ValueError(f"band rows [{row0}, {row0 + band_h}) outside "
+                             f"a layer of {h} rows")
+
+
+def _band_table(row0s, heights):
+    n = len(row0s)
+    return (ctypes.c_int * n)(*heights), (ctypes.c_int * n)(*row0s)
+
+
+def gather_layers_banded(bands, grid, row0s, heights, compute="f32"):
+    """The banded K1: this rank's share of :func:`gather_layers` when every
+    layer ``l`` of the texture (``heights[l]`` rows) is split into row
+    bands and this rank holds rows ``[row0s[l], row0s[l] + bands[l].shape[0])``
+    of it. The corner indices and weights are those of the whole layer; a
+    corner adds its texel only when the texel's row lies in the band.
+    Summed over the bands of every rank, the partials are
+    :func:`gather_layers`: the background pixels at grid (-1, -1) read
+    texel (0, 0) with weight 1 and so belong to the band holding row 0.
+
+    CPU tensors take :func:`gather_layers_banded_plain`; CUDA tensors
+    launch the kernel (one launch for all bands) or raise. Counts its
+    launches in ``.banded_launches`` (f32) and ``.banded_bf16_launches``.
+    """
+    _check_compute(compute)
+    bf16 = compute == "bf16"
+    if grid.device.type == "cpu":
+        return gather_layers_banded_plain(bands, grid, row0s, heights, compute)
+    _check_sampling(bands, grid)
+    _check_bands([tuple(b.shape[:2]) for b in bands], row0s, heights)
+    out = torch.empty(grid.shape[:-1] + (3,), dtype=torch.float32,
+                      device=grid.device)
+    ptrs, hs, ws = _layer_table(bands)
+    kernels.launch("stylemesh_gather_banded", grid.device, grid.data_ptr(),
+                   out.data_ptr(), grid.numel() // 2, ptrs, hs, ws,
+                   *_band_table(row0s, heights), len(bands), int(bf16))
+    if bf16:
+        gather_layers_banded.banded_bf16_launches += 1
+    else:
+        gather_layers_banded.banded_launches += 1
+    return out
+
+
+gather_layers_banded.banded_launches = 0
+gather_layers_banded.banded_bf16_launches = 0
+
+
+def splat_layers_banded(g, grid, band_shapes, row0s, heights, compute="f32"):
+    """The banded K2: the gradients of :func:`gather_layers_banded` for
+    cotangent ``g``, one zero-initialised float32 ``[band_h, W, 3]`` per
+    ``band_shapes[l]``: the scatter-add of :func:`splat_layers` restricted
+    to the corners whose row lies in the band.
+
+    CPU tensors take :func:`splat_layers_banded_plain`; CUDA tensors launch
+    the kernel (one launch for all bands) or raise. Counts its launches in
+    ``.banded_launches`` (f32) and ``.banded_bf16_launches``.
+    """
+    _check_compute(compute)
+    bf16 = compute == "bf16"
+    if grid.device.type == "cpu":
+        return splat_layers_banded_plain(g, grid, band_shapes, row0s, heights,
+                                         compute)
+    grads = [torch.zeros((h, w, 3), dtype=torch.float32, device=grid.device)
+             for (h, w) in band_shapes]
+    _check_sampling(grads, grid)
+    _check_bands(band_shapes, row0s, heights)
+    kernels.require_cuda(g, dtype=torch.float32)
+    if g.shape != grid.shape[:-1] + (3,):
+        raise ValueError(f"cotangent {tuple(g.shape)} vs grid {tuple(grid.shape)}")
+    ptrs, hs, ws = _layer_table(grads)
+    kernels.launch("stylemesh_splat_banded", grid.device, grid.data_ptr(),
+                   g.data_ptr(), grid.numel() // 2, ptrs, hs, ws,
+                   *_band_table(row0s, heights), len(grads), int(bf16))
+    if bf16:
+        splat_layers_banded.banded_bf16_launches += 1
+    else:
+        splat_layers_banded.banded_launches += 1
+    return grads
+
+
+splat_layers_banded.banded_launches = 0
+splat_layers_banded.banded_bf16_launches = 0
+
+
+class _SampleLayersBanded(torch.autograd.Function):
+    """This rank's partial of :func:`sample_layers` over its row bands;
+    differentiable w.r.t. the bands only."""
+
+    @staticmethod
+    def forward(ctx, grid, compute, row0s, heights, *bands):
+        ctx.save_for_backward(grid)
+        ctx.shapes = [tuple(b.shape[:2]) for b in bands]
+        ctx.compute, ctx.row0s, ctx.heights = compute, row0s, heights
+        return gather_layers_banded(bands, grid, row0s, heights, compute)
+
+    @staticmethod
+    def backward(ctx, g):
+        (grid,) = ctx.saved_tensors
+        grads = splat_layers_banded(g.contiguous(), grid, ctx.shapes,
+                                    ctx.row0s, ctx.heights, ctx.compute)
+        return (None, None, None, None, *grads)
+
+
+def sample_layers_banded(bands, grid, row0s, heights, compute="f32"):
+    """This rank's partial render from its row bands, with the banded K1/K2
+    autograd pair (``row0s`` / ``heights``: each band's first row and its
+    layer's full height)."""
+    return _SampleLayersBanded.apply(grid.contiguous(), compute,
+                                     tuple(row0s), tuple(heights),
+                                     *[b.contiguous() for b in bands])
+
+
+def launch_counts():
+    """The launch counts of the sampling kernels, by kernel and mode."""
+    return {"gather": gather_layers.launches,
+            "gather_bf16": gather_layers.bf16_launches,
+            "splat": splat_layers.launches,
+            "splat_bf16": splat_layers.bf16_launches,
+            "gather_banded": gather_layers_banded.banded_launches,
+            "gather_banded_bf16": gather_layers_banded.banded_bf16_launches,
+            "splat_banded": splat_layers_banded.banded_launches,
+            "splat_banded_bf16": splat_layers_banded.banded_bf16_launches}
 
 
 def grid_sample(texture, grid):

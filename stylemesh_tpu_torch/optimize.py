@@ -2,7 +2,8 @@
 
 Builds the scene cache, the style image and the pipeline, and runs the
 epoch loop (train + validation) with per-epoch texture exports, on one
-device:
+device or, under ``torchrun``, on every rank of a mesh
+(``parallel/mesh.py``):
 
 - pyramid levels empty for every view of the scene are skipped and levels
   whose gradient weight is an exact zero everywhere are detached, for the
@@ -19,15 +20,23 @@ The phases of the run go to ``<log_dir>/wallclock.json`` with the JAX
 package's keys. The kernels are built at their first use; on a CUDA device
 that build is timed under ``compile_first_step`` with the first step.
 
+The multi-device modes, as in the JAX package: ``shard_atlas`` bands the
+texture over the ranks (``parallel/atlas.py``), ``data_parallel`` splits
+each batch's views (``parallel/train.py``), and several style images make a
+multi-style sweep (``parallel/multistyle.py``, also on one rank). With one
+rank ``shard_atlas`` and ``data_parallel`` are no-ops. Every rank builds
+its own scene cache and draws the same chunks from the same seed; rank 0
+alone writes the logs, checkpoints and exports, which hold the full
+texture and have the single-device run's shapes and keys.
+
 Not here yet: the eval and post chain (``render_styled_frames``, ROADMAP
-queue 1, item 6) and every multi-device mode (item 7): with more than one
-visible card ``data_parallel`` and ``shard_atlas`` raise, as does a
-multi-style sweep; on one card they are no-ops, as in the JAX package.
+queue 1, item 6).
 """
 
 import dataclasses
 import json
 import os
+import resource
 import time
 from os.path import join
 from typing import Optional
@@ -35,7 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from stylemesh_tpu_torch import kernels, resolve_device
+from stylemesh_tpu_torch import kernels
 from stylemesh_tpu_torch.convert import batch_from_numpy
 from stylemesh_tpu_torch.data.grad_masks import grad_weight_masks
 from stylemesh_tpu_torch.data.loading import SceneCache, gatys_pre_np
@@ -57,8 +66,17 @@ from stylemesh_tpu_torch.models.vgg import (
     init_vgg_params,
     load_vgg_params,
 )
+from stylemesh_tpu_torch.ops import grid_sample
 from stylemesh_tpu_torch.ops.color import gatys_post
 from stylemesh_tpu_torch.ops.resize import resize_bilinear
+from stylemesh_tpu_torch.parallel.atlas import AtlasShardedPipeline
+from stylemesh_tpu_torch.parallel.mesh import (
+    barrier,
+    broadcast_object,
+    make_mesh,
+)
+from stylemesh_tpu_torch.parallel.multistyle import MultiStylePipeline
+from stylemesh_tpu_torch.parallel.train import ShardedTexturePipeline
 from stylemesh_tpu_torch.utils.checkpoint import (
     restore_train_state,
     save_texture_image,
@@ -107,12 +125,12 @@ class RunConfig:
     shuffle: bool = False
     max_epochs: int = 1
     views_per_batch: int = 1
-    data_parallel: bool = False  # raises with more than one visible card
-    shard_atlas: bool = False  # raises with more than one visible card
+    data_parallel: bool = False  # views over the ranks (no-op on one)
+    shard_atlas: bool = False  # texture row bands over the ranks (no-op on one)
     # per-batch level specialization: levels empty for the whole batch
     # skipped, gradient-dead levels detached
     dynamic_level_skip: bool = True
-    extra_style_paths: tuple = ()  # multi-style sweeps raise (not ported)
+    extra_style_paths: tuple = ()  # more styles: a multi-style sweep
     save_texture: bool = True
     log_images_nth: int = -1  # save pred/rgb/mask image grids every N steps
     checkpoint_every_steps: int = 0  # 0 = only per-epoch texture exports
@@ -224,56 +242,89 @@ def scene_grad_dead_levels(scene_cache, pipe_cfg: PipelineConfig,
                  if not grad_live[:, i].any())
 
 
-def _check_single_device(run: RunConfig, device):
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+def _check_modes(run: RunConfig):
+    """The JAX package's refusals of mode combinations."""
     if run.shard_atlas and run.data_parallel:
         raise ValueError("--shard_atlas and --data_parallel are exclusive "
                          "(the atlas axis uses the whole mesh)")
-    if run.extra_style_paths:
-        raise NotImplementedError(
-            "multi-style sweeps are not ported yet (ROADMAP queue 1, item 7)")
-    if (run.shard_atlas or run.data_parallel) and n_dev > 1:
-        raise NotImplementedError(
-            f"--{'shard_atlas' if run.shard_atlas else 'data_parallel'} over "
-            f"{n_dev} cards is not ported yet (ROADMAP queue 1, item 7)")
+    if run.extra_style_paths and (run.shard_atlas or run.data_parallel):
+        raise ValueError("multi-style sweeps use the whole mesh for the "
+                         "style axis; drop --shard_atlas/--data_parallel")
+    if run.extra_style_paths and run.resume_from:
+        raise ValueError("--resume_from is not supported for multi-style "
+                         "sweeps")
+
+
+def _full_state(pipe, state):
+    """The full train state on rank 0 (atlas bands gathered; every rank
+    must call it)."""
+    if isinstance(pipe, AtlasShardedPipeline):
+        return pipe.gather_state(state)
+    return state
+
+
+def _export_textures(pipe, state, mesh):
+    """(style index or None, full texture) pairs to export on rank 0, an
+    empty list on the other ranks (every rank must call it)."""
+    if isinstance(pipe, MultiStylePipeline):
+        return list(enumerate(pipe.textures(state)))
+    full = _full_state(pipe, state)
+    return [(None, full.texture)] if mesh.is_root else []
 
 
 def run_training(run: RunConfig, pipe_cfg: PipelineConfig,
                  scene_cache: Optional[SceneCache] = None,
-                 vgg_params=None, style_image=None, device=None):
-    """The full optimization loop. Returns (state, log_dir, scene_cache)."""
-    device = resolve_device(device)
-    _check_single_device(run, device)
-    os.makedirs(run.log_dir, exist_ok=True)
-    version = len([d for d in os.listdir(run.log_dir) if d.startswith("version_")])
-    log_dir = join(run.log_dir, f"version_{version}")
-    os.makedirs(log_dir, exist_ok=True)
-    logger = MetricsLogger(log_dir, tb=run.tb_logs)
+                 vgg_params=None, style_image=None, device=None, mesh=None):
+    """The full optimization loop on ``mesh`` (one rank on ``device`` when
+    None). Returns (state, log_dir, scene_cache)."""
+    if mesh is None:
+        mesh = make_mesh(device=device)
+    device = mesh.device
+    root = mesh.is_root
+    say = print if root else (lambda *a, **k: None)
+    n_dev = mesh.size
+    shard_atlas = run.shard_atlas and n_dev > 1
+    data_parallel = run.data_parallel and n_dev > 1
+    multi_style = len(run.extra_style_paths) > 0
+    _check_modes(run)
+    log_dir = None
+    if root:
+        os.makedirs(run.log_dir, exist_ok=True)
+        version = len([d for d in os.listdir(run.log_dir)
+                       if d.startswith("version_")])
+        log_dir = join(run.log_dir, f"version_{version}")
+        os.makedirs(log_dir, exist_ok=True)
+    log_dir = broadcast_object(log_dir, mesh)
+    logger = MetricsLogger(log_dir if root else None, tb=run.tb_logs)
 
     clock = StepProfiler(device)
     if device.type == "cuda":
         with clock.phase("compile_first_step"):
-            kernels.library()  # built at first use: timed here
+            # built at first use, by rank 0 first: the others then load it
+            if root:
+                kernels.library()
+            barrier(mesh)
+            kernels.library()
     if scene_cache is None:
         spec = discover_scene(run)
-        print(f"Using scene: {spec.name}")
+        say(f"Using scene: {spec.name}")
         with clock.phase("scene_cache"):
             scene_cache = SceneCache(spec, resize_size=run.resize_size,
-                                     verbose=True)
+                                     verbose=root)
     tables = loss_live, grad_live = view_level_tables(scene_cache, pipe_cfg)
     n_levels = loss_live.shape[1]
     skip = tuple(sorted(set(scene_skip_levels(scene_cache, pipe_cfg, tables))
                         | set(pipe_cfg.skip_levels)))
     if skip:
-        print(f"pyramid levels empty for every view — statically skipped: "
-              f"{list(skip)}")
+        say(f"pyramid levels empty for every view — statically skipped: "
+            f"{list(skip)}")
         pipe_cfg = dataclasses.replace(pipe_cfg, skip_levels=skip)
     dead = tuple(sorted(
         (set(scene_grad_dead_levels(scene_cache, pipe_cfg, tables))
          | set(pipe_cfg.stop_grad_levels)) - set(skip)))
     if dead:
-        print(f"pyramid levels with provably-zero gradients — backward "
-              f"deleted (value kept): {list(dead)}")
+        say(f"pyramid levels with provably-zero gradients — backward "
+            f"deleted (value kept): {list(dead)}")
         pipe_cfg = dataclasses.replace(pipe_cfg, stop_grad_levels=dead)
 
     if vgg_params is None:
@@ -290,24 +341,52 @@ def run_training(run: RunConfig, pipe_cfg: PipelineConfig,
         // run.views_per_batch)
     pipe_cfg = dataclasses.replace(pipe_cfg, steps_per_epoch=steps_per_epoch)
 
+    def make_pipe(cfg, style_targets=None):
+        if shard_atlas:
+            return AtlasShardedPipeline(cfg, vgg_params, style_image, mesh,
+                                        style_targets=style_targets)
+        if data_parallel:
+            return ShardedTexturePipeline(cfg, vgg_params, style_image, mesh,
+                                          style_targets=style_targets)
+        return TexturePipeline(cfg, vgg_params, style_image,
+                               style_targets=style_targets, device=device)
+
     with clock.phase("pipeline_build"):
-        pipe = TexturePipeline(pipe_cfg, vgg_params, style_image, device=device)
+        if multi_style:
+            style_images = [style_image] + [
+                load_style_image(p) for p in run.extra_style_paths]
+            say(f"multi-style sweep: {len(style_images)} styles over "
+                f"{n_dev} rank(s)")
+            pipe = MultiStylePipeline(pipe_cfg, vgg_params, style_images, mesh)
+        else:
+            if shard_atlas:
+                say(f"atlas-sharded training: texture row-banded over "
+                    f"{n_dev} ranks")
+            pipe = make_pipe(pipe_cfg)
         state = pipe.init()
     if run.resume_from:
-        state = restore_train_state(state, run.resume_from)
-        print(f"resumed from {run.resume_from} at step {state.step}")
+        if shard_atlas:
+            state = pipe.shard_state(restore_train_state(pipe.init_full(),
+                                                         run.resume_from))
+        else:
+            state = restore_train_state(state, run.resume_from)
+        say(f"resumed from {run.resume_from} at step {state.step}")
 
-    with open(join(log_dir, "run_config.json"), "w") as f:
-        json.dump({
-            "run": dataclasses.asdict(run),
-            "pipeline": {k: str(v) for k, v in dataclasses.asdict(pipe_cfg).items()},
-            "indices": {"train": train_idx, "val": val_idx},
-            "selected_scene": scene_cache.spec.name,
-            "levels": [float(l) for l in scene_cache.levels],
-        }, f, indent=2)
+    if root:
+        with open(join(log_dir, "run_config.json"), "w") as f:
+            json.dump({
+                "run": dataclasses.asdict(run),
+                "pipeline": {k: str(v) for k, v in
+                             dataclasses.asdict(pipe_cfg).items()},
+                "indices": {"train": train_idx, "val": val_idx},
+                "selected_scene": scene_cache.spec.name,
+                "levels": [float(l) for l in scene_cache.levels],
+            }, f, indent=2)
 
     timer = StepTimer()
-    specialize = run.dynamic_level_skip
+    # per-batch level specialization changes the level set a step runs;
+    # it is off where the JAX package turns it off
+    specialize = run.dynamic_level_skip and not multi_style and not shard_atlas
     base_sig = (pipe_cfg.skip_levels, pipe_cfg.stop_grad_levels)
     spec_pipes = {}
 
@@ -332,13 +411,11 @@ def run_training(run: RunConfig, pipe_cfg: PipelineConfig,
         if spec is None:
             if len(spec_pipes) >= MAX_SPECIALIZATIONS:
                 return pipe
-            print(f"batch level signature skip={list(sig[0])} "
-                  f"stop_grad={list(sig[1])}: specializing step")
-            cfg2 = dataclasses.replace(pipe_cfg, skip_levels=sig[0],
-                                       stop_grad_levels=sig[1])
-            spec = TexturePipeline(cfg2, pipe.vgg_params, style_image,
-                                   style_targets=pipe.style_targets,
-                                   device=device)
+            say(f"batch level signature skip={list(sig[0])} "
+                f"stop_grad={list(sig[1])}: specializing step")
+            spec = make_pipe(dataclasses.replace(
+                pipe_cfg, skip_levels=sig[0], stop_grad_levels=sig[1]),
+                style_targets=pipe.style_targets)
             spec_pipes[sig] = spec
         return spec
 
@@ -357,6 +434,8 @@ def run_training(run: RunConfig, pipe_cfg: PipelineConfig,
 
     host_step = state.step
     first_step_s = None
+    # the sampling kernels' launches in the train steps, for the log
+    train_launches = dict.fromkeys(grid_sample.launch_counts(), 0)
     t_train0 = time.perf_counter()
     for epoch in range(run.max_epochs):
         if run.sampler_mode == "repeat" and isinstance(run.index_repeat, int) \
@@ -370,6 +449,7 @@ def run_training(run: RunConfig, pipe_cfg: PipelineConfig,
         # losses are logged one step late: reading a step's losses waits
         # for that step, so the host would stop queueing work for the card
         pending = None  # (losses of the previous step, its step number)
+        launches0 = grid_sample.launch_counts()
         for chunk in chunks:
             if first_step_s is None:
                 t0 = time.perf_counter()
@@ -387,14 +467,21 @@ def run_training(run: RunConfig, pipe_cfg: PipelineConfig,
                 logger.batch_losses("train", _loss_scalars(pending[0]),
                                     pending[1])
             pending = (losses, step_no)
-            if (run.checkpoint_every_steps
+            if (run.checkpoint_every_steps and not multi_style
                     and step_no % run.checkpoint_every_steps == 0):
-                save_train_state(state, join(log_dir, "ckpt"))
-            if run.log_images_nth > 0 and step_no % run.log_images_nth == 0:
-                _log_image_grid(logger, state, batch, step_no)
+                full = _full_state(pipe, state)
+                if root:
+                    save_train_state(full, join(log_dir, "ckpt"))
+            if (run.log_images_nth > 0 and not multi_style
+                    and step_no % run.log_images_nth == 0):
+                full = _full_state(pipe, state)
+                if root:
+                    _log_image_grid(logger, full, batch, step_no)
         if pending is not None:
             logger.batch_losses("train", _loss_scalars(pending[0]),
                                 pending[1])
+        for k, n in grid_sample.launch_counts().items():
+            train_launches[k] += n - launches0[k]
         with clock.phase("validation"):
             for chunk in batched(epoch_indices(val_idx, "sequential"),
                                  run.views_per_batch):
@@ -403,17 +490,33 @@ def run_training(run: RunConfig, pipe_cfg: PipelineConfig,
                 logger.batch_losses("val", _loss_scalars(losses), host_step)
         tr = logger.epoch_means("train", epoch)
         va = logger.epoch_means("val", epoch)
-        print(f"epoch {epoch}: train {tr} val {va} "
-              f"({timer.steps_per_sec:.2f} steps/s, "
-              f"{timer.steps_per_sec * run.views_per_batch:.2f} views/s)")
+        say(f"epoch {epoch}: train {tr} val {va} "
+            f"({timer.steps_per_sec:.2f} steps/s, "
+            f"{timer.steps_per_sec * run.views_per_batch:.2f} views/s)")
 
         if run.save_texture:
             with clock.phase("texture_export"):
-                tag = f"epoch_{epoch}"
-                save_texture_layers(state.texture, log_dir, tag)
-                save_texture_image(state.texture, log_dir, tag + "_")
+                for s, tex in _export_textures(pipe, state, mesh):
+                    tag = f"epoch_{epoch}" + ("" if s is None else f"_style{s}")
+                    save_texture_layers(tex, log_dir, tag)
+                    save_texture_image(tex, log_dir, tag + "_")
+    # one line per rank: where it ran, what its train steps launched, its
+    # memory (host: the process's peak resident set)
+    rank_line = {"backend": mesh.backend, "device": str(device),
+                 "train_steps": host_step, "train_launches": train_launches,
+                 "host_max_rss_gb": resource.getrusage(
+                     resource.RUSAGE_SELF).ru_maxrss / 1e6}
+    if device.type == "cuda":
+        rank_line["peak_device_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    if getattr(state, "gram_cache", None) is not None:
+        rank_line["gram_cache_count"] = int(state.gram_cache.count)
+    # one write, so that the ranks' lines do not interleave
+    print(f"[rank {mesh.rank}/{n_dev}] {json.dumps(rank_line)}\n", end="",
+          flush=True)
     with clock.phase("texture_export"):
-        save_texture_npz(state.texture, join(log_dir, "texture.npz"))
+        for s, tex in _export_textures(pipe, state, mesh):
+            name = "texture.npz" if s is None else f"texture_style{s}.npz"
+            save_texture_npz(tex, join(log_dir, name))
     logger.close()
 
     t_total = time.perf_counter() - t_train0
@@ -428,15 +531,27 @@ def run_training(run: RunConfig, pipe_cfg: PipelineConfig,
             "specialized": len(spec_pipes),
             "signatures": [{"skip": list(s[0]), "stop_grad": list(s[1])}
                            for s in spec_pipes]}
-    _write_wallclock(log_dir, wall)
-    print("wall-clock:", {k: v["total_s"] for k, v in wall.items()
-                          if "total_s" in v})
+    if root:
+        _write_wallclock(log_dir, wall)
+    say("wall-clock:", {k: v["total_s"] for k, v in wall.items()
+                        if "total_s" in v})
     return state, log_dir, scene_cache
 
 
 def _loss_scalars(losses):
-    """Loss dict of 0-d tensors -> float scalars."""
-    return {k: float(v) for k, v in losses.items()}
+    """Loss dict -> float scalars. A multi-style sweep's losses carry a
+    leading style axis: the style mean goes under the plain key, and each
+    style's total under ``total_style<s>``, as in the JAX package."""
+    out = {}
+    for k, v in losses.items():
+        if v.dim() == 0:
+            out[k] = float(v)
+            continue
+        out[k] = float(v.mean())
+        if k == "total":
+            for s, x in enumerate(v.tolist()):
+                out[f"total_style{s}"] = x
+    return out
 
 
 @torch.no_grad()

@@ -4,8 +4,7 @@
 One preset per reference launch script
 (``scripts/train/optimize_texture_{scannet,matterport}_{dip,only2D,
 with_angle,with_angle_and_depth}.sh``), expressed as CLI-arg overrides. The
-two ``*_dip`` presets use ``gram_mode="average"``, which the port does not
-run yet: the CLI raises for them before training.
+two ``*_dip`` presets use ``gram_mode="average"`` (the loss's Gram cache).
 """
 
 _COMMON_SCANNET = {

@@ -1,10 +1,10 @@
 """Checkpoints and texture exports (counterpart of
 ``stylemesh_tpu/utils/checkpoint.py``).
 
-- The train state (texture layers, Adam moments, step) is written with
-  ``torch.save`` and read with ``torch.load(weights_only=True)``, where the
-  JAX package uses orbax. Restoring copies into an existing state, on its
-  device.
+- The train state (texture layers, Adam moments, step and, under
+  ``gram_mode='average'``, the Gram cache) is written with ``torch.save``
+  and read with ``torch.load(weights_only=True)``, where the JAX package
+  uses orbax. Restoring copies into an existing state, on its device.
 - Texture exports use the JAX package's file names and formats: raw layers
   as ``.npz`` (``layer_<i>``), the composited full-resolution image as
   ``<prefix>texture.jpg`` and per-layer images as
@@ -31,6 +31,10 @@ def save_train_state(state, path):
             "mu": [m.cpu() for m in state.mu],
             "nu": [n.cpu() for n in state.nu],
             "step": int(state.step)}
+    if state.gram_cache is not None:
+        blob["gram_cache"] = {
+            "grams": {k: g.cpu() for k, g in state.gram_cache.grams.items()},
+            "count": int(state.gram_cache.count)}
     tmp = join(path, STATE_FILE + ".tmp")
     torch.save(blob, tmp)
     os.replace(tmp, join(path, STATE_FILE))
@@ -51,6 +55,15 @@ def restore_train_state(template_state, path):
         for d, s in zip(dst, src):
             d.copy_(s)
     template_state.step = int(blob["step"])
+    cache = template_state.gram_cache
+    if (cache is None) != ("gram_cache" not in blob):
+        raise ValueError(f"{path}: the saved state and the template differ "
+                         "in having a Gram cache (gram_mode)")
+    if cache is not None:
+        saved = blob["gram_cache"]
+        for k, g in cache.grams.items():
+            g.copy_(saved["grams"][k])
+        cache.count.fill_(saved["count"])
     return template_state
 
 

@@ -17,18 +17,25 @@ import numpy as np
 
 
 class MetricsLogger:
+    """Writes under ``log_dir``; with ``log_dir`` None (the ranks other than
+    0 of a multi-device run) it keeps the epoch means and writes nothing."""
+
     def __init__(self, log_dir, tb=False):
         if tb:
             raise NotImplementedError(
                 "TensorBoard event files (utils/tb_events.py) are not ported "
                 "yet (ROADMAP queue 1, item 5)")
         self.log_dir = log_dir
-        os.makedirs(log_dir, exist_ok=True)
-        self._f = open(join(log_dir, "metrics.jsonl"), "a")
+        self._f = None
+        if log_dir is not None:
+            os.makedirs(log_dir, exist_ok=True)
+            self._f = open(join(log_dir, "metrics.jsonl"), "a")
         self._epoch_hist = defaultdict(list)
         self._t0 = time.perf_counter()
 
     def scalar(self, tag, value, step):
+        if self._f is None:
+            return
         rec = {"tag": tag, "value": float(value), "step": int(step),
                "t": round(time.perf_counter() - self._t0, 3)}
         self._f.write(json.dumps(rec) + "\n")
@@ -57,7 +64,8 @@ class MetricsLogger:
         return path
 
     def close(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 class StepTimer:

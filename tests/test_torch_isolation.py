@@ -158,8 +158,9 @@ def test_cpu_tensors_take_the_plain_version():
 def test_slice3_entry_points_stay_on_the_card(monkeypatch, tmp_path):
     """The run loop and the CLI default to CUDA and raise without it before
     writing anything; the bf16 mode of K1/K2 and K9 refuse tensors that are
-    not on the CPU or a card, counting no launch; data parallelism over
-    more than one card raises until the multi-device item lands."""
+    not on the CPU or a card, counting no launch; the multi-device modes
+    (ported since) refuse the JAX package's exclusive combinations before
+    anything starts."""
     from stylemesh_tpu_torch import cli, optimize
 
     before = (gs.gather_layers.bf16_launches, gs.splat_layers.bf16_launches,
@@ -177,11 +178,13 @@ def test_slice3_entry_points_stay_on_the_card(monkeypatch, tmp_path):
     assert (gs.gather_layers.bf16_launches, gs.splat_layers.bf16_launches,
             conv_kernels.conv3x3_mxu.launches) == before
 
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    run = optimize.RunConfig(data_parallel=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        optimize._check_single_device(run, torch.device("cuda"))
-    optimize._check_single_device(run, torch.device("cpu"))  # one device
+    with pytest.raises(ValueError, match="exclusive"):
+        optimize._check_modes(optimize.RunConfig(data_parallel=True,
+                                                 shard_atlas=True))
+    with pytest.raises(ValueError, match="style axis"):
+        optimize._check_modes(optimize.RunConfig(
+            shard_atlas=True, extra_style_paths=("b.jpg",)))
+    optimize._check_modes(optimize.RunConfig(data_parallel=True))
 
     _no_cuda(monkeypatch)
     log_dir = tmp_path / "runs"
@@ -191,3 +194,34 @@ def test_slice3_entry_points_stay_on_the_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["--no_post_steps", "--log_dir", str(log_dir)])
     assert not log_dir.exists()
+
+
+def test_parallel_entry_points_stay_on_the_card(monkeypatch):
+    """The banded K1/K2 refuse tensors that are neither on the CPU nor on a
+    card, counting no launch; a torchrun rank asks for a card unless told
+    to use the CPU, and raises without one; the modules of ``parallel/``
+    are among the files the import scan covers."""
+    from stylemesh_tpu_torch.parallel import mesh
+
+    names = {p.relative_to(ROOT / "stylemesh_tpu_torch").as_posix()
+             for p in (ROOT / "stylemesh_tpu_torch").rglob("*.py")}
+    assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/atlas.py",
+            "parallel/train.py", "parallel/multistyle.py"} <= names
+    before = gs.launch_counts()
+    meta = torch.device("meta")
+    grid = torch.zeros((1, 4, 4, 2), device=meta)
+    for compute in ("f32", "bf16"):
+        with pytest.raises(ValueError, match="CUDA"):
+            gs.gather_layers_banded([torch.zeros((4, 8, 3), device=meta)],
+                                    grid, [4], [8], compute)
+        with pytest.raises(ValueError, match="CUDA"):
+            gs.splat_layers_banded(torch.zeros((1, 4, 4, 3), device=meta),
+                                   grid, [(4, 8)], [4], [8], compute)
+    assert gs.launch_counts() == before
+    assert mesh.init_from_env("cpu").device == torch.device("cpu")
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mesh.init_from_env()
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mesh.init_from_env()

@@ -100,6 +100,60 @@ def test_gather_and_splat_bf16_mode(cuda, n_layers, size):
             d[0, 0].abs().sum().item())
 
 
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+@pytest.mark.parametrize("size,d,n_layers", [((48, 37), 3, 3),
+                                             ((64, 129), 4, 4),
+                                             ((16, 5), 16, 1),
+                                             ((40, 23), 5, 2)])
+def test_banded_gather_and_splat(cuda, compute, size, d, n_layers):
+    """The banded K1/K2 at odd widths, D not a power of 2 and bands of one
+    row: each band against its plain version (gather 1e-5, splat 1e-5 for
+    the atomics' order); the bands' partials summed against the unbanded
+    kernel, the bands' gradients stacked against the unbanded splat (1e-5);
+    a grid of background pixels only reads and writes texel (0, 0) in
+    band 0 alone."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(size) + d + n_layers)
+    grid = torch.rand((2, 11, 19, 2), generator=gen, device=cuda) * 2.4 - 1.2
+    grid[:, :2, :3] = -1.0
+    layers = [torch.randn((size[0] >> l, size[1] >> l, 3), generator=gen,
+                          device=cuda) * 50 for l in range(n_layers)]
+    heights = [l.shape[0] for l in layers]
+    g = torch.randn((2, 11, 19, 3), generator=gen, device=cuda)
+    g[:, 6:] = 0.0
+    bg_grid = torch.full_like(grid, -1.0)
+    total, parts = 0, [[] for _ in layers]
+    for b in range(d):
+        row0s = [b * h // d for h in heights]
+        bands = [l[r:r + h // d].clone()  # own, aligned allocations
+                 for l, r, h in zip(layers, row0s, heights)]
+        shapes = [tuple(x.shape[:2]) for x in bands]
+        got = gs.gather_layers_banded(bands, grid, row0s, heights, compute)
+        _close(got, gs.gather_layers_banded_plain(bands, grid, row0s, heights,
+                                                  compute), 1e-5)
+        total = total + got
+        grads = gs.splat_layers_banded(g, grid, shapes, row0s, heights, compute)
+        _close(grads, gs.splat_layers_banded_plain(g, grid, shapes, row0s,
+                                                   heights, compute), 1e-5)
+        for acc, x in zip(parts, grads):
+            acc.append(x)
+        out_bg = gs.gather_layers_banded(bands, bg_grid, row0s, heights,
+                                         compute)
+        grads_bg = gs.splat_layers_banded(g, bg_grid, shapes, row0s, heights,
+                                          compute)
+        if b == 0:
+            assert torch.equal(out_bg[0, 0, 0], sum(x[0, 0] for x in bands))
+            for x in grads_bg:
+                assert x.abs().sum().item() == pytest.approx(
+                    x[0, 0].abs().sum().item())
+        else:
+            assert out_bg.abs().max().item() == 0.0
+            assert all(x.abs().max().item() == 0.0 for x in grads_bg)
+    _close(total, gs.gather_layers(layers, grid, compute), 1e-5)
+    full = gs.splat_layers(g, grid, [tuple(l.shape[:2]) for l in layers],
+                           compute)
+    _close([torch.cat(p) for p in parts], full, 1e-5)
+
+
 def test_sampling_autograd_matches_cpu(cuda):
     gen = torch.Generator().manual_seed(0)
     layers = [torch.randn((32 >> l, 48 >> l, 3), generator=gen) for l in range(3)]

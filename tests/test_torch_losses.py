@@ -83,8 +83,8 @@ def _run(mode, bf16):
     tmasks = [torch.from_numpy(m) for m in masks]
     aux = tloss.precompute_aux(tp, LEVELS, torch.from_numpy(rgb), tmasks,
                                torch.from_numpy(angles))
-    ts, tc = tloss(tp, ttargets, tps, torch.from_numpy(rgb), tmasks,
-                   torch.from_numpy(angles), aux=aux)
+    ts, tc, _ = tloss(tp, ttargets, tps, torch.from_numpy(rgb), tmasks,
+                      torch.from_numpy(angles), aux=aux)
     tgrads = torch.autograd.grad(ts + 1e-3 * tc, tps)
     return dict(jtargets=jtargets, ttargets=ttargets, j=(js, jc), t=(ts, tc),
                 jgrads=jgrads, tgrads=tgrads, aux=aux)

@@ -265,7 +265,20 @@ def test_level_options_match_full_and_jax(option):
 
 
 def test_gram_mode_average_is_not_ported():
+    """``gram_mode='average'`` is ported now (tests/test_torch_gram_average.py
+    holds it against the JAX package): the pipeline builds, its initial
+    state carries an empty 10-deep Gram cache per style layer, and a gram
+    mode that exists in neither package still raises."""
     cfg = tpipeline.PipelineConfig(gram_mode="average", **CFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 2"):
-        tpipeline.TexturePipeline(cfg, {}, None, device="cpu",
-                                  style_targets=TStyleTargets(grams={}))
+    pipe = tpipeline.TexturePipeline(cfg, {}, None, device="cpu",
+                                     style_targets=TStyleTargets(grams={}))
+    cache = pipe.init().gram_cache
+    assert int(cache.count) == 0
+    assert {k: tuple(g.shape) for k, g in cache.grams.items()} == {
+        "r11": (10, 64, 64), "r21": (10, 128, 128), "r31": (10, 256, 256),
+        "r41": (10, 512, 512), "r51": (10, 512, 512)}
+    assert tpipeline.TexturePipeline(
+        tpipeline.PipelineConfig(**CFG), {}, None, device="cpu",
+        style_targets=TStyleTargets(grams={})).init().gram_cache is None
+    with pytest.raises(ValueError, match="gram_mode"):
+        tpipeline.PipelineConfig(gram_mode="mean", **CFG).loss_config()

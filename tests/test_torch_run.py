@@ -219,11 +219,7 @@ def test_configs_from_args_match_jax(preset, bf16):
 
 @pytest.mark.parametrize("argv,match", [
     ([], "--no_post_steps"),
-    (["--no_post_steps", "--gram_mode", "average"], "--gram_mode average"),
-    (["--no_post_steps", "--preset", "scannet_dip"], "--gram_mode average"),
     (["--no_post_steps", "--tb_logs"], "--tb_logs"),
-    (["--no_post_steps", "--style_image_path", "a.jpg",
-      "--style_image_path", "b.jpg"], "multi-style"),
 ])
 def test_unported_flags_raise_before_training(tmp_path, monkeypatch, argv,
                                               match):
@@ -232,6 +228,28 @@ def test_unported_flags_raise_before_training(tmp_path, monkeypatch, argv,
     with pytest.raises(NotImplementedError, match=match):
         tcli.main(argv + ["--root_path", str(tmp_path), "--platform", "cpu",
                           "--log_dir", str(tmp_path / "runs")])
+    assert not (tmp_path / "runs").exists()
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--shard_atlas", "--data_parallel"], "exclusive"),
+    (["--shard_atlas", "--style_image_path", "a.jpg",
+      "--style_image_path", "b.jpg"], "style axis"),
+    (["--data_parallel", "--style_dir", "."], "style axis"),
+])
+def test_mode_combinations_raise_before_training(tmp_path, monkeypatch, argv,
+                                                 match):
+    """The JAX package's exclusive multi-device combinations raise before
+    any scene is read."""
+    for name in ("s.jpg", "t.jpg"):
+        (tmp_path / name).write_bytes(b"")
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(toptimize, "discover_scene", lambda run: pytest.fail(
+        "training started"))
+    with pytest.raises(ValueError, match=match):
+        tcli.main(argv + ["--no_post_steps", "--root_path", str(tmp_path),
+                          "--platform", "cpu", "--log_dir",
+                          str(tmp_path / "runs")])
     assert not (tmp_path / "runs").exists()
 
 
