@@ -50,9 +50,11 @@ phase fails. Phases:
 3. kernels: each kernel against its plain PyTorch version at the main path's
    shapes and inputs, timed with CUDA events beside the plain version and one
    PyTorch library call computing the same function, with its bound on an
-   H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16); the banded K1/K2 for
-   the 4 bands of D = 4 (each against its plain version, their sum against
-   the unbanded K1/K2), timed for rank 0's band of D = 2.
+   H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16) and, for the convs, its
+   achieved TFLOP/s; at every K5 and K9 shape, K5 without bias and relu
+   must equal K9 bit for bit; the banded K1/K2 for the 4 bands of D = 4
+   (each against its plain version, their sum against the unbanded K1/K2),
+   timed for rank 0's band of D = 2.
 
 The last two lines of standard output are the ``{"kernels": [...]}`` JSON
 line and the ``{"ok": true, "device": ...}`` JSON line.
@@ -90,6 +92,7 @@ REPS = 5                   # launches per kernel timing
 REPO = Path(__file__).resolve().parent
 SAMPLE_SRC = "stylemesh_tpu_torch/kernels/csrc/sample.cu"
 CONV_SRC = "stylemesh_tpu_torch/kernels/csrc/conv.cu"
+GEMM_SRC = "stylemesh_tpu_torch/kernels/csrc/conv_gemm.cu"
 KERNELS = {  # launches: (wrapper, attribute holding its launch count)
     "K1_gather": dict(source="stylemesh_tpu_torch/kernels/csrc/sample.cu",
                       replaces="stylemesh_tpu/ops/splat_pallas.py:486",
@@ -113,7 +116,7 @@ KERNELS = {  # launches: (wrapper, attribute holding its launch count)
                         replaces="stylemesh_tpu/ops/gram_pallas.py:208",
                         launches=(gram_kernels.masked_gram_sums_grad, "launches"),
                         rel_tol=1e-2),
-    "K5_conv3x3": dict(source=CONV_SRC,
+    "K5_conv3x3": dict(source=GEMM_SRC,
                        replaces="stylemesh_tpu/ops/conv_pallas.py:232",
                        launches=(conv_kernels.conv3x3, "launches"),
                        rel_tol=1e-2),
@@ -128,7 +131,7 @@ KERNELS = {  # launches: (wrapper, attribute holding its launch count)
         source=CONV_SRC, replaces="stylemesh_tpu/ops/head_pallas.py:413",
         launches=(head_kernels.conv_relu_pool_bwd, "launches"), rel_tol=1e-2,
         max_share=2e-3),
-    "K9_conv3x3_mxu": dict(source=CONV_SRC,
+    "K9_conv3x3_mxu": dict(source=GEMM_SRC,
                            replaces="stylemesh_tpu/ops/conv_pallas.py:136",
                            launches=(conv_kernels.conv3x3_mxu, "launches"),
                            rel_tol=1e-2),
@@ -169,7 +172,8 @@ K9_ENV = {"STYLEMESH_CONV_FLIPVJP": "0", "STYLEMESH_FAST_CONV": "1"}
 # K8 as K5, but a value that rounds differently can break a tie in a pool
 #    window and route that window's gradient to another pixel: at most 2e-3
 #    of the elements may lie farther than 1e-2 from the plain version.
-# K9 is K5 without bias and relu: 1e-2.
+# K9 is K5 without bias and relu: 1e-2 (and K5 with bias=None, relu=False
+#    must equal it bit for bit: one C entry).
 
 
 def log(msg):
@@ -750,6 +754,13 @@ def check(name, got, want, where=""):
     return err, tol
 
 
+def same_as_k9(where, x, w9, y):
+    """Raise unless K9 on ``(x, w9)`` equals ``y``, K5's output without bias
+    and relu, bit for bit (the two wrappers share one C entry)."""
+    if not torch.equal(conv_kernels.conv3x3_mxu(x, w9), y):
+        raise RuntimeError(f"K5 (no bias, no relu) and K9 differ at {where}")
+
+
 def touched_texels(grid, layers, row0s=None, heights=None):
     """Distinct texels the grid's corners read, over the layers; for bands
     (``row0s``, ``heights`` of the full layers) only those in the band."""
@@ -938,6 +949,7 @@ def k5_backward(at, g, w9t, wt_lib, flops, add):
     bias, relu off."""
     dx = conv_kernels.conv3x3(g, w9t)
     err = check("K5_conv3x3", dx, conv_kernels.conv3x3_plain(g, w9t), at)
+    same_as_k9(at + " input gradient", g, w9t, dx)
     add("K5_conv3x3", at + " input gradient", err,
         cuda_ms(lambda: conv_kernels.conv3x3(g, w9t)),
         cuda_ms(lambda: conv_kernels.conv3x3_plain(g, w9t)),
@@ -974,6 +986,7 @@ def k9_kernels(where, pipe, pred, add):
         at = f"{where} {conv} {tuple(h.shape)}->{cout}"
         y = conv_kernels.conv3x3_mxu(h, w9)
         err = check("K9_conv3x3_mxu", y, conv_kernels.conv3x3_mxu_plain(h, w9), at)
+        same_as_k9(at + " forward", h, w9, conv_kernels.conv3x3(h, w9))
         add("K9_conv3x3_mxu", at + " forward", err,
             cuda_ms(lambda x=h: conv_kernels.conv3x3_mxu(x, w9)),
             cuda_ms(lambda x=h: conv_kernels.conv3x3_mxu_plain(x, w9)),
@@ -983,6 +996,7 @@ def k9_kernels(where, pipe, pred, add):
         g = cotangent(h, h > 0, seed=i)
         dx = conv_kernels.conv3x3_mxu(g, w9t)
         err = check("K9_conv3x3_mxu", dx, conv_kernels.conv3x3_mxu_plain(g, w9t), at)
+        same_as_k9(at + " input gradient", g, w9t, conv_kernels.conv3x3(g, w9t))
         add("K9_conv3x3_mxu", at + " input gradient", err,
             cuda_ms(lambda: conv_kernels.conv3x3_mxu(g, w9t)),
             cuda_ms(lambda: conv_kernels.conv3x3_mxu_plain(g, w9t)),
@@ -992,7 +1006,8 @@ def k9_kernels(where, pipe, pred, add):
 
 def kernel_phase(pipe, state, batch, aux, launches):
     rows = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, f32_mode_ms=0.0,
-                       bound_ms=0.0, by_bytes=0.0, by_ops=0.0, err=0.0, tol=0.0)
+                       bound_ms=0.0, by_bytes=0.0, by_ops=0.0, err=0.0, tol=0.0,
+                       flops=0.0)
             for name in KERNELS}
 
     def add(name, where, err_tol, ms, plain_ms, library_ms, nbytes, flops=0.0,
@@ -1015,11 +1030,13 @@ def kernel_phase(pipe, state, batch, aux, launches):
         b_ms, b_by = bound_ms(nbytes, flops)
         r["bound_ms"] += b_ms
         r["by_bytes" if b_by == "bytes" else "by_ops"] += b_ms
+        r["flops"] += flops
         other = (f"library {library_ms:.4f}" if library_ms is not None
                  else "library none" if f32_mode_ms is None
                  else f"f32 mode {f32_mode_ms:.4f}")
+        rate = f", {flops / ms / 1e9:.1f} TFLOP/s" if flops else ""
         log(f"[kernel] {name} {where}: {ms:.4f} ms (bound {b_ms:.4f} by {b_by}), "
-            f"plain {plain_ms:.4f}, {other}")
+            f"plain {plain_ms:.4f}, {other}{rate}")
 
     layers = [l.detach() for l in state.texture.layers]
     shapes = [tuple(l.shape[:2]) for l in layers]
@@ -1129,6 +1146,8 @@ def kernel_phase(pipe, state, batch, aux, launches):
             kernel_ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by="bytes" if r["by_bytes"] >= r["by_ops"] else "operations",
             library_ms=r["library_ms"])
+        if r["flops"]:
+            row["tflop_per_s"] = r["flops"] / r["ms"] / 1e9
         if r["library_ms"] is None and name.endswith("_bf16"):
             row["f32_mode_ms"] = r["f32_mode_ms"]
         out.append(row)
@@ -1150,6 +1169,22 @@ def multi_card():
             f"{per_step:g} per step")
 
 
+def conv_core_sass():
+    """Raise unless the built conv core (``conv3x3_gemm_kernel``, K5/K9)
+    holds warpgroup MMA instructions (HGMMA in its SASS); print their
+    count and shapes."""
+    lib = kernels.BUILD_DIR / f"{kernels.NAME}.so"
+    sass = subprocess.run(["cuobjdump", "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    found = [m.group(1) for fn in sass.split("Function : ")
+             if "conv3x3_gemm_kernel" in fn.split("\n", 1)[0]
+             for m in re.finditer(r"(HGMMA\.\w+\.F32\.BF16)", fn)]
+    log(f"[build] conv3x3_gemm_kernel SASS: {len(found)} HGMMA instructions "
+        f"({', '.join(sorted(set(found)))})")
+    if not found:
+        raise RuntimeError("the conv core's SASS holds no HGMMA instruction")
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1162,6 +1197,7 @@ def main(argv):
     t0 = time.perf_counter()
     kernels.library()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    conv_core_sass()
     if argv == ["--multi-card"]:
         multi_card()
         print(smi)
@@ -1183,9 +1219,11 @@ def main(argv):
         other = (f"library {r['library_ms']:.4f}" if r["library_ms"] is not None
                  else f"f32 mode {r['f32_mode_ms']:.4f}" if "f32_mode_ms" in r
                  else "library none")
+        rate = (f", {r['tflop_per_s']:.1f} TFLOP/s" if "tflop_per_s" in r
+                else "")
         log(f"[kernel] {r['name']}: {r['ms']:.4f} ms/step (bound {r['bound_ms']:.4f} "
             f"by {r['bound_by']}), plain {r['plain_ms']:.4f}, {other}, "
-            f"{r['launches_per_step']:g} launches/step")
+            f"{r['launches_per_step']:g} launches/step{rate}")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

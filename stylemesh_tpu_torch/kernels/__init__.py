@@ -5,8 +5,9 @@ for ``sm_90a`` at first use, into ``build/torch_ext`` at the root of the
 checkout. The sources expose a plain C interface and include no PyTorch
 header (that keeps the build to seconds); they are bound with ``ctypes``:
 pointers from ``Tensor.data_ptr()``, the stream from PyTorch's current CUDA
-stream. Each C entry point returns the launch's ``cudaGetLastError()``, and
-:func:`launch` raises when it is not 0.
+stream. Each C entry point returns the launch's ``cudaGetLastError()`` (or,
+for a kernel fed by TMA, minus the ``CUresult`` of a tensor map that could
+not be encoded), and :func:`launch` raises when it is not 0.
 
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -32,7 +33,8 @@ _SIGNATURES = {
     "stylemesh_splat_banded": [_P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _P],
     "stylemesh_gram_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "stylemesh_gram_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "stylemesh_conv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "stylemesh_conv3x3": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    "stylemesh_conv_relu_pool": [_P, _P, _P, _P, _P] + [_I] * 6 + [_P],
     "stylemesh_conv_relu_pool_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
@@ -70,6 +72,9 @@ def launch(fn, device, *args):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = getattr(lib, fn)(*args, stream)
+    if status < 0:
+        raise RuntimeError(f"{fn}: encoding a TMA tensor map failed with "
+                           f"CUresult {-status}")
     if status != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with error {status}")
 

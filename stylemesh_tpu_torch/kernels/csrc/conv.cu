@@ -1,17 +1,13 @@
-// K5 / K6 / K7 / K8: the bf16 VGG trunk's 3x3 convolutions and fused block
-// tails.
+// K6 / K7 / K8: the bf16 VGG trunk's fused block tails, on a WMMA core.
 //
 // Replaces the TPU kernels
-//   K5  ops/conv_pallas.py::_conv3x3_v2_raw (_conv_kernel_v2), reached through
-//       conv3x3_v2: y = bf16(act(conv3x3(x, w) + b)), act = relu or identity;
-//       also every trunk input gradient (flipped io-swapped kernel, b = 0,
-//       relu off);
 //   K6  ops/head_pallas.py::conv_relu_pool (_kernel_packed, 64 channels, and
 //       _kernel_direct, 128): p = maxpool2(bf16(relu(conv3x3(x, w) + b)));
 //   K7  ops/head_pallas.py::conv_relu_pool_dual (_kernel_direct_dual): K6 that
 //       also writes the pre-pool activation;
 //   K8  ops/head_pallas.py::conv_relu_pool_bwd (_kernel_packed_bwd): the input
 //       gradient of the 64-channel K6.
+// The plain 3x3 convolution K5 / K9 is conv_gemm.cu (wgmma and TMA).
 //
 // Layouts: activations bf16 [V, H, W, C] (channel-last), kernels as the bf16
 // matrix w9 [9 * Cin, Cout] with rows in (dy, dx, ci) order (an HWIO kernel
@@ -19,17 +15,19 @@
 //
 // What bounds them on an H100: the tensor cores. A 3x3 conv does 18 * Cin
 // flops per output value and moves ~2 * (Cin + Cout) bytes per pixel, so at
-// 64 channels and above the trunk is far above the card's ~295 bf16 flops per
-// HBM byte. The design is one implicit GEMM shared by all four kernels: M is
-// a tile of output pixels (rows of 16 pixels of one image row), N a 64-wide
-// slice of Cout, and K = 9 * Cin runs in (32-channel chunk, tap, 16-channel
-// step) order. A haloed input tile of one channel chunk (zero outside the
-// image: SAME padding) and the chunk's weights for all nine taps are staged
-// in shared memory; the products are WMMA bf16 16x16x16 fragments with
-// float32 accumulators. The epilogue adds the float32 bias, applies relu and
-// rounds to bf16 once (the TPU kernels' numerics), then stores the map (K5),
-// the 2x2 maximum of the bf16 values (K6) or both (K7). No double buffering,
-// no wgmma or TMA yet: a right kernel first.
+// 64 channels and above the block tails are far above the card's ~295 bf16
+// flops per HBM byte. The design is one implicit GEMM shared by the three
+// kernels: M is a tile of output pixels (rows of 16 pixels of one image
+// row), N a 64-wide slice of Cout, and K = 9 * Cin runs in (32-channel
+// chunk, tap, 16-channel step) order. A haloed input tile of one channel
+// chunk (zero outside the image: SAME padding) and the chunk's weights for
+// all nine taps are staged in shared memory; the products are WMMA bf16
+// 16x16x16 fragments with float32 accumulators. The epilogue adds the
+// float32 bias, applies relu and rounds to bf16 once (the TPU kernels'
+// numerics), then stores the 2x2 maximum of the bf16 values (K6) and the
+// pre-pool map (K7). No double buffering, no wgmma or TMA yet: these three
+// move to a new core together, because K8 must recompute K6's values bit
+// for bit.
 //
 // K8 recomputes relu(conv + b) on its tile plus one ring of pool windows with
 // the same core (same K order, same epilogue), so its values equal K6's bit
@@ -149,14 +147,13 @@ __device__ __forceinline__ bf16 finish(float acc, const float* bias, int n,
   return __float2bfloat16(v);
 }
 
-// ---------------------------------------------------------------- K5-K7
-// MODE 0: y = bf16(act(conv + b)) (K5); 1: pooled only (K6); 2: pooled and
-// pre (K7). Modes 1 and 2 always apply relu.
-template <int MODE>
-__global__ void __launch_bounds__(kThreads) conv3x3_kernel(
+// ---------------------------------------------------------------- K6, K7
+// The pooled map (K6), and with DUAL the pre-pool map y too (K7).
+template <bool DUAL>
+__global__ void __launch_bounds__(kThreads) conv_relu_pool_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ w9,
     const float* __restrict__ bias, bf16* __restrict__ y,
-    bf16* __restrict__ pooled, int H, int W, int cin, int cout, int relu) {
+    bf16* __restrict__ pooled, int H, int W, int cin, int cout) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* xs = reinterpret_cast<bf16*>(smem);
   bf16* ws = reinterpret_cast<bf16*>(smem + xs_bytes(kTile, 1));
@@ -171,7 +168,6 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(
   const int r0 = (int)(b % ntr) * kTile;
   const int v = (int)(b / ntr);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bool act = MODE != 0 || relu != 0;
 
   Acc acc[kTile / kWarps][4];
   conv_region<kTile, 1>(x + (size_t)v * H * W * cin, w9, H, W, cin, cout, n0,
@@ -191,14 +187,14 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(
       for (int e = lane; e < 256; e += 32) {
         int px = e / 16, c = e % 16;
         ot[(row * kTile + px) * kOS + j * 16 + c] =
-            finish(st[e], bias, n0 + j * 16 + c, act);
+            finish(st[e], bias, n0 + j * 16 + c, true);
       }
       __syncwarp();
     }
   }
   __syncthreads();
 
-  if (MODE != 1) {
+  if (DUAL) {
     bf16* yv = y + (size_t)v * H * W * cout;
     for (int idx = threadIdx.x; idx < kTile * kTile * (kN / 8); idx += kThreads) {
       int p = idx / (kN / 8), q = idx % (kN / 8);
@@ -208,7 +204,7 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(
             *reinterpret_cast<const uint4*>(ot + p * kOS + q * 8);
     }
   }
-  if (MODE != 0) {
+  {
     const int H2 = H / 2, W2 = W / 2;
     bf16* pv = pooled + (size_t)v * H2 * W2 * cout;
     constexpr int kP = kTile / 2;
@@ -379,41 +375,40 @@ __global__ void __launch_bounds__(kThreads, 1) conv_relu_pool_bwd_kernel(
   }
 }
 
-template <int MODE>
-int launch_conv(const void* x, const void* w9, const void* bias, void* y,
-                void* pooled, int V, int H, int W, int cin, int cout, int relu,
-                cudaStream_t st) {
+template <bool DUAL>
+int launch_conv_relu_pool(const void* x, const void* w9, const void* bias,
+                          void* y, void* pooled, int V, int H, int W, int cin,
+                          int cout, cudaStream_t st) {
   constexpr int smem = xs_bytes(kTile, 1) + kWsBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      conv_relu_pool_kernel<DUAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
   long long blocks = (long long)V * ((H + kTile - 1) / kTile) *
                      ((W + kTile - 1) / kTile) * (cout / kN);
-  conv3x3_kernel<MODE><<<(unsigned)blocks, kThreads, smem, st>>>(
+  conv_relu_pool_kernel<DUAL><<<(unsigned)blocks, kThreads, smem, st>>>(
       (const bf16*)x, (const bf16*)w9, (const float*)bias, (bf16*)y,
-      (bf16*)pooled, H, W, cin, cout, relu);
+      (bf16*)pooled, H, W, cin, cout);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// mode 0: y = bf16(act(conv3x3(x) + bias)), act = relu if `relu` (K5);
-// mode 1: pooled = maxpool2(bf16(relu(conv3x3(x) + bias))) (K6);
-// mode 2: mode 1 and y = the pre-pool activation (K7).
-// bias may be NULL (zero). Cin a multiple of 32, Cout of 64.
-extern "C" int stylemesh_conv3x3(const void* x, const void* w9,
-                                 const void* bias, void* y, void* pooled,
-                                 int V, int H, int W, int cin, int cout,
-                                 int relu, int mode, void* stream) {
-  if (cin % kCK != 0 || cout % kN != 0 || mode < 0 || mode > 2)
-    return (int)cudaErrorInvalidValue;
+// pooled = maxpool2(bf16(relu(conv3x3(x) + bias))) (K6); with `dual`, y =
+// the pre-pool activation too (K7). bias may be NULL (zero). Cin a multiple
+// of 32, Cout of 64.
+extern "C" int stylemesh_conv_relu_pool(const void* x, const void* w9,
+                                        const void* bias, void* y, void* pooled,
+                                        int V, int H, int W, int cin, int cout,
+                                        int dual, void* stream) {
+  if (cin % kCK != 0 || cout % kN != 0) return (int)cudaErrorInvalidValue;
   if (V == 0 || H == 0 || W == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (mode == 0)
-    return launch_conv<0>(x, w9, bias, y, pooled, V, H, W, cin, cout, relu, st);
-  if (mode == 1)
-    return launch_conv<1>(x, w9, bias, y, pooled, V, H, W, cin, cout, 1, st);
-  return launch_conv<2>(x, w9, bias, y, pooled, V, H, W, cin, cout, 1, st);
+  if (dual)
+    return launch_conv_relu_pool<true>(x, w9, bias, y, pooled, V, H, W, cin,
+                                       cout, st);
+  return launch_conv_relu_pool<false>(x, w9, bias, y, pooled, V, H, W, cin,
+                                      cout, st);
 }
 
 // dx [V, H, W, 64] of maxpool2(bf16(relu(conv3x3(x, w9) + bias))) for the

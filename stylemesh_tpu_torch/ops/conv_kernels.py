@@ -15,14 +15,21 @@ and relu off.
 
 K9 computes ``bf16(conv3x3(x, w9))``: bf16 inputs, float32 sums, no bias,
 no relu. That is K5 with ``bias=None, relu=False``, so K9 is that entry of
-``conv.cu`` under its own wrapper (:func:`conv3x3_mxu`) and launch count;
-:class:`_ConvFrozen` gives it the frozen-VGG VJP (input gradient = K9 with
-the flipped kernel, no weight gradient).
+``conv_gemm.cu`` under its own wrapper (:func:`conv3x3_mxu`) and launch
+count, bit for bit K5's; :class:`_ConvFrozen` gives it the frozen-VGG VJP
+(input gradient = K9 with the flipped kernel, no weight gradient).
 
-The TPU kernels' width packing of narrow channel counts, lane padding of
-Cin to 128, 8-column alignment pads and VMEM tile heuristics are not
-carried over: the Hopper kernel (``kernels/csrc/conv.cu``) tiles output
-pixels itself and masks the ragged edge.
+The kernel (``kernels/csrc/conv_gemm.cu``) is an implicit GEMM bound by the
+H100's tensor cores: two warpgroups issue ``wgmma`` on 128-byte-swizzled
+tiles that one producer thread keeps coming by TMA through a ring of
+stages. A tile is :func:`tile_pixels` output pixels, a box of
+:func:`pixel_box` rows and columns chosen per layer to pad the map least,
+times :func:`block_n` output channels; K advances one tap times 64 input
+channels at a time, and TMA's zero fill outside the map is the SAME
+padding. ``w9`` is read as it is stored; the output is stored by TMA,
+clipped at the map's edge. The TPU kernels' width packing of narrow
+channel counts, lane padding of Cin to 128, 8-column alignment pads and
+VMEM tile heuristics are not carried over.
 """
 
 import contextlib
@@ -32,8 +39,34 @@ import torch.nn.functional as F
 
 from stylemesh_tpu_torch import kernels
 
-CIN_STEP = 32  # kCK in kernels/csrc/conv.cu: Cin must be a multiple
-COUT_STEP = 64  # kN: Cout must be a multiple
+CIN_STEP = 64  # channels per K step (kBK in conv_gemm.cu): Cin a multiple
+COUT_STEP = 64  # the narrowest output-channel tile: Cout a multiple
+BOX_WIDTHS = (256, 128, 64, 32, 16, 8)  # columns of a tile's pixel box
+
+
+def block_n(cout):
+    """Output channels per tile: 256 where Cout allows, else 128, else 64."""
+    return next(n for n in (256, 128, 64) if cout % n == 0)
+
+
+def tile_pixels(cout):
+    """Output pixels per tile: 128 beside 256 channels, else 256 (two m64
+    blocks per consumer warpgroup): the taller tile feeds more products
+    with each stage's bytes from L2."""
+    return 128 if block_n(cout) == 256 else 256
+
+
+def pixel_box(h, w, pixels):
+    """``(rows, cols)`` of the box of ``pixels`` output pixels a tile covers
+    on an ``h x w`` map: the box that pads the map least when the map is
+    cut into such boxes, the widest among equals."""
+    def padded(bw):
+        bh = pixels // bw
+        return -(-h // bh) * bh * (-(-w // bw) * bw)
+
+    widths = [bw for bw in BOX_WIDTHS if bw <= pixels]
+    bw = min(widths, key=padded)  # min keeps the first (widest) of ties
+    return pixels // bw, bw
 
 
 def w9_from_oihw(weight):
@@ -98,9 +131,10 @@ def _launch_conv3x3(x, w9, bias, relu):
     v, h, w, cin = x.shape
     cout = w9.shape[1]
     y = torch.empty((v, h, w, cout), dtype=torch.bfloat16, device=x.device)
+    box_h, box_w = pixel_box(h, w, tile_pixels(cout))
     kernels.launch("stylemesh_conv3x3", x.device, x.data_ptr(), w9.data_ptr(),
                    None if bias is None else bias.data_ptr(), y.data_ptr(),
-                   None, v, h, w, cin, cout, int(relu), 0)
+                   v, h, w, cin, cout, int(relu), box_h, box_w, block_n(cout))
     return y
 
 

@@ -90,10 +90,10 @@ def conv_relu_pool(x, w9, bias, with_pre=False):
                          device=x.device)
     pre = (torch.empty((v, h, w, cout), dtype=torch.bfloat16, device=x.device)
            if with_pre else None)
-    kernels.launch("stylemesh_conv3x3", x.device, x.data_ptr(), w9.data_ptr(),
-                   None if bias is None else bias.data_ptr(),
+    kernels.launch("stylemesh_conv_relu_pool", x.device, x.data_ptr(),
+                   w9.data_ptr(), None if bias is None else bias.data_ptr(),
                    None if pre is None else pre.data_ptr(), pooled.data_ptr(),
-                   v, h, w, x.shape[-1], cout, 1, 2 if with_pre else 1)
+                   v, h, w, x.shape[-1], cout, int(with_pre))
     if with_pre:
         conv_relu_pool.dual_launches += 1
         return pooled, pre

@@ -152,3 +152,46 @@ def test_conv_frozen_input_gradient_matches_jax(cin, cout):
     _assert_forward(out.detach(), y)
     assert got.dtype == torch.bfloat16
     _assert_forward(got, want)
+
+
+@pytest.mark.parametrize("pixels", [128, 256])
+@pytest.mark.parametrize("h,w", [(1, 1), (1, 261), (7, 31), (17, 33),
+                                 (98, 130), (196, 261), (256, 341),
+                                 (392, 522), (32, 42), (5, 1045)])
+def test_pixel_box_pads_least(h, w, pixels):
+    """K5's tile is a box of 128 or 256 output pixels: the box the wrapper
+    picks covers the map with no more padded pixels than any other box of
+    the allowed widths, and is the widest of those that tie."""
+    box_h, box_w = conv_kernels.pixel_box(h, w, pixels)
+    assert box_h * box_w == pixels
+    assert box_w in conv_kernels.BOX_WIDTHS and box_w % 8 == 0
+
+    def padded(bw):
+        bh = pixels // bw
+        return -(-h // bh) * bh * (-(-w // bw) * bw)
+
+    widths = [bw for bw in conv_kernels.BOX_WIDTHS if bw <= pixels]
+    least = min(padded(bw) for bw in widths)
+    assert padded(box_w) == least
+    assert box_w == max(bw for bw in widths if padded(bw) == least)
+
+
+def test_pixel_box_of_the_bench_maps():
+    """The tiles of the largest bench level (UV height 784): its conv3 and
+    conv4 maps take 8 x 16 boxes of 128 pixels (6% and 17% padding, where
+    4 x 32 pads 10% and 25%); its conv1 and conv2 maps boxes of 256."""
+    assert conv_kernels.pixel_box(196, 261, 128) == (8, 16)
+    assert conv_kernels.pixel_box(98, 130, 128) == (8, 16)
+    assert conv_kernels.pixel_box(784, 1045, 256) == (8, 32)
+    assert conv_kernels.pixel_box(392, 522, 256) == (16, 16)
+    assert conv_kernels.pixel_box(1, 261, 128) == (1, 128)
+
+
+@pytest.mark.parametrize("cout,n,pixels", [(64, 64, 256), (128, 128, 256),
+                                           (192, 64, 256), (256, 256, 128),
+                                           (384, 128, 256), (512, 256, 128)])
+def test_block_n_and_tile_pixels(cout, n, pixels):
+    """Output channels per tile: the widest of 256, 128, 64 dividing Cout;
+    pixels per tile: 128 beside 256 channels, else 256."""
+    assert conv_kernels.block_n(cout) == n
+    assert conv_kernels.tile_pixels(cout) == pixels

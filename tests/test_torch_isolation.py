@@ -53,7 +53,7 @@ def test_port_imports_no_jax():
 
 def test_kernel_sources_present():
     sources = sorted(p.name for p in kernels.CSRC.glob("*.cu"))
-    assert sources == ["conv.cu", "gram.cu", "sample.cu"]
+    assert sources == ["conv.cu", "conv_gemm.cu", "gram.cu", "sample.cu"]
     assert "-gencode=arch=compute_90a,code=sm_90a" in kernels.CUDA_FLAGS
 
 
