@@ -49,10 +49,14 @@ phase fails. Phases:
    card (NCCL);
 3. kernels: each kernel against its plain PyTorch version at the main path's
    shapes and inputs, timed with CUDA events beside the plain version and one
-   PyTorch library call computing the same function, with its bound on an
-   H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16) and, for the convs, its
-   achieved TFLOP/s; at every K5 and K9 shape, K5 without bias and relu
-   must equal K9 bit for bit; the banded K1/K2 for the 4 bands of D = 4
+   PyTorch library call computing the same function (kernel and library:
+   median, min and max of 20 launches after a warm-up; plain: mean of 5),
+   with its bound on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16)
+   and, for the convs, its achieved TFLOP/s; at every K5 and K9 shape, K5
+   without bias and relu must equal K9 bit for bit, and at every block-tail
+   shape K6 must equal maxpool2 of K5's relu output, K7's maps K5's output
+   and K6's, and K8 K5 with the flipped kernel on the routed cotangent, bit
+   for bit; the banded K1/K2 for the 4 bands of D = 4
    (each against its plain version, their sum against the unbanded K1/K2),
    timed for rank 0's band of D = 2.
 
@@ -65,6 +69,7 @@ import math
 import os
 import re
 import signal
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -87,12 +92,13 @@ from stylemesh_tpu_torch.ops import grid_sample as gs
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12   # dense bf16 tensor-core peak
 STEPS = 5                  # timed train steps
-REPS = 5                   # launches per kernel timing
+REPS = 20                  # launches per kernel / library timing (median)
+PLAIN_REPS = 5             # launches per plain-version timing (mean)
 
 REPO = Path(__file__).resolve().parent
 SAMPLE_SRC = "stylemesh_tpu_torch/kernels/csrc/sample.cu"
-CONV_SRC = "stylemesh_tpu_torch/kernels/csrc/conv.cu"
 GEMM_SRC = "stylemesh_tpu_torch/kernels/csrc/conv_gemm.cu"
+BWD_SRC = "stylemesh_tpu_torch/kernels/csrc/conv_pool_bwd.cu"
 KERNELS = {  # launches: (wrapper, attribute holding its launch count)
     "K1_gather": dict(source="stylemesh_tpu_torch/kernels/csrc/sample.cu",
                       replaces="stylemesh_tpu/ops/splat_pallas.py:486",
@@ -120,15 +126,15 @@ KERNELS = {  # launches: (wrapper, attribute holding its launch count)
                        replaces="stylemesh_tpu/ops/conv_pallas.py:232",
                        launches=(conv_kernels.conv3x3, "launches"),
                        rel_tol=1e-2),
-    "K6_conv_relu_pool": dict(source=CONV_SRC,
+    "K6_conv_relu_pool": dict(source=GEMM_SRC,
                               replaces="stylemesh_tpu/ops/head_pallas.py:487",
                               launches=(head_kernels.conv_relu_pool, "launches"),
                               rel_tol=1e-2),
     "K7_conv_relu_pool_dual": dict(
-        source=CONV_SRC, replaces="stylemesh_tpu/ops/head_pallas.py:234",
+        source=GEMM_SRC, replaces="stylemesh_tpu/ops/head_pallas.py:234",
         launches=(head_kernels.conv_relu_pool, "dual_launches"), rel_tol=1e-2),
     "K8_conv_relu_pool_bwd": dict(
-        source=CONV_SRC, replaces="stylemesh_tpu/ops/head_pallas.py:413",
+        source=BWD_SRC, replaces="stylemesh_tpu/ops/head_pallas.py:413",
         launches=(head_kernels.conv_relu_pool_bwd, "launches"), rel_tol=1e-2,
         max_share=2e-3),
     "K9_conv3x3_mxu": dict(source=GEMM_SRC,
@@ -174,6 +180,10 @@ K9_ENV = {"STYLEMESH_CONV_FLIPVJP": "0", "STYLEMESH_FAST_CONV": "1"}
 #    of the elements may lie farther than 1e-2 from the plain version.
 # K9 is K5 without bias and relu: 1e-2 (and K5 with bias=None, relu=False
 #    must equal it bit for bit: one C entry).
+# Between the kernels, bit for bit (one mainloop at K5's N tile): K6 is
+#    maxpool2 of K5's relu output, K7's pre-pool map is that output and its
+#    pooled map K6's, K8 is K5 with the flipped kernel on the routed
+#    cotangent.
 
 
 def log(msg):
@@ -202,7 +212,23 @@ def style_image(h, w):
         (rng.random((1, h, w, 3), dtype=np.float32) - 0.45) * 255.0)
 
 
-def cuda_ms(fn, reps=REPS):
+def cuda_times(fn, reps=REPS):
+    """(median, min, max) milliseconds of ``fn`` on the card, each of
+    ``reps`` calls after a warm-up timed with its own pair of events."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    times = sorted(start.elapsed_time(end) for start, end in pairs)
+    return statistics.median(times), times[0], times[-1]
+
+
+def cuda_ms(fn, reps=PLAIN_REPS):
     """Mean milliseconds of ``fn`` on the card over ``reps`` calls."""
     fn()
     torch.cuda.synchronize()
@@ -754,6 +780,12 @@ def check(name, got, want, where=""):
     return err, tol
 
 
+def same_bits(what, got, want):
+    """Raise unless two kernel outputs are equal bit for bit."""
+    if not torch.equal(got, want):
+        raise RuntimeError(f"{what}: not equal bit for bit")
+
+
 def same_as_k9(where, x, w9, y):
     """Raise unless K9 on ``(x, w9)`` equals ``y``, K5's output without bias
     and relu, bit for bit (the two wrappers share one C entry)."""
@@ -838,10 +870,9 @@ def banded_kernels(where, layers, grid, g, add):
                  npx * (12 + 8) + 12 * sum(a * b for a, b in bshapes))):
             err_tol = (max(e for e, _ in errs[name]),
                        max(t for _, t in errs[name]))
-            ms = cuda_ms(fn)
+            ms = add(name, at, err_tol, fn, plain, None, nbytes,
+                     f32_mode_ms=None if compute == "f32" else f32_ms[name[:2]])
             f32_ms[name[:2]] = ms if compute == "f32" else f32_ms[name[:2]]
-            add(name, at, err_tol, ms, cuda_ms(plain), None, nbytes,
-                f32_mode_ms=None if compute == "f32" else f32_ms[name[:2]])
 
 
 def cotangent(like, mask=None, seed=0):
@@ -889,30 +920,36 @@ def trunk_kernels(where, pipe, pred, add):
             skip_pool = True
             library = lambda x=h: F.max_pool2d(F.relu(F.conv2d(  # noqa: E731
                 nchw(x), w_lib, b_lib, padding=1)), 2)
+            y = conv_kernels.conv3x3(h, w9, b, relu=True)  # K5's relu output
             if cin == 64:
                 pooled = head_kernels.conv_relu_pool(h, w9, b)
                 err = check("K6_conv_relu_pool", pooled,
                             head_kernels.conv_relu_pool_plain(h, w9, b), at)
+                same_bits(f"K6 vs maxpool2(K5) at {at}", pooled,
+                          head_kernels.maxpool2(y))
                 add("K6_conv_relu_pool", at, err,
-                    cuda_ms(lambda x=h: head_kernels.conv_relu_pool(x, w9, b)),
-                    cuda_ms(lambda x=h: head_kernels.conv_relu_pool_plain(x, w9, b)),
-                    cuda_ms(library), x_bytes + w_bytes + 4 * cout
+                    lambda x=h: head_kernels.conv_relu_pool(x, w9, b),
+                    lambda x=h: head_kernels.conv_relu_pool_plain(x, w9, b),
+                    library, x_bytes + w_bytes + 4 * cout
                     + pooled.numel() * 2, flops)
                 g = cotangent(pooled, seed=i)
-                err = check("K8_conv_relu_pool_bwd",
-                            head_kernels.conv_relu_pool_bwd(h, w9, w9t, b, g),
+                dx = head_kernels.conv_relu_pool_bwd(h, w9, w9t, b, g)
+                err = check("K8_conv_relu_pool_bwd", dx,
                             head_kernels.conv_relu_pool_bwd_plain(h, w9, w9t, b, g),
                             at)
+                same_bits(f"K8 vs K5 on the routed cotangent at {at}", dx,
+                          conv_kernels.conv3x3(head_kernels.pool_route(y, g), w9t))
+                del dx
                 x_leaf = nchw(h).detach().requires_grad_()
                 lib_out = F.max_pool2d(F.relu(F.conv2d(
                     x_leaf, w_lib, b_lib, padding=1)), 2)
                 add("K8_conv_relu_pool_bwd", at, err,
-                    cuda_ms(lambda x=h: head_kernels.conv_relu_pool_bwd(
-                        x, w9, w9t, b, g)),
-                    cuda_ms(lambda x=h: head_kernels.conv_relu_pool_bwd_plain(
-                        x, w9, w9t, b, g)),
-                    cuda_ms(lambda: torch.autograd.grad(
-                        lib_out, x_leaf, nchw(g), retain_graph=True)),
+                    lambda x=h: head_kernels.conv_relu_pool_bwd(
+                        x, w9, w9t, b, g),
+                    lambda x=h: head_kernels.conv_relu_pool_bwd_plain(
+                        x, w9, w9t, b, g),
+                    lambda: torch.autograd.grad(
+                        lib_out, x_leaf, nchw(g), retain_graph=True),
                     2 * x_bytes + 2 * w_bytes + 4 * cout + g.numel() * 2,
                     2 * flops)
                 del x_leaf, lib_out
@@ -921,24 +958,28 @@ def trunk_kernels(where, pipe, pred, add):
                 pooled, pre = head_kernels.conv_relu_pool(h, w9, b, with_pre=True)
                 err = check("K7_conv_relu_pool_dual", [pooled, pre],
                             head_kernels.conv_relu_pool_plain(h, w9, b, True), at)
+                same_bits(f"K7's pre-pool map vs K5 at {at}", pre, y)
+                same_bits(f"K7's pooled map vs K6 at {at}", pooled,
+                          head_kernels.conv_relu_pool(h, w9, b))
                 add("K7_conv_relu_pool_dual", at, err,
-                    cuda_ms(lambda x=h: head_kernels.conv_relu_pool(
-                        x, w9, b, with_pre=True)),
-                    cuda_ms(lambda x=h: head_kernels.conv_relu_pool_plain(
-                        x, w9, b, True)),
-                    cuda_ms(library), x_bytes + w_bytes + 4 * cout
+                    lambda x=h: head_kernels.conv_relu_pool(
+                        x, w9, b, with_pre=True),
+                    lambda x=h: head_kernels.conv_relu_pool_plain(
+                        x, w9, b, True),
+                    library, x_bytes + w_bytes + 4 * cout
                     + (pooled.numel() + pre.numel()) * 2, flops)
                 # its backward: pool routing from pre, then K5 (flipped)
                 dr = head_kernels.pool_route(pre, cotangent(pooled, seed=i))
                 k5_backward(at, dr, w9t, wt_lib, flops, add)
                 h = pooled
+            del y
             continue
         y = conv_kernels.conv3x3(h, w9, b, relu=True)
         err = check("K5_conv3x3", y, conv_kernels.conv3x3_plain(h, w9, b, True), at)
         add("K5_conv3x3", at + " forward", err,
-            cuda_ms(lambda x=h: conv_kernels.conv3x3(x, w9, b, True)),
-            cuda_ms(lambda x=h: conv_kernels.conv3x3_plain(x, w9, b, True)),
-            cuda_ms(lambda x=h: F.relu(F.conv2d(nchw(x), w_lib, b_lib, padding=1))),
+            lambda x=h: conv_kernels.conv3x3(x, w9, b, True),
+            lambda x=h: conv_kernels.conv3x3_plain(x, w9, b, True),
+            lambda x=h: F.relu(F.conv2d(nchw(x), w_lib, b_lib, padding=1)),
             x_bytes + w_bytes + 4 * cout + y.numel() * 2, flops)
         k5_backward(at, cotangent(y, y > 0, seed=i), w9t, wt_lib, flops, add)
         h = y
@@ -951,9 +992,9 @@ def k5_backward(at, g, w9t, wt_lib, flops, add):
     err = check("K5_conv3x3", dx, conv_kernels.conv3x3_plain(g, w9t), at)
     same_as_k9(at + " input gradient", g, w9t, dx)
     add("K5_conv3x3", at + " input gradient", err,
-        cuda_ms(lambda: conv_kernels.conv3x3(g, w9t)),
-        cuda_ms(lambda: conv_kernels.conv3x3_plain(g, w9t)),
-        cuda_ms(lambda: F.conv2d(g.permute(0, 3, 1, 2), wt_lib, padding=1)),
+        lambda: conv_kernels.conv3x3(g, w9t),
+        lambda: conv_kernels.conv3x3_plain(g, w9t),
+        lambda: F.conv2d(g.permute(0, 3, 1, 2), wt_lib, padding=1),
         g.numel() * 2 + w9t.numel() * 2 + dx.numel() * 2, flops)
 
 
@@ -988,9 +1029,9 @@ def k9_kernels(where, pipe, pred, add):
         err = check("K9_conv3x3_mxu", y, conv_kernels.conv3x3_mxu_plain(h, w9), at)
         same_as_k9(at + " forward", h, w9, conv_kernels.conv3x3(h, w9))
         add("K9_conv3x3_mxu", at + " forward", err,
-            cuda_ms(lambda x=h: conv_kernels.conv3x3_mxu(x, w9)),
-            cuda_ms(lambda x=h: conv_kernels.conv3x3_mxu_plain(x, w9)),
-            cuda_ms(lambda x=h: F.conv2d(nchw(x), w_lib, padding=1)),
+            lambda x=h: conv_kernels.conv3x3_mxu(x, w9),
+            lambda x=h: conv_kernels.conv3x3_mxu_plain(x, w9),
+            lambda x=h: F.conv2d(nchw(x), w_lib, padding=1),
             h.numel() * 2 + w9.numel() * 2 + y.numel() * 2, flops)
         h = torch.relu(y + p["bias"].to(torch.bfloat16))
         g = cotangent(h, h > 0, seed=i)
@@ -998,45 +1039,57 @@ def k9_kernels(where, pipe, pred, add):
         err = check("K9_conv3x3_mxu", dx, conv_kernels.conv3x3_mxu_plain(g, w9t), at)
         same_as_k9(at + " input gradient", g, w9t, conv_kernels.conv3x3(g, w9t))
         add("K9_conv3x3_mxu", at + " input gradient", err,
-            cuda_ms(lambda: conv_kernels.conv3x3_mxu(g, w9t)),
-            cuda_ms(lambda: conv_kernels.conv3x3_mxu_plain(g, w9t)),
-            cuda_ms(lambda: F.conv2d(nchw(g), wt_lib, padding=1)),
+            lambda: conv_kernels.conv3x3_mxu(g, w9t),
+            lambda: conv_kernels.conv3x3_mxu_plain(g, w9t),
+            lambda: F.conv2d(nchw(g), wt_lib, padding=1),
             g.numel() * 2 + w9t.numel() * 2 + dx.numel() * 2, flops)
 
 
 def kernel_phase(pipe, state, batch, aux, launches):
-    rows = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, f32_mode_ms=0.0,
-                       bound_ms=0.0, by_bytes=0.0, by_ops=0.0, err=0.0, tol=0.0,
-                       flops=0.0)
+    rows = {name: dict(ms=0.0, ms_min=0.0, ms_max=0.0, plain_ms=0.0,
+                       library_ms=0.0, library_ms_min=0.0, library_ms_max=0.0,
+                       f32_mode_ms=0.0, bound_ms=0.0, by_bytes=0.0, by_ops=0.0,
+                       err=0.0, tol=0.0, flops=0.0)
             for name in KERNELS}
 
-    def add(name, where, err_tol, ms, plain_ms, library_ms, nbytes, flops=0.0,
+    def add(name, where, err_tol, fn, plain_fn, library_fn, nbytes, flops=0.0,
             f32_mode_ms=None):
-        """Accumulate one launch's numbers; its bound is the larger of its
-        bytes over HBM bandwidth and its flops over the bf16 peak. A bf16
-        mode has no library call computing its function (``library_ms``
-        None); it is timed beside its f32 mode instead."""
+        """Time one launch of the kernel (``fn``, median of REPS with min and
+        max), its plain version (mean of PLAIN_REPS) and the library call
+        (``library_fn``, like the kernel) and accumulate them; returns the
+        kernel's median. Its bound is the larger of its bytes over HBM
+        bandwidth and its flops over the bf16 peak. A bf16 mode has no
+        library call computing its function (``library_fn`` None); it is
+        timed beside its f32 mode instead."""
+        ms, lo, hi = cuda_times(fn)
+        plain_ms = cuda_ms(plain_fn)
         r = rows[name]
         r["err"] = max(r["err"], err_tol[0])
         r["tol"] = max(r["tol"], err_tol[1])
         r["ms"] += ms
+        r["ms_min"] += lo
+        r["ms_max"] += hi
         r["plain_ms"] += plain_ms
-        if library_ms is None:
+        if library_fn is None:
             r["library_ms"] = None
             if f32_mode_ms is not None:
                 r["f32_mode_ms"] += f32_mode_ms
+            other = ("library none" if f32_mode_ms is None
+                     else f"f32 mode {f32_mode_ms:.4f}")
         else:
-            r["library_ms"] += library_ms
+            lib, lib_lo, lib_hi = cuda_times(library_fn)
+            r["library_ms"] += lib
+            r["library_ms_min"] += lib_lo
+            r["library_ms_max"] += lib_hi
+            other = f"library {lib:.4f} ({lib_lo:.4f}-{lib_hi:.4f})"
         b_ms, b_by = bound_ms(nbytes, flops)
         r["bound_ms"] += b_ms
         r["by_bytes" if b_by == "bytes" else "by_ops"] += b_ms
         r["flops"] += flops
-        other = (f"library {library_ms:.4f}" if library_ms is not None
-                 else "library none" if f32_mode_ms is None
-                 else f"f32 mode {f32_mode_ms:.4f}")
         rate = f", {flops / ms / 1e9:.1f} TFLOP/s" if flops else ""
-        log(f"[kernel] {name} {where}: {ms:.4f} ms (bound {b_ms:.4f} by {b_by}), "
-            f"plain {plain_ms:.4f}, {other}{rate}")
+        log(f"[kernel] {name} {where}: {ms:.4f} ms ({lo:.4f}-{hi:.4f}; bound "
+            f"{b_ms:.4f} by {b_by}), plain {plain_ms:.4f}, {other}{rate}")
+        return ms
 
     layers = [l.detach() for l in state.texture.layers]
     shapes = [tuple(l.shape[:2]) for l in layers]
@@ -1059,15 +1112,15 @@ def kernel_phase(pipe, state, batch, aux, launches):
         err = check("K1_gather", gs.gather_layers(layers, grid),
                     gs.gather_layers_plain(layers, grid))
         gather_bytes = npx * (8 + 12) + 12 * touched_texels(grid, layers)
-        k1_ms = cuda_ms(lambda: gs.gather_layers(layers, grid))
-        add("K1_gather", f"level {i}", err, k1_ms,
-            cuda_ms(lambda: gs.gather_layers_plain(layers, grid)),
-            cuda_ms(library_gather), gather_bytes)
+        k1_ms = add("K1_gather", f"level {i}", err,
+                    lambda: gs.gather_layers(layers, grid),
+            lambda: gs.gather_layers_plain(layers, grid),
+            library_gather, gather_bytes)
         err = check("K1_gather_bf16", gs.gather_layers(layers, grid, "bf16"),
                     gs.gather_layers_plain_bf16(layers, grid))
         add("K1_gather_bf16", f"level {i}", err,
-            cuda_ms(lambda: gs.gather_layers(layers, grid, "bf16")),
-            cuda_ms(lambda: gs.gather_layers_plain_bf16(layers, grid)),
+            lambda: gs.gather_layers(layers, grid, "bf16"),
+            lambda: gs.gather_layers_plain_bf16(layers, grid),
             None, gather_bytes, f32_mode_ms=k1_ms)
         # K2: cotangent zero where the level's gradient weight is zero, as on
         # the main path
@@ -1082,18 +1135,18 @@ def kernel_phase(pipe, state, batch, aux, launches):
                       for x in lib_leaf)
         g_cf = g.permute(0, 3, 1, 2)
         splat_bytes = npx * (12 + 8) + 12 * sum(a * b for a, b in shapes)
-        k2_ms = cuda_ms(lambda: gs.splat_layers(g, grid, shapes))
-        add("K2_splat", f"level {i}", err, k2_ms,
-            cuda_ms(lambda: gs.splat_layers_plain(g, grid, shapes)),
-            cuda_ms(lambda: torch.autograd.grad(lib_out, lib_leaf, g_cf,
-                                                retain_graph=True)),
+        k2_ms = add("K2_splat", f"level {i}", err,
+                    lambda: gs.splat_layers(g, grid, shapes),
+            lambda: gs.splat_layers_plain(g, grid, shapes),
+            lambda: torch.autograd.grad(lib_out, lib_leaf, g_cf,
+                                                retain_graph=True),
             splat_bytes)
         del lib_out, lib_leaf
         err = check("K2_splat_bf16", gs.splat_layers(g, grid, shapes, "bf16"),
                     gs.splat_layers_plain_bf16(g, grid, shapes))
         add("K2_splat_bf16", f"level {i}", err,
-            cuda_ms(lambda: gs.splat_layers(g, grid, shapes, "bf16")),
-            cuda_ms(lambda: gs.splat_layers_plain_bf16(g, grid, shapes)),
+            lambda: gs.splat_layers(g, grid, shapes, "bf16"),
+            lambda: gs.splat_layers_plain_bf16(g, grid, shapes),
             None, splat_bytes, f32_mode_ms=k2_ms)
         banded_kernels(f"level {i}", layers, grid, g, add)
 
@@ -1117,9 +1170,9 @@ def kernel_phase(pipe, state, batch, aux, launches):
             err = check("K3_gram_fwd", gram_kernels.masked_gram_sums(f, m),
                         gram_kernels.masked_gram_sums_plain(f, m))
             add("K3_gram_fwd", f"level {i} {k}", err,
-                cuda_ms(lambda: gram_kernels.masked_gram_sums(f, m)),
-                cuda_ms(lambda: gram_kernels.masked_gram_sums_plain(f, m)),
-                cuda_ms(lambda: torch.einsum("vkp,vpc,vpd->vkcd", m, f, f)),
+                lambda: gram_kernels.masked_gram_sums(f, m),
+                lambda: gram_kernels.masked_gram_sums_plain(f, m),
+                lambda: torch.einsum("vkp,vpc,vpd->vkcd", m, f, f),
                 f.numel() * 2 + m.numel() * 2 + v * kk * c * c * 4, flops)
             gen = torch.Generator(device="cuda").manual_seed(100 + i)
             dg = torch.randn((v, kk, c, c), generator=gen, device="cuda")
@@ -1129,9 +1182,9 @@ def kernel_phase(pipe, state, batch, aux, launches):
                         gram_kernels.masked_gram_sums_grad(f, m, s),
                         gram_kernels.masked_gram_sums_grad_plain(f, m, s))
             add("K4_gram_bwd", f"level {i} {k}", err,
-                cuda_ms(lambda: gram_kernels.masked_gram_sums_grad(f, m, s)),
-                cuda_ms(lambda: gram_kernels.masked_gram_sums_grad_plain(f, m, s)),
-                cuda_ms(lambda: torch.einsum("vkp,vkcd,vpd->vpc", m, s16, f)),
+                lambda: gram_kernels.masked_gram_sums_grad(f, m, s),
+                lambda: gram_kernels.masked_gram_sums_grad_plain(f, m, s),
+                lambda: torch.einsum("vkp,vkcd,vpd->vpc", m, s16, f),
                 f.numel() * 2 * 2 + m.numel() * 2 + s16.numel() * 2, flops)
 
     out = []
@@ -1143,9 +1196,13 @@ def kernel_phase(pipe, state, batch, aux, launches):
             replaces=spec["replaces"], launches=n,
             launches_per_step=per_step,
             max_abs_err=r["err"], tol=r["tol"], ms=r["ms"],
-            kernel_ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            kernel_ms=r["ms"], ms_min=r["ms_min"], ms_max=r["ms_max"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by="bytes" if r["by_bytes"] >= r["by_ops"] else "operations",
             library_ms=r["library_ms"])
+        if r["library_ms"] is not None:
+            row.update(library_ms_min=r["library_ms_min"],
+                       library_ms_max=r["library_ms_max"])
         if r["flops"]:
             row["tflop_per_s"] = r["flops"] / r["ms"] / 1e9
         if r["library_ms"] is None and name.endswith("_bf16"):
@@ -1169,20 +1226,32 @@ def multi_card():
             f"{per_step:g} per step")
 
 
+SASS_KERNELS = {  # kernel -> its instantiations' tags in the mangled name
+    "conv3x3_gemm_kernel": ("ILi1ELi256E", "ILi2ELi128E", "ILi2ELi64E"),
+    "conv_relu_pool_kernel": ("ILi2ELi64ELb0E", "ILi2ELi128ELb0E",
+                              "ILi2ELi64ELb1E", "ILi2ELi128ELb1E"),
+    "conv_relu_pool_bwd_kernel": ("",),
+}
+
+
 def conv_core_sass():
-    """Raise unless the built conv core (``conv3x3_gemm_kernel``, K5/K9)
-    holds warpgroup MMA instructions (HGMMA in its SASS); print their
-    count and shapes."""
+    """Raise unless every instantiation of the conv core's kernels (K5/K9,
+    K6/K7, K8) in the built library holds warpgroup MMA instructions (HGMMA
+    in its SASS); print their count and shapes per kernel."""
     lib = kernels.BUILD_DIR / f"{kernels.NAME}.so"
     sass = subprocess.run(["cuobjdump", "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    found = [m.group(1) for fn in sass.split("Function : ")
-             if "conv3x3_gemm_kernel" in fn.split("\n", 1)[0]
-             for m in re.finditer(r"(HGMMA\.\w+\.F32\.BF16)", fn)]
-    log(f"[build] conv3x3_gemm_kernel SASS: {len(found)} HGMMA instructions "
-        f"({', '.join(sorted(set(found)))})")
-    if not found:
-        raise RuntimeError("the conv core's SASS holds no HGMMA instruction")
+    functions = [fn.split("\n", 1) for fn in sass.split("Function : ")[1:]]
+    for name, tags in SASS_KERNELS.items():
+        for tag in tags:
+            mangled = f"{len(name)}{name}{tag}"
+            bodies = [body for head, body in functions if mangled in head]
+            found = [m.group(1) for body in bodies
+                     for m in re.finditer(r"(HGMMA\.\w+\.F32\.BF16)", body)]
+            log(f"[build] {name}{tag} SASS: {len(found)} HGMMA instructions "
+                f"({', '.join(sorted(set(found)))})")
+            if not bodies or not found:
+                raise RuntimeError(f"{name}{tag}: no HGMMA in its SASS")
 
 
 def main(argv):
@@ -1216,12 +1285,14 @@ def main(argv):
     launches.update(run_loop_phases(pipe, state, batch, aux))
     rows = kernel_phase(pipe, state, batch, aux, launches)
     for r in rows:
-        other = (f"library {r['library_ms']:.4f}" if r["library_ms"] is not None
+        other = (f"library {r['library_ms']:.4f} ({r['library_ms_min']:.4f}-"
+                 f"{r['library_ms_max']:.4f})" if r["library_ms"] is not None
                  else f"f32 mode {r['f32_mode_ms']:.4f}" if "f32_mode_ms" in r
                  else "library none")
         rate = (f", {r['tflop_per_s']:.1f} TFLOP/s" if "tflop_per_s" in r
                 else "")
-        log(f"[kernel] {r['name']}: {r['ms']:.4f} ms/step (bound {r['bound_ms']:.4f} "
+        log(f"[kernel] {r['name']}: {r['ms']:.4f} ms/step ({r['ms_min']:.4f}-"
+            f"{r['ms_max']:.4f}; bound {r['bound_ms']:.4f} "
             f"by {r['bound_by']}), plain {r['plain_ms']:.4f}, {other}, "
             f"{r['launches_per_step']:g} launches/step{rate}")
     print(smi)

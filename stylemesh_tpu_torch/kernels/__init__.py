@@ -34,8 +34,8 @@ _SIGNATURES = {
     "stylemesh_gram_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "stylemesh_gram_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "stylemesh_conv3x3": [_P, _P, _P, _P] + [_I] * 9 + [_P],
-    "stylemesh_conv_relu_pool": [_P, _P, _P, _P, _P] + [_I] * 6 + [_P],
-    "stylemesh_conv_relu_pool_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "stylemesh_conv_relu_pool": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
+    "stylemesh_conv_relu_pool_bwd": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 _library = None

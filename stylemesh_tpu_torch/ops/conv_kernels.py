@@ -42,6 +42,7 @@ from stylemesh_tpu_torch import kernels
 CIN_STEP = 64  # channels per K step (kBK in conv_gemm.cu): Cin a multiple
 COUT_STEP = 64  # the narrowest output-channel tile: Cout a multiple
 BOX_WIDTHS = (256, 128, 64, 32, 16, 8)  # columns of a tile's pixel box
+POOL_BOX_WIDTHS = (32, 16, 8)  # those that split an m64 block in row pairs
 
 
 def block_n(cout):
@@ -56,17 +57,26 @@ def tile_pixels(cout):
     return 128 if block_n(cout) == 256 else 256
 
 
-def pixel_box(h, w, pixels):
+def pixel_box(h, w, pixels, widths=BOX_WIDTHS):
     """``(rows, cols)`` of the box of ``pixels`` output pixels a tile covers
-    on an ``h x w`` map: the box that pads the map least when the map is
-    cut into such boxes, the widest among equals."""
+    on an ``h x w`` map: the box of one of ``widths`` columns that pads the
+    map least when the map is cut into such boxes, the widest among
+    equals."""
     def padded(bw):
         bh = pixels // bw
         return -(-h // bh) * bh * (-(-w // bw) * bw)
 
-    widths = [bw for bw in BOX_WIDTHS if bw <= pixels]
+    widths = [bw for bw in widths if bw <= pixels]
     bw = min(widths, key=padded)  # min keeps the first (widest) of ties
     return pixels // bw, bw
+
+
+def pool_box(h, w, pixels):
+    """The pixel box of a block-tail tile (K6, K7): :func:`pixel_box` among
+    the widths of :data:`POOL_BOX_WIDTHS`. A consumer warpgroup's m64 block
+    is then ``64 // cols`` whole rows of the box, an even count, and the
+    box's origin is even, so every 2x2 pool window lies inside one block."""
+    return pixel_box(h, w, pixels, POOL_BOX_WIDTHS)
 
 
 def w9_from_oihw(weight):

@@ -17,12 +17,27 @@ relu, one bf16 rounding, and the pool takes the maximum of the bf16 values.
 The pooled map is ``[V, H // 2, W // 2, C]``; an odd tail row or column is a
 conv halo only. The TPU kernels' width packing, lane-duplicated cotangent
 and tile heuristics are not carried over.
+
+The kernels run on K5's ``wgmma`` + TMA core (``kernels/csrc/conv_core.cuh``)
+at K5's output-channel tile (:func:`conv_kernels.block_n`), so K6's and
+K7's pre-pool values are K5's relu output bit for bit: K6/K7 are K5's
+kernel with a pool epilogue (``conv_gemm.cu``), on a pixel box of
+:func:`conv_kernels.pool_box`; K8 (``conv_pool_bwd.cu``) recomputes the
+relu output on a dx tile of :data:`BWD_TILE` plus one ring of pool windows
+and runs the transposed conv in K5's sum order, so it
+equals ``conv3x3(pool_route(relu output, g), w9t)`` bit for bit.
 """
 
 import torch
 
 from stylemesh_tpu_torch import kernels
+from stylemesh_tpu_torch.ops import conv_kernels
 from stylemesh_tpu_torch.ops.conv_kernels import check_conv, conv3x3_plain
+
+# K8's dx tile (rows, cols), which the C entry checks: it recomputes the
+# relu output on the tile plus one ring of pool windows, 28 x 36 pixels,
+# 1.3125 per dx pixel
+BWD_TILE = (24, 32)
 
 
 def maxpool2(x):
@@ -86,14 +101,14 @@ def conv_relu_pool(x, w9, bias, with_pre=False):
     check_conv(x, w9, bias)
     v, h, w, _ = x.shape
     cout = w9.shape[1]
+    if conv_kernels.block_n(cout) not in (64, 128):
+        raise ValueError(f"K6/K7 take K5's 64- or 128-wide N tile: Cout a "
+                         f"multiple of 64 that 256 does not divide, got {cout}")
     pooled = torch.empty((v, h // 2, w // 2, cout), dtype=torch.bfloat16,
                          device=x.device)
     pre = (torch.empty((v, h, w, cout), dtype=torch.bfloat16, device=x.device)
            if with_pre else None)
-    kernels.launch("stylemesh_conv_relu_pool", x.device, x.data_ptr(),
-                   w9.data_ptr(), None if bias is None else bias.data_ptr(),
-                   None if pre is None else pre.data_ptr(), pooled.data_ptr(),
-                   v, h, w, x.shape[-1], cout, int(with_pre))
+    launch_conv_relu_pool(x, w9, bias, pre, pooled)
     if with_pre:
         conv_relu_pool.dual_launches += 1
         return pooled, pre
@@ -103,6 +118,21 @@ def conv_relu_pool(x, w9, bias, with_pre=False):
 
 conv_relu_pool.launches = 0
 conv_relu_pool.dual_launches = 0
+
+
+def launch_conv_relu_pool(x, w9, bias, pre, pooled):
+    """The K6 (``pre`` None) or K7 launch into the given outputs, on K5's
+    tile for Cout and a :func:`conv_kernels.pool_box` box. Counts
+    nothing."""
+    v, h, w, cin = x.shape
+    cout = w9.shape[1]
+    pixels = conv_kernels.tile_pixels(cout)
+    box_h, box_w = conv_kernels.pool_box(h, w, pixels)
+    kernels.launch("stylemesh_conv_relu_pool", x.device, x.data_ptr(),
+                   w9.data_ptr(), None if bias is None else bias.data_ptr(),
+                   None if pre is None else pre.data_ptr(), pooled.data_ptr(),
+                   v, h, w, cin, cout, int(pre is not None), box_h, box_w,
+                   conv_kernels.block_n(cout))
 
 
 def conv_relu_pool_bwd(x, w9, w9_flipped, bias, g):
@@ -122,11 +152,18 @@ def conv_relu_pool_bwd(x, w9, w9_flipped, bias, g):
     if tuple(g.shape) != (v, h // 2, w // 2, c):
         raise ValueError(f"g {tuple(g.shape)} vs x {tuple(x.shape)}")
     dx = torch.empty_like(x)
-    kernels.launch("stylemesh_conv_relu_pool_bwd", x.device, x.data_ptr(),
-                   w9.data_ptr(), w9_flipped.data_ptr(), bias.data_ptr(),
-                   g.data_ptr(), dx.data_ptr(), v, h, w)
+    launch_conv_relu_pool_bwd(x, w9, w9_flipped, bias, g, dx)
     conv_relu_pool_bwd.launches += 1
     return dx
 
 
 conv_relu_pool_bwd.launches = 0
+
+
+def launch_conv_relu_pool_bwd(x, w9, w9_flipped, bias, g, dx, tile=BWD_TILE):
+    """The K8 launch into ``dx``, on dx tiles of ``tile``. Counts
+    nothing."""
+    v, h, w, _ = x.shape
+    kernels.launch("stylemesh_conv_relu_pool_bwd", x.device, x.data_ptr(),
+                   w9.data_ptr(), w9_flipped.data_ptr(), bias.data_ptr(),
+                   g.data_ptr(), dx.data_ptr(), v, h, w, *tile)

@@ -195,3 +195,39 @@ def test_block_n_and_tile_pixels(cout, n, pixels):
     pixels per tile: 128 beside 256 channels, else 256."""
     assert conv_kernels.block_n(cout) == n
     assert conv_kernels.tile_pixels(cout) == pixels
+
+
+@pytest.mark.parametrize("pixels", [128, 256])
+@pytest.mark.parametrize("h,w", [(1, 1), (2, 3), (7, 31), (17, 33),
+                                 (256, 341), (432, 576), (608, 810),
+                                 (784, 1045), (128, 170), (392, 522),
+                                 (33, 57)])
+def test_pool_box_keeps_windows_in_a_warpgroup(h, w, pixels):
+    """The block tails' box (K6, K7): each consumer warpgroup's m64 block
+    (64 consecutive pixels of the box, row-major) is an even number of
+    whole box rows, and the box's height is even, so every 2x2 pool window
+    of a tile lies inside one block; among such boxes it pads the map
+    least, the widest of those that tie."""
+    box_h, box_w = conv_kernels.pool_box(h, w, pixels)
+    assert box_h * box_w == pixels and box_w % 8 == 0
+    assert 64 % box_w == 0 and (64 // box_w) % 2 == 0 and box_h % 2 == 0
+
+    def padded(bw):
+        bh = pixels // bw
+        return -(-h // bh) * bh * (-(-w // bw) * bw)
+
+    allowed = [bw for bw in conv_kernels.BOX_WIDTHS
+               if 64 % bw == 0 and (64 // bw) % 2 == 0]
+    assert sorted(allowed) == sorted(conv_kernels.POOL_BOX_WIDTHS)
+    least = min(padded(bw) for bw in allowed)
+    assert padded(box_w) == least
+    assert box_w == max(bw for bw in allowed if padded(bw) == least)
+
+
+def test_pool_box_of_the_bench_maps():
+    """conv1_2 of the largest level keeps K5's 8 x 32 box and conv2_2's
+    392 x 522 map K5's 16 x 16; the smallest level's conv1_2 (256 x 341)
+    takes 32 x 8."""
+    assert conv_kernels.pool_box(784, 1045, 256) == (8, 32)
+    assert conv_kernels.pool_box(392, 522, 256) == (16, 16)
+    assert conv_kernels.pool_box(256, 341, 256) == (32, 8)

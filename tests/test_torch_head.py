@@ -15,6 +15,8 @@ The routing helper against the JAX package's elementwise pool backward is
 exact.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +29,7 @@ from stylemesh_tpu.ops.head_pallas import (conv_relu_pool,
                                            conv_relu_pool_bwd,
                                            conv_relu_pool_dual)
 from stylemesh_tpu_torch.models import vgg as tvgg
+from stylemesh_tpu_torch import kernels
 from stylemesh_tpu_torch.ops import head_kernels
 from test_torch_conv import (_assert_forward, _assert_grad, _bf16, _inputs,
                              _port_layout)
@@ -109,3 +112,21 @@ def test_pool_route_matches_jax_pool_backward():
     want = np.where(r > 0, np.asarray(want.astype(jnp.float32)), 0.0)
     got = head_kernels.pool_route(_bf16(r), _bf16(g))
     np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_bwd_tile_geometry():
+    """K8's dx tile (24 x 32, even, so it holds whole pool windows) and its
+    r region (the tile plus one ring of windows, 28 x 36): the recompute
+    overhead the source note claims, 28 * 36 / (24 * 32) = 1.3125, under
+    1.4 (the WMMA kernel's 8 x 28 tile had 12 * 32 / (8 * 28) = 1.71); the
+    region splits into 4 phase-1 boxes of 7 x 36 = 252 <= 256 pixels; the
+    tile into m64 blocks of two rows of 32."""
+    th, tw = head_kernels.BWD_TILE
+    rh, rw = th + 4, tw + 4
+    assert th % 2 == 0 and tw % 2 == 0
+    assert rh * rw / (th * tw) == 1.3125 <= 1.4
+    assert rh % 4 == 0 and (rh // 4) * rw <= 256
+    assert tw * 2 == 64 and th % 8 == 0
+    note = (Path(kernels.CSRC) / "conv_pool_bwd.cu").read_text()
+    assert "28 * 36 / (24 * 32) = 1.3125" in note
+    assert f"kTH = {th}, kTW = {tw}" in note

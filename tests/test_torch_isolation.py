@@ -53,8 +53,20 @@ def test_port_imports_no_jax():
 
 def test_kernel_sources_present():
     sources = sorted(p.name for p in kernels.CSRC.glob("*.cu"))
-    assert sources == ["conv.cu", "conv_gemm.cu", "gram.cu", "sample.cu"]
+    assert sources == ["conv_gemm.cu", "conv_pool_bwd.cu", "gram.cu",
+                       "sample.cu"]
+    headers = sorted(p.name for p in kernels.CSRC.glob("*.cuh"))
+    assert headers == ["conv_core.cuh"]
     assert "-gencode=arch=compute_90a,code=sm_90a" in kernels.CUDA_FLAGS
+
+
+def test_trunk_kernels_on_the_wgmma_core():
+    """The trunk's conv kernels (K5-K9) share conv_core.cuh's wgmma
+    mainloop; none uses the legacy WMMA fragments."""
+    for name in ("conv_core.cuh", "conv_gemm.cu", "conv_pool_bwd.cu"):
+        text = (kernels.CSRC / name).read_text()
+        assert "wmma" not in text and "mma.h" not in text, name
+        assert "wgmma.mma_async" in text or '#include "conv_core.cuh"' in text
 
 
 def _no_cuda(monkeypatch):

@@ -13,12 +13,11 @@ bf16 values are exact and whose other operations are unfused), splat 1e-5
 (float32 atomics order), Gram sums 1e-4 (float32 sums in another order),
 Gram gradient two bf16 ulps; the trunk's convs K5-K9 1e-2 (about two bf16
 ulps: float32 sums in another order, then one rounding). Between the
-kernels themselves: K9 is K5 without bias and relu bit for bit (one entry);
-K6 is the pool of K7's pre-pool map and K7's pooled map is K6's, bit for
-bit (one WMMA core and epilogue); K7's pre-pool map is K5's within 1e-2
-(K5 is the wgmma core, whose float32 sums run in another order); K8 is the
-backward composed from K7's pre-pool map (the same routing) and K5 with the
-flipped kernel, within the bound stated at its test.
+kernels themselves, bit for bit (one wgmma core, one mainloop, K5's N
+tile): K9 is K5 without bias and relu (one entry); K6 is maxpool2 of K5's
+relu output, K7's pre-pool map is K5's relu output and its pooled map
+K6's; K8 is K5 with the flipped kernel on ``pool_route`` of K5's relu
+output.
 """
 
 import pytest
@@ -232,56 +231,161 @@ def test_conv3x3_edge_shapes(cuda, shape):
            conv_kernels.conv3x3_plain(x, w9, b, True), 1e-2)
 
 
+# the edge shapes, odd H and W at V = 3, and the largest bench level
+POOL_SHAPES = EDGE_SHAPES + [(3, 33, 57), (1, 784, 1045)]
+
+
+def _close_but(got, want, rel, share):
+    """As _close, but up to ``share`` of the elements may lie beyond the
+    tolerance (a pool tie broken the other way by a sum rounded apart)."""
+    scale = want.float().abs().max().item()
+    beyond = ((got.float() - want.float()).abs() > rel * scale).float()
+    assert beyond.mean().item() <= share
+
+
 @pytest.mark.parametrize("c", [64, 128])
-@pytest.mark.parametrize("shape", EDGE_SHAPES)
+@pytest.mark.parametrize("shape", POOL_SHAPES)
 def test_conv_relu_pool_is_pool_of_k5(cuda, c, shape):
-    """K6 equals maxpool2 of K7's pre-pool map, and K7's pooled map K6's,
-    bit for bit (one core, one epilogue); K7's pre-pool map equals K5's
-    relu output within 1e-2 (K5 sums in another order)."""
+    """K6 equals maxpool2 of K5's relu output, K7's pre-pool map equals
+    K5's relu output and its pooled map K6's, bit for bit (one core, K5's
+    N tile, only the pixel box differs); both within 1e-2 of the plain
+    version."""
     x, w9, _, b = _conv_inputs(cuda, *shape, c, c)
     y = conv_kernels.conv3x3(x, w9, b, True)
     pooled = head_kernels.conv_relu_pool(x, w9, b)
     dual, pre = head_kernels.conv_relu_pool(x, w9, b, with_pre=True)
-    assert torch.equal(pooled, head_kernels.maxpool2(pre))
+    assert torch.equal(pooled, head_kernels.maxpool2(y))
+    assert torch.equal(pre, y)
     assert torch.equal(dual, pooled)
-    _close(pre, y, 1e-2)
     _close(pooled, head_kernels.conv_relu_pool_plain(x, w9, b), 1e-2)
 
 
-def _ulps_apart(got, want):
-    """Largest |got - want| in bf16 ulps of the larger magnitude."""
-    got, want = got.float(), want.float()
-    if want.numel() == 0:
-        return 0.0
-    mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    return ((got - want).abs() / ulp).max().item()
-
-
-@pytest.mark.parametrize("shape", EDGE_SHAPES + [(4, 33, 57)])
+@pytest.mark.parametrize("shape", POOL_SHAPES + [(4, 33, 57)])
 def test_conv_relu_pool_bwd(cuda, shape):
-    """K8 against the composed backward built from K7's pre-pool map (K8
-    recomputes it bit for bit, so the pool routing is the same) and K5 with
-    the flipped kernel. The two transposed convs sum the same float32
-    products in different orders before one bf16 rounding, so an element
-    may differ by one bf16 ulp, and by more only where its sum cancels to
-    near zero. Bounds: 1e-2 of the largest value (two ulps of it), and one
-    ulp where the value is at least 1/64 of the largest. Also against its
-    plain version."""
+    """K8 equals the backward composed from K5's relu output (the same
+    routing) and K5 with the flipped kernel, bit for bit: it recomputes
+    the relu output and runs the transposed conv in K5's sum order. Against
+    its plain version within 1e-2, where up to 2e-3 of the elements may
+    differ more (a tie in a pool window broken the other way by a sum
+    rounded apart)."""
     x, w9, w9t, b = _conv_inputs(cuda, *shape, 64, 64)
     v, h, w = shape
     gen = torch.Generator(device=cuda).manual_seed(h * w)
     g = torch.randn((v, h // 2, w // 2, 64), generator=gen,
                     device=cuda).to(torch.bfloat16)
     got = head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g)
-    _, pre = head_kernels.conv_relu_pool(x, w9, b, with_pre=True)
-    composed = conv_kernels.conv3x3(head_kernels.pool_route(pre, g), w9t)
-    _close(got, composed, 1e-2)
-    large = composed.float().abs() >= composed.float().abs().max() / 64
-    assert _ulps_apart(got[large], composed[large]) <= 1.0
+    y = conv_kernels.conv3x3(x, w9, b, True)
+    composed = conv_kernels.conv3x3(head_kernels.pool_route(y, g), w9t)
+    assert torch.equal(got, composed)
     if h >= 2 and w >= 2:
-        _close(got, head_kernels.conv_relu_pool_bwd_plain(x, w9, w9t, b, g),
-               1e-2)
+        _close_but(got, head_kernels.conv_relu_pool_bwd_plain(x, w9, w9t, b, g),
+                   1e-2, 2e-3)
+
+
+@pytest.mark.parametrize("shape", [(2, 30, 70), (3, 25, 33)])
+def test_conv_relu_pool_bwd_ties(cuda, shape):
+    """Many pool windows with equal maxima: x in {0, 1}, the weights in
+    {0, 1/2}, the bias a multiple of 1/2 and g in {-1, 1, 2}, so every sum
+    is exact in float32 in any order. K8 must route each window to its
+    first maximum in raster order as the plain version does: equal bit for
+    bit, with ties in over a tenth of the live windows."""
+    v, h, w = shape
+    gen = torch.Generator(device=cuda).manual_seed(h + w)
+    x = (torch.rand((v, h, w, 64), generator=gen, device=cuda) < 0.3)
+    x = x.to(torch.bfloat16)
+    weight = (torch.rand((64, 64, 3, 3), generator=gen, device=cuda) < 0.1)
+    weight = weight.float() / 2
+    b = torch.randint(-12, 2, (64,), generator=gen, device=cuda).float() / 2
+    w9 = conv_kernels.w9_from_oihw(weight)
+    w9t = conv_kernels.flipped_w9_from_oihw(weight)
+    g = torch.tensor([-1.0, 1.0, 2.0], device=cuda)[torch.randint(
+        0, 3, (v, h // 2, w // 2, 64), generator=gen, device=cuda)]
+    g = g.to(torch.bfloat16)
+    y = conv_kernels.conv3x3(x, w9, b, True)
+    assert torch.equal(y, conv_kernels.conv3x3_plain(x, w9, b, True))
+    q = y[:, :h // 2 * 2, :w // 2 * 2].float().reshape(
+        v, h // 2, 2, w // 2, 2, 64)
+    top = q.amax(dim=(2, 4), keepdim=True)
+    live = top > 0
+    ties = ((q == top) & live).sum(dim=(2, 4)) >= 2
+    assert ties.sum().item() > 0.1 * live.sum().item()
+    got = head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g)
+    assert torch.equal(got, head_kernels.conv_relu_pool_bwd_plain(
+        x, w9, w9t, b, g))
+
+
+def _canary(cuda, shape, guard=4096):
+    """A NaN-filled bf16 buffer with ``guard`` elements before and after a
+    view of ``shape``; returns (buffer, view)."""
+    n = 1
+    for d in shape:
+        n *= d
+    buf = torch.full((n + 2 * guard,), float("nan"), dtype=torch.bfloat16,
+                     device=cuda)
+    return buf, buf[guard:guard + n].view(shape)
+
+
+def _guards_intact(buf, view, guard=4096):
+    torch.cuda.synchronize()
+    assert torch.isnan(buf[:guard]).all()
+    assert torch.isnan(buf[guard + view.numel():]).all()
+    assert torch.isfinite(view).all()
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 31), (2, 9, 65), (1, 17, 261),
+                                   (3, 2, 130)])
+@pytest.mark.parametrize("c", [64, 128])
+def test_conv_relu_pool_writes_only_its_output(cuda, shape, c):
+    """A canary around K6's pooled map and K7's two outputs: every element
+    written (finite, equal to the wrapper's), nothing outside, so no window
+    past the floor of H / 2 or W / 2 and no ragged tile stores out of
+    bounds."""
+    v, h, w = shape
+    x, w9, _, b = _conv_inputs(cuda, v, h, w, c, c, seed=3)
+    want_pooled, want_pre = head_kernels.conv_relu_pool(x, w9, b, with_pre=True)
+    pbuf, pooled = _canary(cuda, (v, h // 2, w // 2, c))
+    head_kernels.launch_conv_relu_pool(x, w9, b, None, pooled)
+    _guards_intact(pbuf, pooled)
+    assert torch.equal(pooled, want_pooled)
+    pbuf, pooled = _canary(cuda, (v, h // 2, w // 2, c))
+    ybuf, pre = _canary(cuda, (v, h, w, c))
+    head_kernels.launch_conv_relu_pool(x, w9, b, pre, pooled)
+    _guards_intact(pbuf, pooled)
+    _guards_intact(ybuf, pre)
+    assert torch.equal(pooled, want_pooled) and torch.equal(pre, want_pre)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 31), (2, 9, 65), (1, 25, 33),
+                                   (3, 2, 130), (1, 49, 97)])
+def test_conv_relu_pool_bwd_writes_only_its_output(cuda, shape):
+    """A canary around K8's dx: every element written, nothing outside (the
+    dx tile's stores are clipped at the map's edge)."""
+    v, h, w = shape
+    x, w9, w9t, b = _conv_inputs(cuda, v, h, w, 64, 64, seed=4)
+    g = torch.randn((v, h // 2, w // 2, 64), device=cuda).to(torch.bfloat16)
+    buf, dx = _canary(cuda, (v, h, w, 64))
+    head_kernels.launch_conv_relu_pool_bwd(x, w9, w9t, b, g, dx)
+    _guards_intact(buf, dx)
+    assert torch.equal(dx, head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g))
+
+
+def test_block_tails_refuse_bad_tiles(cuda):
+    """The block-tail entries take K5's tile for Cout with a box 8, 16 or 32
+    pixels wide (K6/K7) and K8's own dx tile; they refuse any other."""
+    x, w9, w9t, b = _conv_inputs(cuda, 1, 8, 8, 64, 128)
+    y = torch.empty((1, 8, 8, 128), dtype=torch.bfloat16, device=cuda)
+    p = torch.empty((1, 4, 4, 128), dtype=torch.bfloat16, device=cuda)
+    for box_h, box_w, bn in ((4, 64, 128), (8, 16, 128), (16, 16, 96),
+                             (8, 32, 256), (64, 4, 128)):
+        with pytest.raises(RuntimeError, match="failed"):
+            kernels.launch("stylemesh_conv_relu_pool", x.device, x.data_ptr(),
+                           w9.data_ptr(), b.data_ptr(), y.data_ptr(),
+                           p.data_ptr(), 1, 8, 8, 64, 128, 1, box_h, box_w, bn)
+    x, w9, w9t, b = _conv_inputs(cuda, 1, 8, 8, 64, 64)
+    g = torch.zeros((1, 4, 4, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(RuntimeError, match="failed"):
+        head_kernels.launch_conv_relu_pool_bwd(x, w9, w9t, b, g,
+                                               torch.empty_like(x), (16, 32))
 
 
 def test_conv_wrappers_refuse_bad_inputs(cuda):
@@ -295,6 +399,9 @@ def test_conv_wrappers_refuse_bad_inputs(cuda):
     g = torch.zeros((1, 4, 4, 128), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="64"):
         head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g)
+    x, w9, _, b = _conv_inputs(cuda, 1, 8, 8, 64, 256)
+    with pytest.raises(ValueError, match="Cout"):
+        head_kernels.conv_relu_pool(x, w9, b)
 
 
 @pytest.mark.parametrize("cin,cout", [(64, 64), (64, 128), (128, 256),
