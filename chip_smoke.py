@@ -13,7 +13,9 @@ phase fails. Phases:
    pyramid, bf16 VGG trunk on the conv kernels K5-K8, float32 K1/K2, Adam)
    through ``TexturePipeline.prepare_batch`` and ``train_step``; every loss
    must be finite, K1-K8's launch counts over the timed steps above zero,
-   and the profile of a step must show no cuDNN convolution;
+   and the profile of a step must show no cuDNN convolution and no float32
+   Gram (no ``bmm``, no SIMT sgemm but conv1_1's im2col product): every
+   style layer's Gram goes through K3/K4;
 2. reference: a small configuration trained on the card and on the CPU
    (plain versions), float32, losses compared;
 2b. the same small configuration in bf16 (the kernel trunk), the losses of
@@ -51,6 +53,8 @@ phase fails. Phases:
    shapes and inputs, timed with CUDA events beside the plain version and one
    PyTorch library call computing the same function (kernel and library:
    median, min and max of 20 launches after a warm-up; plain: mean of 5),
+   (K3/K4 at every (level, style layer) pair of the bench step, their
+   library call one cuBLAS ``bmm`` over the masked features),
    with its bound on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16)
    and, for the convs, its achieved TFLOP/s; at every K5 and K9 shape, K5
    without bias and relu must equal K9 bit for bit, and at every block-tail
@@ -325,6 +329,28 @@ def profile_step(pipe, state, batch, aux, step_ms):
     if library_convs:
         raise RuntimeError(f"the bf16 step ran library convolutions: {library_convs}")
     log("[profile] no cuDNN convolution in the step")
+    no_float32_grams(prof)
+
+
+def no_float32_grams(prof):
+    """Raise if the profiled bf16 step ran a ``bmm`` (the plain float32
+    masked Gram's product; K3/K4 are no PyTorch op) or a float32 GEMM on
+    the CUDA cores (SIMT sgemm, cuBLAS's ``f32f32`` ffma kernels) from any
+    op but ``mm`` (conv1_1's im2col product, float32 by design)."""
+    bmm = sum(1 for e in prof.events() if e.name == "aten::bmm")
+    sgemm = {}
+    attributed = sum(len(e.kernels) for e in prof.events())
+    if not attributed:
+        raise RuntimeError("the profile attributes no kernel to an op")
+    for e in prof.events():
+        for k in e.kernels:
+            name = k.name.lower()
+            if "sgemm" in name or "gemm_f32f32" in name:
+                sgemm[e.name] = sgemm.get(e.name, 0) + 1
+    log(f"[profile] aten::bmm calls: {bmm}; float32 CUDA-core GEMM launches "
+        f"by op: {sgemm} (of {attributed} kernels attributed to ops)")
+    if bmm or set(sgemm) - {"aten::mm"}:
+        raise RuntimeError("the bf16 step ran a float32 Gram off K3/K4")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1169,11 +1195,16 @@ def kernel_phase(pipe, state, batch, aux, launches):
                 f"mask density {live_px / (v * kk * p):.3f}")
             err = check("K3_gram_fwd", gram_kernels.masked_gram_sums(f, m),
                         gram_kernels.masked_gram_sums_plain(f, m))
+            # cuBLAS yardstick: one batched product over the V K masked
+            # feature maps (made outside the timing)
+            fm = (f[:, None] * m[..., None]).reshape(v * kk, p, c)
+            fk = f[:, None].expand(v, kk, p, c).reshape(v * kk, p, c)
             add("K3_gram_fwd", f"level {i} {k}", err,
                 lambda: gram_kernels.masked_gram_sums(f, m),
                 lambda: gram_kernels.masked_gram_sums_plain(f, m),
-                lambda: torch.einsum("vkp,vpc,vpd->vkcd", m, f, f),
+                lambda: bmm_f32(fm.transpose(1, 2), fk),
                 f.numel() * 2 + m.numel() * 2 + v * kk * c * c * 4, flops)
+            del fm, fk
             gen = torch.Generator(device="cuda").manual_seed(100 + i)
             dg = torch.randn((v, kk, c, c), generator=gen, device="cuda")
             s = dg + dg.transpose(-1, -2)
@@ -1181,11 +1212,16 @@ def kernel_phase(pipe, state, batch, aux, launches):
             err = check("K4_gram_bwd",
                         gram_kernels.masked_gram_sums_grad(f, m, s),
                         gram_kernels.masked_gram_sums_grad_plain(f, m, s))
+            # [m_1 f | m_2 f] [S_1; S_2]: one product, bf16 out
+            fcat = (f[:, None] * m[..., None]).permute(0, 2, 1, 3).reshape(
+                v, p, kk * c)
+            scat = s16.reshape(v, kk * c, c)
             add("K4_gram_bwd", f"level {i} {k}", err,
                 lambda: gram_kernels.masked_gram_sums_grad(f, m, s),
                 lambda: gram_kernels.masked_gram_sums_grad_plain(f, m, s),
-                lambda: torch.einsum("vkp,vkcd,vpd->vpc", m, s16, f),
+                lambda: torch.bmm(fcat, scat),
                 f.numel() * 2 * 2 + m.numel() * 2 + s16.numel() * 2, flops)
+            del fcat, scat
 
     out = []
     for name, spec in KERNELS.items():
@@ -1211,6 +1247,23 @@ def kernel_phase(pipe, state, batch, aux, launches):
     return out
 
 
+def bmm_f32(a, b):
+    """``torch.bmm`` of bf16 operands with a float32 output where the
+    installed torch takes ``out_dtype`` (else bf16, rounding its output)."""
+    if BMM_OUT_DTYPE:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a, b)
+
+
+def bmm_takes_out_dtype():
+    a = torch.zeros((1, 16, 16), dtype=torch.bfloat16, device="cuda")
+    try:
+        torch.bmm(a, a, out_dtype=torch.float32)
+    except TypeError:
+        return False
+    return True
+
+
 def multi_card():
     """``--multi-card``: phase 6 alone, one rank per card (NCCL), on the
     scene of phase 4."""
@@ -1231,13 +1284,17 @@ SASS_KERNELS = {  # kernel -> its instantiations' tags in the mangled name
     "conv_relu_pool_kernel": ("ILi2ELi64ELb0E", "ILi2ELi128ELb0E",
                               "ILi2ELi64ELb1E", "ILi2ELi128ELb1E"),
     "conv_relu_pool_bwd_kernel": ("",),
+    "gram_fwd_kernel": ("ILi1E", "ILi2E"),
+    "gram_bwd_kernel": ("ILi1ELi1E", "ILi2ELi1E", "ILi1ELi2E", "ILi2ELi2E"),
 }
+BMM_OUT_DTYPE = False  # set in main: torch.bmm takes out_dtype
 
 
 def conv_core_sass():
-    """Raise unless every instantiation of the conv core's kernels (K5/K9,
-    K6/K7, K8) in the built library holds warpgroup MMA instructions (HGMMA
-    in its SASS); print their count and shapes per kernel."""
+    """Raise unless every instantiation of the wgmma kernels (K5/K9, K6/K7,
+    K8, K3, K4) in the built library holds warpgroup MMA instructions (HGMMA
+    in its SASS) and no kernel of ``gram.cu`` holds a WMMA ``HMMA``; print
+    their count and shapes per kernel."""
     lib = kernels.BUILD_DIR / f"{kernels.NAME}.so"
     sass = subprocess.run(["cuobjdump", "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
@@ -1252,6 +1309,10 @@ def conv_core_sass():
                 f"({', '.join(sorted(set(found)))})")
             if not bodies or not found:
                 raise RuntimeError(f"{name}{tag}: no HGMMA in its SASS")
+    hmma = [head.split()[0] for head, body in functions
+            if "gram_" in head and re.search(r"\bHMMA\.", body)]
+    if hmma:
+        raise RuntimeError(f"mma.sync (HMMA) left in the Gram kernels: {hmma}")
 
 
 def main(argv):
@@ -1267,6 +1328,9 @@ def main(argv):
     kernels.library()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     conv_core_sass()
+    global BMM_OUT_DTYPE
+    BMM_OUT_DTYPE = bmm_takes_out_dtype()
+    log(f"[build] torch.bmm out_dtype=float32: {BMM_OUT_DTYPE}")
     if argv == ["--multi-card"]:
         multi_card()
         print(smi)

@@ -31,7 +31,7 @@ _SIGNATURES = {
     "stylemesh_splat": [_P, _P, _L, _P, _P, _P, _I, _I, _P],
     "stylemesh_gather_banded": [_P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _P],
     "stylemesh_splat_banded": [_P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _P],
-    "stylemesh_gram_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "stylemesh_gram_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "stylemesh_gram_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "stylemesh_conv3x3": [_P, _P, _P, _P] + [_I] * 9 + [_P],
     "stylemesh_conv_relu_pool": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],

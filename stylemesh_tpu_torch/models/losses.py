@@ -5,9 +5,11 @@
 - An empty pyramid level gets factor 0 and zero masked losses.
 - A batch of V views computes per-view masks, factors and losses and returns
   the mean over views.
-- Style layers of at least ``gram_kernels.MIN_PX`` pixels go, in bf16, to the
-  fused masked-Gram kernels K3/K4 (one feature read for both mask variants);
-  the others stay on the plain masked Gram, as in the JAX package.
+- Style layers of at least ``gram_kernels.MIN_PX`` pixels (every non-empty
+  layer) go, in bf16, to the fused masked-Gram kernels K3/K4 (one feature
+  read for both mask variants); the JAX package keeps layers below 50 000
+  pixels on its einsum (see ``ops/gram_kernels.py``). The float32 loss stays
+  on the plain masked Gram.
 - ``skip_levels`` (levels empty for every view) are neither encoded nor
   scored, and the level factors are normalized over the other levels.
 - ``remat`` recomputes the VGG encode of every level with at least

@@ -9,7 +9,11 @@ bf16 features are multiplied as float32: a bf16 x bf16 product is exact in
 float32, so this is the same function as a bf16 matmul with a float32
 accumulator (the JAX package's ``preferred_element_type=float32``). On the
 card, float32 matmuls run in full float32 (TF32 is off for matmuls by
-default in PyTorch).
+default in PyTorch), on the CUDA cores. So the bf16 loss takes the fused
+kernels K3/K4 of ``ops/gram_kernels.py`` for every style layer, where the
+JAX package keeps layers below 50 000 pixels on this einsum (its TPU kernel
+pads the pixels to 4096-pixel chunks; the port's kernels pad nothing).
+This module serves the float32 loss and the Gram targets.
 """
 
 import torch

@@ -14,19 +14,27 @@ bf16 features and 0/1 masks, float32 accumulation, float32 Grams and a bf16
 gradient, as the TPU kernels. The JAX module pads P and C for the TPU; the
 port takes the unpadded ``[V, P, C]`` features and ``[V, K, P]`` masks.
 The caller divides by the mask counts.
+
+Routing: the bf16 loss sends every style layer here (``MIN_PX = 1``). The
+JAX package keeps layers below 50 000 pixels on its einsum because its
+kernel pads the pixels to chunks of 4096 and that padding would dominate a
+small layer. These kernels pad nothing (TMA's zero fill covers the ragged
+edge), and the alternative here, the plain masked Gram, would multiply
+bf16 features in float32 on the CUDA cores.
 """
 
 import torch
 
 from stylemesh_tpu_torch import kernels
 
-# Style layers below this pixel count stay on the plain einsum (their Gram
-# is cheap), as in the JAX package. Read at call time, so tests may lower it.
-MIN_PX = 50000
+# Style layers of at least this many pixels go to K3/K4 in the bf16 loss:
+# every non-empty one. Read at call time, so tests may change it.
+MIN_PX = 1
 
-_TILE = 64    # kTile in kernels/csrc/gram.cu: C must be a multiple
-_FWD_PX = 32  # kFwdPx: pixels per K3 step; a block's range is a multiple
-_FWD_BLOCKS_PER_SM = 8  # K3 splits the pixels into about this many blocks per SM
+_TILE = 64     # C must be a multiple (kernels/csrc/gram.cu)
+_FWD_PX = 64   # kGramPx: pixels per K3 stage
+_FWD_MIN_TILES = 8        # K3: pixel tiles per split at least
+_FWD_BLOCKS_PER_SM = 2    # K3 splits the pixels into about this many blocks per SM
 
 
 def stack_masks(masks):
@@ -57,23 +65,38 @@ def _check_gram(f, masks):
     kernels.require_cuda(f, masks, dtype=torch.bfloat16)
 
 
+def fwd_splits(v, p, c, sms):
+    """K3's number of pixel ranges: about ``_FWD_BLOCKS_PER_SM`` blocks per
+    SM over the ``v`` views and the Gram's upper tile pairs, each range at
+    least ``_FWD_MIN_TILES`` pixel tiles."""
+    nb = 1 if c == _TILE else 2          # 64 x 64 nb output tiles
+    groups = c // _TILE // nb
+    pairs = nb * groups * (groups + 1) // 2
+    tiles = -(-p // _FWD_PX)
+    want = -(-_FWD_BLOCKS_PER_SM * sms // (v * pairs))
+    return max(1, min(want, tiles // _FWD_MIN_TILES))
+
+
 def masked_gram_sums(f, masks):
     """K3: raw masked Gram sums ``[V, K, C, C]`` float32 of bf16 ``f [V, P, C]``
     under 0/1 bf16 ``masks [V, K, P]``. CPU tensors take the plain version;
     CUDA tensors launch the kernel or raise. Equal to the plain version up to
-    the order of the float32 sums."""
+    the order of the float32 sums; on the card exactly symmetric and the same
+    from run to run (partial sums over pixel ranges, reduced in a fixed
+    order)."""
     if f.device.type == "cpu":
         return masked_gram_sums_plain(f, masks)
     _check_gram(f, masks)
     v, p, c = f.shape
     k = masks.shape[1]
-    out = torch.zeros((v, k, c, c), dtype=torch.float32, device=f.device)
-    sms = torch.cuda.get_device_properties(f.device).multi_processor_count
-    splits = max(1, _FWD_BLOCKS_PER_SM * sms // (v * (c // _TILE) ** 2))
-    px_per_block = -(-p // splits)
-    px_per_block = -(-px_per_block // _FWD_PX) * _FWD_PX
+    out = torch.empty((v, k, c, c), dtype=torch.float32, device=f.device)
+    splits = fwd_splits(v, p, c, torch.cuda.get_device_properties(
+        f.device).multi_processor_count)
+    part = torch.empty((splits * (2 if k == 1 else 1), v, k, c, c),
+                       dtype=torch.float32, device=f.device)
     kernels.launch("stylemesh_gram_fwd", f.device, f.data_ptr(),
-                   masks.data_ptr(), out.data_ptr(), v, k, p, c, px_per_block)
+                   masks.data_ptr(), part.data_ptr(), out.data_ptr(), v, k, p,
+                   c, splits)
     masked_gram_sums.launches += 1
     return out
 

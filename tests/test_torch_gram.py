@@ -70,4 +70,26 @@ def test_stack_masks_layout():
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (3, 2, 20)
     np.testing.assert_array_equal(got.float().numpy(),
                                   np.asarray(want, np.float32)[..., :20])
-    assert gram_kernels.MIN_PX == 50000
+
+
+def test_routing_takes_every_style_layer():
+    """Every style layer of the bench step qualifies for K3/K4, down to r51
+    at its first level (16 x 21 pixels)."""
+    assert gram_kernels.MIN_PX <= 16 * 21
+
+
+@pytest.mark.parametrize("v,p,c", [(4, 336, 512), (4, 819280, 64),
+                                   (4, 12740, 512), (1, 33, 256)])
+def test_fwd_splits_cover_the_pixels(v, p, c):
+    """K3's pixel ranges: at least one, each at least _FWD_MIN_TILES tiles
+    when there are that many, and no more blocks than the card can hold
+    twice over."""
+    sms = 132
+    splits = gram_kernels.fwd_splits(v, p, c, sms)
+    tiles = -(-p // gram_kernels._FWD_PX)
+    assert splits >= 1
+    assert splits == 1 or tiles // splits >= gram_kernels._FWD_MIN_TILES
+    nb = 1 if c == 64 else 2
+    groups = c // 64 // nb
+    blocks = v * nb * groups * (groups + 1) // 2 * splits
+    assert blocks < 2 * gram_kernels._FWD_BLOCKS_PER_SM * sms or splits == 1

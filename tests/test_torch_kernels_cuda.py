@@ -10,7 +10,8 @@ On the card, without JAX installed:
 Tolerances, relative to the plain output's largest value: sampling 1e-5
 (float32, fused multiply-adds; 1e-6 in the bf16 mode, whose products of
 bf16 values are exact and whose other operations are unfused), splat 1e-5
-(float32 atomics order), Gram sums 1e-4 (float32 sums in another order),
+(float32 atomics order), Gram sums 1e-4 (float32 sums in another order;
+exactly symmetric and equal from run to run on the card),
 Gram gradient two bf16 ulps; the trunk's convs K5-K9 1e-2 (about two bf16
 ulps: float32 sums in another order, then one rounding). Between the
 kernels themselves, bit for bit (one wgmma core, one mainloop, K5's N
@@ -171,19 +172,28 @@ def test_sampling_autograd_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("c,k,p", [(64, 1, 1000), (128, 2, 4097),
-                                   (256, 2, 33), (64, 2, 100003)])
+                                   (256, 2, 33), (64, 2, 100003),
+                                   (512, 1, 336), (512, 2, 336),
+                                   (512, 1, 3185), (512, 2, 3185),
+                                   (512, 1, 12740), (512, 2, 12740)])
 def test_masked_gram_sums_and_grad(cuda, c, k, p):
     gen = torch.Generator(device=cuda).manual_seed(c + k + p)
     f = torch.randn((3, p, c), generator=gen, device=cuda).to(torch.bfloat16)
     m = (torch.rand((3, k, p), generator=gen, device=cuda) < 0.5).to(torch.bfloat16)
     m[1] = 0.0  # empty masks: zero Grams, zero gradient rows
-    _close(gram_kernels.masked_gram_sums(f, m),
-           gram_kernels.masked_gram_sums_plain(f, m), 1e-4)
-    assert gram_kernels.masked_gram_sums(f, m)[1].abs().max().item() == 0.0
+    m[0, :, 64:320] = 0.0  # every mask zero over whole pixel tiles
+    m[2, 0, :256] = 0.0    # one mask zero where the other is not
+    sums = gram_kernels.masked_gram_sums(f, m)
+    _close(sums, gram_kernels.masked_gram_sums_plain(f, m), 1e-4)
+    assert not sums[1].any()
+    assert torch.equal(sums, sums.transpose(-1, -2))  # exactly symmetric
+    assert torch.equal(sums, gram_kernels.masked_gram_sums(f, m))  # deterministic
     dg = torch.randn((3, k, c, c), generator=gen, device=cuda)
     s = dg + dg.transpose(-1, -2)
-    _close(gram_kernels.masked_gram_sums_grad(f, m, s),
-           gram_kernels.masked_gram_sums_grad_plain(f, m, s), 2 ** -7)
+    df = gram_kernels.masked_gram_sums_grad(f, m, s)
+    _close(df, gram_kernels.masked_gram_sums_grad_plain(f, m, s), 2 ** -7)
+    assert not df[1].any()
+    assert not df[0, 64:320].any()
 
 
 def test_wrappers_refuse_bad_inputs(cuda):

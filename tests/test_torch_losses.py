@@ -132,3 +132,31 @@ def test_loss_bf16_fused_gram_routing(mode, monkeypatch):
     assert all(m.shape[1] == (2 if mode == "multi" else 1)
                for level in fused for m in level.values())
     _check(r, 2e-2, 1e-1, 2e-2, normwise=True)
+
+
+@pytest.mark.parametrize("mode", ["single", "multi"])
+def test_loss_bf16_default_routing(mode, monkeypatch):
+    """The port's routing as shipped sends every style layer to K3/K4 (here
+    their plain versions), down to the 3 x 4 pixels of r41 at the first
+    level; the JAX package's threshold is lowered so that it takes its fused
+    kernel at every layer too."""
+    monkeypatch.setattr(jlosses, "vgg_features",
+                        lambda params, x, keys, **kw: _jax_accelerator_features(
+                            params, x, list(keys)))
+    monkeypatch.setattr(gram_pallas, "MIN_PX", 1)
+    r = _run(mode, bf16=True)
+    fused = r["aux"]["gram_masks"]
+    assert all(set(level) == {"r11", "r21", "r31", "r41"} for level in fused)
+    _check(r, 2e-2, 1e-1, 2e-2, normwise=True)
+
+
+@pytest.mark.parametrize("mode", ["single", "multi"])
+def test_loss_bf16_fused_small_layers_vs_einsum(mode, monkeypatch):
+    """The port's fused small layers against the JAX package's default
+    routing, which keeps every layer of this size on its einsum."""
+    monkeypatch.setattr(jlosses, "vgg_features",
+                        lambda params, x, keys, **kw: _jax_accelerator_features(
+                            params, x, list(keys)))
+    r = _run(mode, bf16=True)
+    assert all(len(level) == 4 for level in r["aux"]["gram_masks"])
+    _check(r, 2e-2, 1e-1, 2e-2, normwise=True)
