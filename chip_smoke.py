@@ -54,6 +54,7 @@ phase fails. Phases:
    PyTorch library call computing the same function (kernel and library:
    median, min and max of 20 launches after a warm-up; plain: mean of 5),
    (K3/K4 at every (level, style layer) pair of the bench step, their
+   bound counting the features only in pixel tiles with a live mask, their
    library call one cuBLAS ``bmm`` over the masked features),
    with its bound on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16)
    and, for the convs, its achieved TFLOP/s; at every K5 and K9 shape, K5
@@ -1190,7 +1191,11 @@ def kernel_phase(pipe, state, batch, aux, launches):
             _, p, c = f.shape
             kk = m.shape[1]
             live_px = float(m.float().sum())
-            flops = 2.0 * c * c * live_px
+            # what this run's masks need: f is read only in pixel tiles
+            # with a live mask (K3's of 64 pixels, K4's of 128), K4 writes
+            # all of dF, and K3 computes the upper triangle of each Gram
+            fwd_bytes = live_tile_px(m, gram_kernels._FWD_PX) * c * 2
+            bwd_bytes = live_tile_px(m, 128) * c * 2
             log(f"[kernel] level {i} {k}: V={v} P={p} C={c} K={kk} "
                 f"mask density {live_px / (v * kk * p):.3f}")
             err = check("K3_gram_fwd", gram_kernels.masked_gram_sums(f, m),
@@ -1202,8 +1207,10 @@ def kernel_phase(pipe, state, batch, aux, launches):
             add("K3_gram_fwd", f"level {i} {k}", err,
                 lambda: gram_kernels.masked_gram_sums(f, m),
                 lambda: gram_kernels.masked_gram_sums_plain(f, m),
-                lambda: bmm_f32(fm.transpose(1, 2), fk),
-                f.numel() * 2 + m.numel() * 2 + v * kk * c * c * 4, flops)
+                lambda: torch.bmm(fm.transpose(1, 2), fk,
+                                  out_dtype=torch.float32),
+                fwd_bytes + m.numel() * 2 + v * kk * c * c * 4,
+                c * (c + 1) * live_px)
             del fm, fk
             gen = torch.Generator(device="cuda").manual_seed(100 + i)
             dg = torch.randn((v, kk, c, c), generator=gen, device="cuda")
@@ -1220,7 +1227,8 @@ def kernel_phase(pipe, state, batch, aux, launches):
                 lambda: gram_kernels.masked_gram_sums_grad(f, m, s),
                 lambda: gram_kernels.masked_gram_sums_grad_plain(f, m, s),
                 lambda: torch.bmm(fcat, scat),
-                f.numel() * 2 * 2 + m.numel() * 2 + s16.numel() * 2, flops)
+                bwd_bytes + f.numel() * 2 + m.numel() * 2 + s16.numel() * 2,
+                2.0 * c * c * live_px)
             del fcat, scat
 
     out = []
@@ -1247,21 +1255,16 @@ def kernel_phase(pipe, state, batch, aux, launches):
     return out
 
 
-def bmm_f32(a, b):
-    """``torch.bmm`` of bf16 operands with a float32 output where the
-    installed torch takes ``out_dtype`` (else bf16, rounding its output)."""
-    if BMM_OUT_DTYPE:
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.bmm(a, b)
-
-
-def bmm_takes_out_dtype():
-    a = torch.zeros((1, 16, 16), dtype=torch.bfloat16, device="cuda")
-    try:
-        torch.bmm(a, a, out_dtype=torch.float32)
-    except TypeError:
-        return False
-    return True
+def live_tile_px(m, tile):
+    """The pixels, over the views, of the ``tile``-pixel tiles of ``m
+    [V, K, P]`` in which some mask is nonzero (the last tile may be short)."""
+    v, _, p = m.shape
+    n = -(-p // tile)
+    live = F.pad(m.ne(0).any(dim=1).float(), (0, n * tile - p))
+    live = live.reshape(v, n, tile).amax(dim=2)           # [V, n]
+    px = torch.full((n,), float(tile), device=m.device)
+    px[-1] = p - (n - 1) * tile
+    return float((live * px).sum())
 
 
 def multi_card():
@@ -1287,14 +1290,14 @@ SASS_KERNELS = {  # kernel -> its instantiations' tags in the mangled name
     "gram_fwd_kernel": ("ILi1E", "ILi2E"),
     "gram_bwd_kernel": ("ILi1ELi1E", "ILi2ELi1E", "ILi1ELi2E", "ILi2ELi2E"),
 }
-BMM_OUT_DTYPE = False  # set in main: torch.bmm takes out_dtype
 
 
 def conv_core_sass():
     """Raise unless every instantiation of the wgmma kernels (K5/K9, K6/K7,
     K8, K3, K4) in the built library holds warpgroup MMA instructions (HGMMA
     in its SASS) and no kernel of ``gram.cu`` holds a WMMA ``HMMA``; print
-    their count and shapes per kernel."""
+    their count and shapes per kernel, and the Gram kernels' registers and
+    local memory."""
     lib = kernels.BUILD_DIR / f"{kernels.NAME}.so"
     sass = subprocess.run(["cuobjdump", "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
@@ -1313,6 +1316,13 @@ def conv_core_sass():
             if "gram_" in head and re.search(r"\bHMMA\.", body)]
     if hmma:
         raise RuntimeError(f"mma.sync (HMMA) left in the Gram kernels: {hmma}")
+    usage = subprocess.run(["cuobjdump", "-res-usage", str(lib)],
+                           capture_output=True, text=True, check=True).stdout
+    for fn, regs, local in re.findall(
+            r"Function ([^\s:]+):\s*REG:(\d+)[^\n]*?LOCAL:(\d+)", usage):
+        if "gram_" in fn:
+            log(f"[build] {fn}: {regs} registers, {local} bytes of local "
+                f"memory (spills)")
 
 
 def main(argv):
@@ -1328,9 +1338,6 @@ def main(argv):
     kernels.library()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     conv_core_sass()
-    global BMM_OUT_DTYPE
-    BMM_OUT_DTYPE = bmm_takes_out_dtype()
-    log(f"[build] torch.bmm out_dtype=float32: {BMM_OUT_DTYPE}")
     if argv == ["--multi-card"]:
         multi_card()
         print(smi)

@@ -31,9 +31,10 @@
 // from registers. A tile whose masks are all zero issues no product.
 //
 // K3 (per (v, k) a C x C Gram, the contraction over pixels):
-// - Output tiles of 64 rows x N = 64 NB columns (N = 64 at C = 64, else
-//   128). Only tile pairs that hold an upper-triangle element run (row atom
-//   ti <= the last column atom), so C = 512 computes 40 of 64 atoms.
+// - Output tiles of 64 rows x N = 64 NB columns (N = 128 where C is a
+//   multiple of 128, else 64). Only tile pairs that hold an upper-triangle
+//   element run (row atom ti <= the last column atom), so C = 512 computes
+//   40 of 64 atoms.
 // - One shared tile serves both operands: B is the f tile of the N columns
 //   (pixels x channels, N contiguous: wgmma's transpose bit, as the conv
 //   core reads w9), A^T the f tile of the 64 rows, read with ldmatrix.trans
@@ -46,8 +47,8 @@
 //   element to both its places. Chosen over float32 atomics: deterministic,
 //   and G is exactly symmetric (the loss's Grams then are too).
 // K4 (dF = sum_k (m_k f) S_k, M = pixels, contraction over K x C):
-// - Tiles of 128 pixels (an m64 block per consumer warpgroup) x N = 64 or
-//   128 output channels, N fastest; a persistent grid, one block per SM.
+// - Tiles of 128 pixels (an m64 block per consumer warpgroup) x N output
+//   channels (as K3's N), N fastest; a persistent grid, one block per SM.
 // - A stage holds one f box (128 pixels x 64 channels, K-major as stored)
 //   and the matching 64 rows of every S_k with a live mask (64 x N, N
 //   contiguous, transpose bit; S is symmetric). The f fragment is loaded
@@ -615,7 +616,7 @@ extern "C" int stylemesh_gram_fwd(const void* f, const void* m, void* part,
   const int slots = splits * (K == 1 ? 2 : 1);
   if (P == 0)
     return (int)cudaMemsetAsync(out, 0, (size_t)V * K * C * C * 4, st);
-  int status = C == 64 ? launch_fwd<1>(f, m, (float*)part, V, K, P, C, splits, st)
+  int status = C % 128 ? launch_fwd<1>(f, m, (float*)part, V, K, P, C, splits, st)
                        : launch_fwd<2>(f, m, (float*)part, V, K, P, C, splits, st);
   if (status != 0) return status;
   const int nt = C / 32;
@@ -631,7 +632,7 @@ extern "C" int stylemesh_gram_bwd(const void* f, const void* m, const void* s,
   if (C % 64 != 0 || (K != 1 && K != 2)) return (int)cudaErrorInvalidValue;
   if (V == 0 || P == 0 || C == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (C == 64)
+  if (C % 128)
     return K == 1 ? launch_bwd<1, 1>(f, m, s, df, V, P, C, st)
                   : launch_bwd<2, 1>(f, m, s, df, V, P, C, st);
   return K == 1 ? launch_bwd<1, 2>(f, m, s, df, V, P, C, st)

@@ -69,7 +69,7 @@ def fwd_splits(v, p, c, sms):
     """K3's number of pixel ranges: about ``_FWD_BLOCKS_PER_SM`` blocks per
     SM over the ``v`` views and the Gram's upper tile pairs, each range at
     least ``_FWD_MIN_TILES`` pixel tiles."""
-    nb = 1 if c == _TILE else 2          # 64 x 64 nb output tiles
+    nb = 1 if c % (2 * _TILE) else 2     # 64 x 64 nb output tiles
     groups = c // _TILE // nb
     pairs = nb * groups * (groups + 1) // 2
     tiles = -(-p // _FWD_PX)

@@ -79,7 +79,8 @@ def test_routing_takes_every_style_layer():
 
 
 @pytest.mark.parametrize("v,p,c", [(4, 336, 512), (4, 819280, 64),
-                                   (4, 12740, 512), (1, 33, 256)])
+                                   (4, 12740, 512), (1, 33, 256),
+                                   (2, 5000, 192)])
 def test_fwd_splits_cover_the_pixels(v, p, c):
     """K3's pixel ranges: at least one, each at least _FWD_MIN_TILES tiles
     when there are that many, and no more blocks than the card can hold
@@ -89,7 +90,7 @@ def test_fwd_splits_cover_the_pixels(v, p, c):
     tiles = -(-p // gram_kernels._FWD_PX)
     assert splits >= 1
     assert splits == 1 or tiles // splits >= gram_kernels._FWD_MIN_TILES
-    nb = 1 if c == 64 else 2
+    nb = 1 if c % 128 else 2  # 64-wide column groups unless C % 128 == 0
     groups = c // 64 // nb
     blocks = v * nb * groups * (groups + 1) // 2 * splits
     assert blocks < 2 * gram_kernels._FWD_BLOCKS_PER_SM * sms or splits == 1

@@ -171,11 +171,14 @@ def test_sampling_autograd_matches_cpu(cuda):
     _close(results[1], results[0], 1e-5)
 
 
+# C = 192 and 320 take 64-wide column groups, as C = 64 does
 @pytest.mark.parametrize("c,k,p", [(64, 1, 1000), (128, 2, 4097),
                                    (256, 2, 33), (64, 2, 100003),
                                    (512, 1, 336), (512, 2, 336),
                                    (512, 1, 3185), (512, 2, 3185),
-                                   (512, 1, 12740), (512, 2, 12740)])
+                                   (512, 1, 12740), (512, 2, 12740),
+                                   (192, 1, 3000), (192, 2, 1000),
+                                   (320, 2, 777)])
 def test_masked_gram_sums_and_grad(cuda, c, k, p):
     gen = torch.Generator(device=cuda).manual_seed(c + k + p)
     f = torch.randn((3, p, c), generator=gen, device=cuda).to(torch.bfloat16)
