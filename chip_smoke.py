@@ -12,10 +12,16 @@ phase fails. Phases:
    V = 4 views, content 256x341, UV levels 256..784 px high, multi style
    pyramid, bf16 VGG trunk on the conv kernels K5-K8, float32 K1/K2, Adam)
    through ``TexturePipeline.prepare_batch`` and ``train_step``; every loss
-   must be finite, K1-K8's launch counts over the timed steps above zero,
+   must be finite, K1-K8's launch counts over the timed steps above zero
+   and K1's and K2's one a step (one launch over all pyramid levels each),
    and the profile of a step must show no cuDNN convolution and no float32
    Gram (no ``bmm``, no SIMT sgemm but conv1_1's im2col product): every
-   style layer's Gram goes through K3/K4;
+   style layer's Gram goes through K3/K4; a profile of ``loss_fn`` and
+   ``torch.autograd.grad`` alone (no Adam) with the ops' input shapes must
+   show one K1 and one K2 launch, at most one fill of each texture layer
+   (K2's zeroed gradient), and no float32 add of texture-layer-shaped
+   tensors but the one per layer that joins the regularizer's gradient to
+   K2's;
 2. reference: a small configuration trained on the card and on the CPU
    (plain versions), float32, losses compared;
 2b. the same small configuration in bf16 (the kernel trunk), the losses of
@@ -24,8 +30,8 @@ phase fails. Phases:
    256..784) written to a temporary directory, trained by the port's CLI
    (``--preset scannet_full --bfloat16``: K1/K2 in their bf16 mode, the
    kernel trunk) for one epoch of batches of 4 views repeated twice; the
-   losses must be finite, ``texture.npz`` written, and K1/K2's bf16 mode,
-   K3-K8 launched;
+   losses must be finite, ``texture.npz`` written, K1/K2's bf16 mode
+   launched once each a train step, and K3-K8 launched;
 5. K9: the same CLI call with ``STYLEMESH_CONV_FLIPVJP=0
    STYLEMESH_FAST_CONV=1`` (the unfused trunk), one step per batch; K9 must
    be launched and K5-K8 not, and the profile of a bench step under the same
@@ -38,7 +44,7 @@ phase fails. Phases:
    multi-card numbers:
    [atlas] ``--shard_atlas`` over 2 ranks, in the CLI's bf16 K1/K2 mode and
    again with ``--kernel_compute f32``: every rank must launch the banded
-   K1/K2 of its mode and no unbanded K1/K2 in its train steps, the first
+   K1/K2 of its mode once a train step and no unbanded K1/K2, the first
    step's losses must lie within 1e-4 relative of the one-rank run's, and
    the exported texture must have the full shapes and be finite;
    [dp] ``--data_parallel`` over 2 ranks, the first step's losses within
@@ -61,14 +67,19 @@ phase fails. Phases:
    without bias and relu must equal K9 bit for bit, and at every block-tail
    shape K6 must equal maxpool2 of K5's relu output, K7's maps K5's output
    and K6's, and K8 K5 with the flipped kernel on the routed cotangent, bit
-   for bit; the banded K1/K2 for the 4 bands of D = 4
-   (each against its plain version, their sum against the unbanded K1/K2),
-   timed for rank 0's band of D = 2.
+   for bit; K1/K2 (both modes) and the banded K1/K2 for the 4 bands of
+   D = 4 at each level alone (each against its plain version, the bands'
+   sum against the unbanded K1/K2), then all of them at step level, as the
+   main path calls them: one launch over the 4 levels each, against their
+   plain versions, timed (K2 with its zero fill; the banded forms for rank
+   0's bands of D = 2).
 
 The last two lines of standard output are the ``{"kernels": [...]}`` JSON
 line and the ``{"ok": true, "device": ...}`` JSON line.
 """
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -107,17 +118,17 @@ BWD_SRC = "stylemesh_tpu_torch/kernels/csrc/conv_pool_bwd.cu"
 KERNELS = {  # launches: (wrapper, attribute holding its launch count)
     "K1_gather": dict(source="stylemesh_tpu_torch/kernels/csrc/sample.cu",
                       replaces="stylemesh_tpu/ops/splat_pallas.py:486",
-                      launches=(gs.gather_layers, "launches"), rel_tol=1e-5),
+                      launches=(gs.gather_levels, "launches"), rel_tol=1e-5),
     "K1_gather_bf16": dict(source="stylemesh_tpu_torch/kernels/csrc/sample.cu",
                            replaces="stylemesh_tpu/ops/splat_pallas.py:486",
-                           launches=(gs.gather_layers, "bf16_launches"),
+                           launches=(gs.gather_levels, "bf16_launches"),
                            rel_tol=1e-5),
     "K2_splat": dict(source="stylemesh_tpu_torch/kernels/csrc/sample.cu",
                      replaces="stylemesh_tpu/ops/splat_pallas.py:421",
-                     launches=(gs.splat_layers, "launches"), rel_tol=1e-4),
+                     launches=(gs.splat_levels, "launches"), rel_tol=1e-4),
     "K2_splat_bf16": dict(source="stylemesh_tpu_torch/kernels/csrc/sample.cu",
                           replaces="stylemesh_tpu/ops/splat_pallas.py:421",
-                          launches=(gs.splat_layers, "bf16_launches"),
+                          launches=(gs.splat_levels, "bf16_launches"),
                           rel_tol=1e-4),
     "K3_gram_fwd": dict(source="stylemesh_tpu_torch/kernels/csrc/gram.cu",
                         replaces="stylemesh_tpu/ops/gram_pallas.py:140",
@@ -149,17 +160,17 @@ KERNELS = {  # launches: (wrapper, attribute holding its launch count)
     # the banded form, reached through grid_sample.py::grid_sample_banded_cf
     "K1_gather_banded": dict(
         source=SAMPLE_SRC, replaces="stylemesh_tpu/ops/grid_sample.py:185",
-        launches=(gs.gather_layers_banded, "banded_launches"), rel_tol=1e-5),
+        launches=(gs.gather_levels_banded, "banded_launches"), rel_tol=1e-5),
     "K1_gather_banded_bf16": dict(
         source=SAMPLE_SRC, replaces="stylemesh_tpu/ops/grid_sample.py:185",
-        launches=(gs.gather_layers_banded, "banded_bf16_launches"),
+        launches=(gs.gather_levels_banded, "banded_bf16_launches"),
         rel_tol=1e-5),
     "K2_splat_banded": dict(
         source=SAMPLE_SRC, replaces="stylemesh_tpu/ops/grid_sample.py:210",
-        launches=(gs.splat_layers_banded, "banded_launches"), rel_tol=1e-4),
+        launches=(gs.splat_levels_banded, "banded_launches"), rel_tol=1e-4),
     "K2_splat_banded_bf16": dict(
         source=SAMPLE_SRC, replaces="stylemesh_tpu/ops/grid_sample.py:210",
-        launches=(gs.splat_layers_banded, "banded_bf16_launches"),
+        launches=(gs.splat_levels_banded, "banded_bf16_launches"),
         rel_tol=1e-4),
 }
 # the kernels each driven path must launch
@@ -295,12 +306,17 @@ def main_path():
         log(f"[main] {name}: {counts[name]} launches in {STEPS} steps")
         if counts[name] == 0:
             raise RuntimeError(f"{name} was not launched on the main path")
+    for name in ("K1_gather", "K2_splat"):  # one launch over all levels
+        if counts[name] != STEPS:
+            raise RuntimeError(f"{name}: {counts[name]} launches in {STEPS} "
+                               f"steps, not one a step")
     result = dict(step_ms=wall / STEPS * 1e3,
                   views_per_s=STEPS * batch.num_views / wall,
                   prepare_batch_ms=prepare_ms,
                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     log("[main] " + json.dumps(result))
     profile_step(pipe, state, batch, aux, result["step_ms"])
+    profile_loss_grad(pipe, state, batch, aux)
     return pipe, state, batch, aux, counts
 
 
@@ -331,6 +347,70 @@ def profile_step(pipe, state, batch, aux, step_ms):
         raise RuntimeError(f"the bf16 step ran library convolutions: {library_convs}")
     log("[profile] no cuDNN convolution in the step")
     no_float32_grams(prof)
+
+
+FILL_OPS = ("aten::fill_", "aten::zero_")
+ADD_OPS = ("aten::add", "aten::add_")
+
+
+def profile_loss_grad(pipe, state, batch, aux):
+    """Profile ``loss_fn`` and ``torch.autograd.grad`` of the bench step
+    (no Adam, whose in-place updates are layer-shaped) with the ops' input
+    shapes. Raise unless K1 and K2 were launched once each, no texture layer
+    was filled more than once (K2's zeroed gradient), and no float32 add
+    took texture-layer-shaped inputs but autograd's one per layer that joins
+    the regularizer's gradient to K2's (none when the regularizer is off):
+    the levels' gradients are summed inside K2. Logs the fills, adds and
+    launches it saw."""
+    from torch.profiler import ProfilerActivity, profile
+
+    layers = list(state.texture.layers)
+    shapes = [tuple(l.shape) for l in layers]
+    allowed_adds = 1 if pipe.config.tex_reg_weight > 0 else 0
+    torch.cuda.synchronize()
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        total, _, _ = pipe.loss_fn(state.texture, batch, aux, state.gram_cache)
+        torch.autograd.grad(total, layers)
+        torch.cuda.synchronize()
+    counts = read_counts()
+
+    def layer_shape(e):
+        return next((tuple(x) for x in e.input_shapes if tuple(x) in shapes),
+                    None)
+
+    def outermost(e, names):
+        p = e.cpu_parent
+        while p is not None:
+            if p.name in names:
+                return False
+            p = p.cpu_parent
+        return True
+
+    fills = {sh: 0 for sh in shapes}
+    adds = {sh: 0 for sh in shapes}
+    for e in prof.events():
+        sh = layer_shape(e)
+        if sh is None:
+            continue
+        if e.name in FILL_OPS and outermost(e, FILL_OPS):
+            fills[sh] += 1
+        elif e.name in ADD_OPS:
+            adds[sh] += 1
+    for sh in shapes:
+        log(f"[loss_grad] layer {sh}: {fills[sh]} fills, {adds[sh]} float32 "
+            f"adds (allowed {allowed_adds}: the regularizer's gradient)")
+    log(f"[loss_grad] K1 {counts['K1_gather']} launches, K2 "
+        f"{counts['K2_splat']} launches in one loss_fn + autograd.grad")
+    if counts["K1_gather"] != 1 or counts["K2_splat"] != 1:
+        raise RuntimeError("loss_fn + autograd.grad did not launch K1 and K2 "
+                           "once each")
+    if any(n > 1 for n in fills.values()):
+        raise RuntimeError(f"more than one fill of a texture layer: {fills}")
+    if any(n > allowed_adds for n in adds.values()):
+        raise RuntimeError(f"layer-shaped float32 adds of the levels' "
+                           f"gradients: {adds}")
 
 
 def no_float32_grams(prof):
@@ -496,20 +576,26 @@ def run_result(tag, log_dir, exports=("texture.npz",)):
 
 
 def cli_run(tag, root, style, index_repeat, required, forbidden=(), extra=(),
-            preset="scannet_full", exports=("texture.npz",)):
+            preset="scannet_full", exports=("texture.npz",),
+            per_step=("gather_bf16", "splat_bf16")):
     """One CLI training run on the scene, on one rank in this process; the
     launch counts of this run alone (set to 0 just before it, read just
-    after)."""
+    after), and the run's closing line (``train``): its train steps must
+    launch each sampling kernel of ``per_step`` once a step."""
     argv = cli_argv(tag, root, style, index_repeat, extra, preset)
     log(f"[{tag}] python -m stylemesh_tpu_torch.cli " + " ".join(argv))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    state, log_dir = cli.main(argv)
+    out = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(out):
+        state, log_dir = cli.main(argv)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = read_counts()
+    (rank_line,) = rank_lines(out.getvalue()).values()
+    check_ranks(tag, {0: rank_line}, per_step, ())
     result = run_result(tag, log_dir, exports)
     result.update(state_step=state.step, wall_s=wall_s,
                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -523,7 +609,19 @@ def cli_run(tag, root, style, index_repeat, required, forbidden=(), extra=(),
         if counts[name] != 0:
             raise RuntimeError(f"[{tag}] {name} was launched {counts[name]} times")
     return dict(counts=counts, steps=result["steps"], log_dir=log_dir,
-                state=state)
+                state=state, train=rank_line)
+
+
+class _Tee(io.StringIO):
+    """Keeps what is written and passes it on to ``out``."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+    def write(self, text):
+        self.out.write(text)
+        return super().write(text)
 
 
 def conv1_1_only(prof):
@@ -587,8 +685,11 @@ def run_loop_phases(pipe, state, batch, aux):
         log(f"[run] scene written in {time.perf_counter() - t0:.3f} s")
         run = cli_run("run", root, style, 2, RUN_KERNELS,
                       forbidden=("K9_conv3x3_mxu",))
-        launches = {k: (run["counts"][k], run["counts"][k] / run["steps"])
-                    for k in ("K1_gather_bf16", "K2_splat_bf16")}
+        train = run["train"]
+        launches = {k: (run["counts"][k], train["train_launches"][key]
+                        / train["train_steps"])
+                    for k, key in (("K1_gather_bf16", "gather_bf16"),
+                                   ("K2_splat_bf16", "splat_bf16"))}
         os.environ.update(K9_ENV)
         try:
             run = cli_run("k9", root, style, 1, ("K9_conv3x3_mxu",),
@@ -637,13 +738,18 @@ def torchrun(tag, argv, nproc):
     if proc.returncode != 0:
         log(out[-6000:])
         raise RuntimeError(f"[{tag}] exited with {proc.returncode}")
-    decoder = json.JSONDecoder()
-    ranks = {int(m.group(1)): decoder.raw_decode(out, m.end())[0]
-             for m in RANK_LINE.finditer(out)}
+    ranks = rank_lines(out)
     if sorted(ranks) != list(range(nproc)):
         raise RuntimeError(f"[{tag}] closing lines of ranks {sorted(ranks)}")
     log(f"[{tag}] {nproc} ranks in {wall_s:.3f} s")
     return ranks
+
+
+def rank_lines(out):
+    """Each rank's closing JSON line in a run's output, by rank."""
+    decoder = json.JSONDecoder()
+    return {int(m.group(1)): decoder.raw_decode(out, m.end())[0]
+            for m in RANK_LINE.finditer(out)}
 
 
 def compare_first_step(tag, log_dir, ref_losses, rtol=1e-4, key_map=None):
@@ -658,20 +764,29 @@ def compare_first_step(tag, log_dir, ref_losses, rtol=1e-4, key_map=None):
 
 def check_ranks(tag, ranks, launched, not_launched):
     """Each rank on a card, over NCCL when every rank has a card of its own
-    and gloo otherwise; the kernels it launched in its train steps."""
+    and gloo otherwise (a single rank: no backend); the sampling kernels it
+    launched in its train steps: each of ``launched`` once a step, and a
+    gather launch for every splat launch of each mode."""
     backend = ("nccl" if len(ranks) <= torch.cuda.device_count() else "gloo")
     for r, line in sorted(ranks.items()):
-        counts = line["train_launches"]
-        if line["backend"] != backend or not line["device"].startswith("cuda"):
+        counts, steps = line["train_launches"], line["train_steps"]
+        if (len(ranks) > 1 and line["backend"] != backend
+                or not line["device"].startswith("cuda")):
             raise RuntimeError(f"[{tag}] rank {r} ran on {line}, "
                                f"expected {backend}")
         for k in launched:
-            if counts[k] == 0:
-                raise RuntimeError(f"[{tag}] rank {r} did not launch {k}")
+            if counts[k] != steps:
+                raise RuntimeError(f"[{tag}] rank {r} launched {k} "
+                                   f"{counts[k]} times in {steps} steps")
         for k in not_launched:
             if counts[k] != 0:
                 raise RuntimeError(f"[{tag}] rank {r} launched {k} "
                                    f"{counts[k]} times")
+        for k in counts:
+            if k.startswith("splat") and counts[k] != counts[
+                    k.replace("splat", "gather")]:
+                raise RuntimeError(f"[{tag}] rank {r}: {counts}, not one "
+                                   f"gather launch per splat launch")
 
 
 def check_export(tag, log_dir, ref_dir):
@@ -757,7 +872,8 @@ def multi_device_phases(root, style, nproc=2):
     styles = extra_styles(root, max(nproc - 1, 1))
     sweep = cli_run("multistyle", root, style, 1, RUN_KERNELS,
                     extra=["--style_image_path", styles[0]],
-                    exports=("texture_style0.npz", "texture_style1.npz"))
+                    exports=("texture_style0.npz", "texture_style1.npz"),
+                    per_step=())  # a launch of each per style and step
     compare_first_step("multistyle", sweep["log_dir"],
                        {"total": ref["total"]},
                        key_map={"total": "total_style0"})
@@ -847,59 +963,102 @@ def bands_of(layers, rank, d):
     return bands, row0s, heights
 
 
-def banded_kernels(where, layers, grid, g, add):
-    """The banded K1/K2 at one pyramid level, in both modes: for D = 4 each
-    band against its plain version, the bands' partials summed against the
-    unbanded K1 and their gradients stacked against the unbanded K2; then
-    rank 0's band of D = 2, timed."""
+def banded_checks(where, layers, grid, g, note):
+    """The banded K1/K2 at one pyramid level, in both modes, for the 4 bands
+    of D = 4: each band against its plain version, the bands' partials
+    summed against the unbanded K1 and their gradients stacked against the
+    unbanded K2."""
     shapes = [tuple(l.shape[:2]) for l in layers]
-    npx = grid.numel() // 2
-    f32_ms = {}
     for compute, k1, k2 in (("f32", "K1_gather_banded", "K2_splat_banded"),
                             ("bf16", "K1_gather_banded_bf16",
                              "K2_splat_banded_bf16")):
-        errs = {k1: [], k2: []}
         total, parts = 0, [[] for _ in layers]
         for b in range(4):
             bands, row0s, heights = bands_of(layers, b, 4)
             bshapes = [tuple(x.shape[:2]) for x in bands]
             out = gs.gather_layers_banded(bands, grid, row0s, heights, compute)
-            errs[k1].append(check(k1, out, gs.gather_layers_banded_plain(
+            note(k1, check(k1, out, gs.gather_layers_banded_plain(
                 bands, grid, row0s, heights, compute), f"{where} band {b} of 4"))
             total = total + out
             grads = gs.splat_layers_banded(g, grid, bshapes, row0s, heights,
                                            compute)
-            errs[k2].append(check(k2, grads, gs.splat_layers_banded_plain(
+            note(k2, check(k2, grads, gs.splat_layers_banded_plain(
                 g, grid, bshapes, row0s, heights, compute),
                 f"{where} band {b} of 4"))
             for acc, x in zip(parts, grads):
                 acc.append(x)
-        errs[k1].append(check(k1, total, gs.gather_layers(layers, grid, compute),
-                              f"{where} 4 bands summed vs K1"))
-        errs[k2].append(check(k2, [torch.cat(p) for p in parts],
-                              gs.splat_layers(g, grid, shapes, compute),
-                              f"{where} 4 bands stacked vs K2"))
+        note(k1, check(k1, total, gs.gather_layers(layers, grid, compute),
+                       f"{where} 4 bands summed vs K1"))
+        note(k2, check(k2, [torch.cat(p) for p in parts],
+                       gs.splat_layers(g, grid, shapes, compute),
+                       f"{where} 4 bands stacked vs K2"))
         del total, parts
-        bands, row0s, heights = bands_of(layers, 0, 2)
-        bshapes = [tuple(x.shape[:2]) for x in bands]
-        at = f"{where} rank 0 of 2"
-        for name, fn, plain, nbytes in (
-                (k1, lambda: gs.gather_layers_banded(bands, grid, row0s, heights,
-                                                     compute),
-                 lambda: gs.gather_layers_banded_plain(bands, grid, row0s,
-                                                       heights, compute),
-                 npx * (8 + 12) + 12 * touched_texels(grid, bands, row0s,
-                                                      heights)),
-                (k2, lambda: gs.splat_layers_banded(g, grid, bshapes, row0s,
-                                                    heights, compute),
-                 lambda: gs.splat_layers_banded_plain(g, grid, bshapes, row0s,
-                                                      heights, compute),
-                 npx * (12 + 8) + 12 * sum(a * b for a, b in bshapes))):
-            err_tol = (max(e for e, _ in errs[name]),
-                       max(t for _, t in errs[name]))
-            ms = add(name, at, err_tol, fn, plain, None, nbytes,
-                     f32_mode_ms=None if compute == "f32" else f32_ms[name[:2]])
-            f32_ms[name[:2]] = ms if compute == "f32" else f32_ms[name[:2]]
+
+
+def sampling_step(layers, grids, cots, add):
+    """K1/K2 as the main path calls them, one launch over the step's levels:
+    held against their plain versions and timed in both modes, unbanded and
+    for rank 0's bands of D = 2. The yardsticks: ``F.grid_sample`` of every
+    layer at every level (K1), one ``torch.autograd.grad`` over all the
+    levels' ``F.grid_sample`` renders with PyTorch's accumulation of the
+    levels' gradients (K2). Bounds: K1 the grids, outputs and touched
+    texels; K2 the grids, cotangents and the dense gradient written once."""
+    where = f"step, {len(grids)} levels"
+    shapes = [tuple(l.shape[:2]) for l in layers]
+    npx = sum(g.numel() // 2 for g in grids)
+    layers_cf = [l.permute(2, 0, 1)[None] for l in layers]
+    opts = dict(mode="bilinear", padding_mode="border", align_corners=True)
+
+    def library_gather():
+        return [sum(F.grid_sample(x.expand(g.shape[0], -1, -1, -1), g, **opts)
+                    for x in layers_cf) for g in grids]
+
+    leaves = [x.detach().requires_grad_() for x in layers_cf]
+    lib_renders = [sum(F.grid_sample(x.expand(g.shape[0], -1, -1, -1), g,
+                                     **opts) for x in leaves) for g in grids]
+    lib_cots = [c.permute(0, 3, 1, 2) for c in cots]
+
+    def library_splat():
+        return torch.autograd.grad(lib_renders, leaves, lib_cots,
+                                   retain_graph=True)
+
+    bands, row0s, heights = bands_of(layers, 0, 2)
+    bshapes = [tuple(x.shape[:2]) for x in bands]
+    runs = (
+        ("", "unbanded", shapes,
+         lambda c: gs.gather_levels(layers, grids, c),
+         lambda c: gs.gather_levels_plain(layers, grids, c),
+         lambda c: gs.splat_levels(cots, grids, shapes, c),
+         lambda c: gs.splat_levels_plain(cots, grids, shapes, c),
+         sum(touched_texels(g, layers) for g in grids)),
+        ("_banded", "rank 0 of 2", bshapes,
+         lambda c: gs.gather_levels_banded(bands, grids, row0s, heights, c),
+         lambda c: gs.gather_levels_banded_plain(bands, grids, row0s, heights,
+                                                 c),
+         lambda c: gs.splat_levels_banded(cots, grids, bshapes, row0s, heights,
+                                          c),
+         lambda c: gs.splat_levels_banded_plain(cots, grids, bshapes, row0s,
+                                                heights, c),
+         sum(touched_texels(g, bands, row0s, heights) for g in grids)))
+    for suffix, at, tshapes, gather, gather_plain, splat, splat_plain, \
+            touched in runs:
+        f32_ms = {}
+        for compute in ("f32", "bf16"):
+            mode = "" if compute == "f32" else "_bf16"
+            lib = compute == "f32" and not suffix
+            for k, fn, plain, library, nbytes in (
+                    (f"K1_gather{suffix}{mode}", gather, gather_plain,
+                     library_gather, npx * (8 + 12) + 12 * touched),
+                    (f"K2_splat{suffix}{mode}", splat, splat_plain,
+                     library_splat,
+                     npx * (12 + 8) + 12 * sum(a * b for a, b in tshapes))):
+                err = check(k, fn(compute), plain(compute), f"{where} {at}")
+                ms = add(k, f"{where} {at}", err, lambda f=fn, c=compute: f(c),
+                         lambda f=plain, c=compute: f(c),
+                         library if lib else None, nbytes,
+                         f32_mode_ms=f32_ms.get(k[:2]))
+                f32_ms.setdefault(k[:2], ms)
+    del lib_renders, leaves
 
 
 def cotangent(like, mask=None, seed=0):
@@ -1118,64 +1277,38 @@ def kernel_phase(pipe, state, batch, aux, launches):
             f"{b_ms:.4f} by {b_by}), plain {plain_ms:.4f}, {other}{rate}")
         return ms
 
+    def note(name, err_tol):
+        """Record a check's error of a kernel timed elsewhere."""
+        r = rows[name]
+        r["err"] = max(r["err"], err_tol[0])
+        r["tol"] = max(r["tol"], err_tol[1])
+
     layers = [l.detach() for l in state.texture.layers]
     shapes = [tuple(l.shape[:2]) for l in layers]
-    layers_cf = [l.permute(2, 0, 1)[None] for l in layers]
+    cots = []
     for i, grid in enumerate(batch.uv):
         v, h, w, _ = grid.shape
-        npx = v * h * w
         with torch.no_grad():
             pred = sample_texture(state.texture, grid)
         trunk_kernels(f"level {i}", pipe, pred, add)
         k9_kernels(f"level {i}", pipe, pred, add)
-        # K1: the sum over layers of the bilinear sample
-        lib_in = [l.expand(v, -1, -1, -1) for l in layers_cf]
-
-        def library_gather():
-            return sum(F.grid_sample(x, grid, mode="bilinear",
-                                     padding_mode="border", align_corners=True)
-                       for x in lib_in)
-
-        err = check("K1_gather", gs.gather_layers(layers, grid),
-                    gs.gather_layers_plain(layers, grid))
-        gather_bytes = npx * (8 + 12) + 12 * touched_texels(grid, layers)
-        k1_ms = add("K1_gather", f"level {i}", err,
-                    lambda: gs.gather_layers(layers, grid),
-            lambda: gs.gather_layers_plain(layers, grid),
-            library_gather, gather_bytes)
-        err = check("K1_gather_bf16", gs.gather_layers(layers, grid, "bf16"),
-                    gs.gather_layers_plain_bf16(layers, grid))
-        add("K1_gather_bf16", f"level {i}", err,
-            lambda: gs.gather_layers(layers, grid, "bf16"),
-            lambda: gs.gather_layers_plain_bf16(layers, grid),
-            None, gather_bytes, f32_mode_ms=k1_ms)
-        # K2: cotangent zero where the level's gradient weight is zero, as on
-        # the main path
+        # K1 / K2 at this level alone, checked; timed at step level below.
+        # The cotangent is zero where the level's gradient weight is zero, as
+        # on the main path.
         gen = torch.Generator(device="cuda").manual_seed(i)
         g = torch.randn((v, h, w, 3), generator=gen, device="cuda")
         g = (g * aux.grad_weights[i]).contiguous()
-        err = check("K2_splat", gs.splat_layers(g, grid, shapes),
-                    gs.splat_layers_plain(g, grid, shapes))
-        lib_leaf = [x.detach().requires_grad_() for x in lib_in]
-        lib_out = sum(F.grid_sample(x, grid, mode="bilinear",
-                                    padding_mode="border", align_corners=True)
-                      for x in lib_leaf)
-        g_cf = g.permute(0, 3, 1, 2)
-        splat_bytes = npx * (12 + 8) + 12 * sum(a * b for a, b in shapes)
-        k2_ms = add("K2_splat", f"level {i}", err,
-                    lambda: gs.splat_layers(g, grid, shapes),
-            lambda: gs.splat_layers_plain(g, grid, shapes),
-            lambda: torch.autograd.grad(lib_out, lib_leaf, g_cf,
-                                                retain_graph=True),
-            splat_bytes)
-        del lib_out, lib_leaf
-        err = check("K2_splat_bf16", gs.splat_layers(g, grid, shapes, "bf16"),
-                    gs.splat_layers_plain_bf16(g, grid, shapes))
-        add("K2_splat_bf16", f"level {i}", err,
-            lambda: gs.splat_layers(g, grid, shapes, "bf16"),
-            lambda: gs.splat_layers_plain_bf16(g, grid, shapes),
-            None, splat_bytes, f32_mode_ms=k2_ms)
-        banded_kernels(f"level {i}", layers, grid, g, add)
+        cots.append(g)
+        for compute, mode in (("f32", ""), ("bf16", "_bf16")):
+            note(f"K1_gather{mode}", check(
+                f"K1_gather{mode}", gs.gather_layers(layers, grid, compute),
+                gs.gather_levels_plain(layers, [grid], compute)[0],
+                f"level {i}"))
+            note(f"K2_splat{mode}", check(
+                f"K2_splat{mode}", gs.splat_layers(g, grid, shapes, compute),
+                gs.splat_levels_plain([g], [grid], shapes, compute),
+                f"level {i}"))
+        banded_checks(f"level {i}", layers, grid, g, note)
 
         # K3 / K4 at the fused (level, layer) pairs
         fused = aux.loss_aux["gram_masks"][i]
@@ -1231,6 +1364,7 @@ def kernel_phase(pipe, state, batch, aux, launches):
                 2.0 * c * c * live_px)
             del fcat, scat
 
+    sampling_step(layers, list(batch.uv), cots, add)
     out = []
     for name, spec in KERNELS.items():
         r = rows[name]

@@ -49,6 +49,15 @@ def _grad_scale(x, w):
     return sg + w * (x - sg)
 
 
+def _scatter_levels(n, live, renders):
+    """``n`` pyramid levels: ``renders`` at the ``live`` indices, None at
+    the skipped ones."""
+    levels = [None] * n
+    for i, r in zip(live, renders):
+        levels[i] = r
+    return levels
+
+
 def depth_pyramid_masks(batch: ViewBatch, level_shapes):
     """Per-level loss masks from the per-pixel depth levels: pixels whose
     nearest or 2nd-nearest level is i, inside the UV mask, eroded 3x3,
@@ -327,11 +336,16 @@ class TexturePipeline:
 
     def _render_pyramid(self, texture: Texture, batch: ViewBatch):
         """The atlas sampled at every UV pyramid level, None for a skipped
-        level (one K1 launch per level, its K2 in the backward)."""
+        level: one K1 launch for the live levels, one K2 in the backward."""
+        live = self._live_levels(batch)
+        renders = sample_texture(texture, [batch.uv[i] for i in live],
+                                 compute=self.config.kernel_compute)
+        return _scatter_levels(len(batch.uv), live, renders)
+
+    def _live_levels(self, batch: ViewBatch):
+        """The indices of the UV pyramid levels not in ``skip_levels``."""
         skip = set(self.config.skip_levels)
-        return [None if i in skip else
-                sample_texture(texture, uv, compute=self.config.kernel_compute)
-                for i, uv in enumerate(batch.uv)]
+        return [i for i in range(len(batch.uv)) if i not in skip]
 
     def _tex_reg(self, texture: Texture):
         return texture_regularizer(texture,

@@ -12,7 +12,7 @@ from torch import nn
 
 from stylemesh_tpu_torch import resolve_device
 from stylemesh_tpu_torch.ops.color import GATYS_MAX, GATYS_MIN
-from stylemesh_tpu_torch.ops.grid_sample import sample_layers
+from stylemesh_tpu_torch.ops.grid_sample import sample_layers, sample_levels
 
 
 class Texture(nn.Module):
@@ -63,11 +63,16 @@ def clamp_texture(texture: Texture) -> Texture:
     return texture
 
 
-def sample_texture(texture: Texture, grid, compute="f32"):
-    """Sample all layers at ``grid [..., 2]`` and sum: one K1 launch per grid
-    on the card, its K2 splat in the backward. ``compute``: ``"f32"`` (exact)
-    or ``"bf16"``, the kernels' bf16 mode (``ops/grid_sample.py``)."""
-    return sample_layers(list(texture.layers), grid, compute)
+def sample_texture(texture: Texture, grids, compute="f32"):
+    """Sample all layers at a grid ``[..., 2]`` and sum; given a list of
+    grids (a step's UV pyramid levels), one render per grid. On the card
+    one K1 launch renders all grids and one K2 launch splats all their
+    gradients in the backward. ``compute``: ``"f32"`` (exact) or
+    ``"bf16"``, the kernels' bf16 mode (``ops/grid_sample.py``)."""
+    layers = list(texture.layers)
+    if torch.is_tensor(grids):
+        return sample_layers(layers, grids, compute)
+    return sample_levels(layers, list(grids), compute)
 
 
 def texture_regularizer(texture: Texture, weights):

@@ -5,11 +5,15 @@ The reference renders by sampling a texture atlas at baked per-pixel UVs with
 align_corners=True)``. The forward is a 4-corner gather, the backward a
 4-corner scatter-add of pixel gradients into the atlas.
 
-:func:`sample_layers` samples every layer of a Laplacian texture at one grid
-and sums, with both directions as hand-written kernels on the card:
-K1 (:func:`gather_layers`, all layers in one launch) and K2
-(:func:`splat_layers`). Their plain versions sit beside them and serve
-tensors that lie on the CPU; a CUDA tensor launches the kernel or raises.
+:func:`sample_levels` samples every layer of a Laplacian texture at each
+of a step's UV pyramid levels and sums over the layers, with both
+directions as hand-written kernels on the card: K1 (:func:`gather_levels`,
+one launch for all levels and layers) and K2 (:func:`splat_levels`, one
+zero fill per layer and one launch that splats every level's cotangent
+into it). :func:`sample_layers`, :func:`gather_layers` and
+:func:`splat_layers` are their one-level case. The plain versions sit
+beside them and serve tensors that lie on the CPU; a CUDA tensor launches
+the kernel or raises.
 
 Conventions: texture layers ``[H, W, C]`` channel-last float32; grids
 ``[..., 2]`` with ``(x, y)`` in ``[-1, 1]``, where -1 maps to pixel 0 and
@@ -29,22 +33,34 @@ compute=)`` of the JAX package does for its planned TPU kernels:
   stay exact float32 there as here.
 
 Atlas-sharded training splits every layer into row bands, one per rank.
-:func:`sample_layers_banded` is one rank's partial render: the banded K1
-(:func:`gather_layers_banded`) and K2 (:func:`splat_layers_banded`) take
-the corner indices and weights of the whole layer and keep the corners
-whose texel row lies in the rank's band, in either mode. The JAX package
-reaches the same function through ``grid_sample_banded_cf`` with
+:func:`sample_levels_banded` gives one rank's partial renders: the banded
+K1 (:func:`gather_levels_banded`) and K2 (:func:`splat_levels_banded`)
+take the corner indices and weights of the whole layer and keep the
+corners whose texel row lies in the rank's band, in either mode. The JAX
+package reaches the same function through ``grid_sample_banded_cf`` with
 ``row0`` and ``include_background=False``.
 """
 
 import ctypes
+import functools
 
 import torch
 
 from stylemesh_tpu_torch import kernels
 
 MAX_LAYERS = 8  # SM_MAX_LAYERS in kernels/csrc/sample.cu
+MAX_LEVELS = 8  # SM_MAX_LEVELS
 COMPUTE_MODES = ("f32", "bf16")
+# Pixel tiles of the kernels' 256-thread blocks: their width in pixels (a
+# power of 2; 256 = runs of consecutive pixels, whatever the grid's width).
+# K2 warp-aggregates layer l at a level when the layer has fewer texels than
+# SPLAT_GROUP_BELOW times the level's pixels per view (0: never, inf: every
+# layer). At the bench shapes on an H100 runs of 256 were the fastest tiles
+# for both kernels, and aggregation on every layer the fastest K2
+# (tools/torch_sampling_variants.py; PERF.md).
+GATHER_TILE_W = 256
+SPLAT_TILE_W = 256
+SPLAT_GROUP_BELOW = float("inf")
 
 
 def _corner_indices_weights(grid, h, w):
@@ -263,118 +279,70 @@ def splat_layers_banded_plain(g, grid, band_shapes, row0s, heights,
             for hw, row0, h in zip(band_shapes, row0s, heights)]
 
 
+def gather_levels_plain(layers, grids, compute="f32"):
+    """Plain version of K1 over a level table: one render per grid."""
+    _check_compute(compute)
+    gather = gather_layers_plain_bf16 if compute == "bf16" else gather_layers_plain
+    return [gather(layers, grid) for grid in grids]
+
+
+def splat_levels_plain(cots, grids, shapes, compute="f32"):
+    """Plain version of K2 over a level table: the per-level splats of
+    ``cots[k]`` at ``grids[k]``, summed into one gradient per layer in level
+    order."""
+    _check_compute(compute)
+    splat = splat_layers_plain_bf16 if compute == "bf16" else splat_layers_plain
+    return _sum_levels(splat(g, grid, shapes) for g, grid in zip(cots, grids))
+
+
+def gather_levels_banded_plain(bands, grids, row0s, heights, compute="f32"):
+    """Plain version of the banded K1 over a level table."""
+    return [gather_layers_banded_plain(bands, grid, row0s, heights, compute)
+            for grid in grids]
+
+
+def splat_levels_banded_plain(cots, grids, band_shapes, row0s, heights,
+                              compute="f32"):
+    """Plain version of the banded K2 over a level table: the per-level band
+    splats summed into one gradient per band in level order."""
+    return _sum_levels(
+        splat_layers_banded_plain(g, grid, band_shapes, row0s, heights, compute)
+        for g, grid in zip(cots, grids))
+
+
+def _sum_levels(per_level):
+    """The levels' gradient lists summed per layer, in level order."""
+    return functools.reduce(lambda a, b: [x + y for x, y in zip(a, b)],
+                            per_level)
+
+
 def _check_compute(compute):
     if compute not in COMPUTE_MODES:
         raise ValueError(f"compute must be one of {COMPUTE_MODES}, got {compute!r}")
 
 
-def _layer_table(tensors):
-    n = len(tensors)
-    ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in tensors])
-    hs = (ctypes.c_int * n)(*[t.shape[0] for t in tensors])
-    ws = (ctypes.c_int * n)(*[t.shape[1] for t in tensors])
-    return ptrs, hs, ws
+def _on_cpu(grids):
+    """Whether the grids lie on the CPU (the plain versions' inputs); raises
+    for a level count the kernels do not take, on any device."""
+    if not 1 <= len(grids) <= MAX_LEVELS:
+        raise ValueError(f"1..{MAX_LEVELS} levels, got {len(grids)}")
+    return grids[0].device.type == "cpu"
 
 
-def _check_sampling(layers, grid):
+def _check_levels(layers, grids):
     if not 1 <= len(layers) <= MAX_LAYERS:
         raise ValueError(f"1..{MAX_LAYERS} layers, got {len(layers)}")
-    if grid.shape[-1] != 2:
-        raise ValueError(f"grid must end in 2, got {tuple(grid.shape)}")
+    if not 1 <= len(grids) <= MAX_LEVELS:
+        raise ValueError(f"1..{MAX_LEVELS} levels, got {len(grids)}")
+    for grid in grids:
+        if grid.shape[-1] != 2:
+            raise ValueError(f"grid must end in 2, got {tuple(grid.shape)}")
+        if grid.numel() // 2 >= 2 ** 31:
+            raise ValueError(f"more than 2^31 pixels in a grid {tuple(grid.shape)}")
     for layer in layers:
         if layer.dim() != 3 or layer.shape[-1] != 3:
             raise ValueError(f"layers must be [H, W, 3], got {tuple(layer.shape)}")
-    kernels.require_cuda(grid, *layers, dtype=torch.float32)
-
-
-def gather_layers(layers, grid, compute="f32"):
-    """K1: ``sum_l bilinear(layers[l], grid)`` -> ``grid.shape[:-1] + (3,)``.
-
-    CPU tensors take :func:`gather_layers_plain` (or its bf16 twin); CUDA
-    tensors launch the kernel (one launch for all layers) or raise. Counts
-    its launches in ``.launches`` (f32) and ``.bf16_launches``.
-    """
-    _check_compute(compute)
-    bf16 = compute == "bf16"
-    if grid.device.type == "cpu":
-        return (gather_layers_plain_bf16 if bf16
-                else gather_layers_plain)(layers, grid)
-    _check_sampling(layers, grid)
-    out = torch.empty(grid.shape[:-1] + (3,), dtype=torch.float32,
-                      device=grid.device)
-    ptrs, hs, ws = _layer_table(layers)
-    kernels.launch("stylemesh_gather", grid.device, grid.data_ptr(),
-                   out.data_ptr(), grid.numel() // 2, ptrs, hs, ws,
-                   len(layers), int(bf16))
-    if bf16:
-        gather_layers.bf16_launches += 1
-    else:
-        gather_layers.launches += 1
-    return out
-
-
-gather_layers.launches = 0
-gather_layers.bf16_launches = 0
-
-
-def splat_layers(g, grid, shapes, compute="f32"):
-    """K2: the atlas gradients of :func:`gather_layers` for cotangent ``g``,
-    one zero-initialised float32 ``[H_l, W_l, 3]`` per ``shapes[l]``.
-
-    CPU tensors take :func:`splat_layers_plain` (or its bf16 twin); CUDA
-    tensors launch the kernel (one launch for all layers) or raise. Equal to
-    the sequential scatter-add up to the order of the float32 atomics.
-    Counts its launches in ``.launches`` (f32) and ``.bf16_launches``.
-    """
-    _check_compute(compute)
-    bf16 = compute == "bf16"
-    if grid.device.type == "cpu":
-        return (splat_layers_plain_bf16 if bf16
-                else splat_layers_plain)(g, grid, shapes)
-    grads = [torch.zeros((h, w, 3), dtype=torch.float32, device=grid.device)
-             for (h, w) in shapes]
-    _check_sampling(grads, grid)
-    kernels.require_cuda(g, dtype=torch.float32)
-    if g.shape != grid.shape[:-1] + (3,):
-        raise ValueError(f"cotangent {tuple(g.shape)} vs grid {tuple(grid.shape)}")
-    ptrs, hs, ws = _layer_table(grads)
-    kernels.launch("stylemesh_splat", grid.device, grid.data_ptr(),
-                   g.data_ptr(), grid.numel() // 2, ptrs, hs, ws, len(grads),
-                   int(bf16))
-    if bf16:
-        splat_layers.bf16_launches += 1
-    else:
-        splat_layers.launches += 1
-    return grads
-
-
-splat_layers.launches = 0
-splat_layers.bf16_launches = 0
-
-
-class _SampleLayers(torch.autograd.Function):
-    """Sum of bilinear samples of every layer; differentiable w.r.t. the
-    layers only (UV grids are baked batch constants)."""
-
-    @staticmethod
-    def forward(ctx, grid, compute, *layers):
-        ctx.save_for_backward(grid)
-        ctx.shapes = [tuple(l.shape[:2]) for l in layers]
-        ctx.compute = compute
-        return gather_layers(layers, grid, compute)
-
-    @staticmethod
-    def backward(ctx, g):
-        (grid,) = ctx.saved_tensors
-        grads = splat_layers(g.contiguous(), grid, ctx.shapes, ctx.compute)
-        return (None, None, *grads)
-
-
-def sample_layers(layers, grid, compute="f32"):
-    """``sum_l grid_sample(layers[l], grid)`` with the K1/K2 autograd pair
-    in the given ``compute`` mode."""
-    return _SampleLayers.apply(grid.contiguous(), compute,
-                               *[l.contiguous() for l in layers])
+    kernels.require_cuda(*grids, *layers, dtype=torch.float32)
 
 
 def _check_bands(band_shapes, row0s, heights):
@@ -386,123 +354,317 @@ def _check_bands(band_shapes, row0s, heights):
                              f"a layer of {h} rows")
 
 
-def _band_table(row0s, heights):
+def _pixel_rows(grid, tile_w):
+    """(rows, cols) of a grid's pixels as the kernels tile them: rows of the
+    grid's width, or, with tiles 256 wide, one row of all its pixels (runs
+    of 256 consecutive pixels)."""
+    npx = grid.numel() // 2
+    if tile_w == 256 or grid.dim() < 3 or npx == 0:
+        return 1, npx
+    return npx // grid.shape[-2], grid.shape[-2]
+
+
+def _level_table(grids, pixels, tile_w):
+    """The C level table: grid and per-pixel array (output or cotangent)
+    pointers, rows and cols of each level."""
+    n = len(grids)
+    dims = [_pixel_rows(g, tile_w) for g in grids]
+    return ((ctypes.c_void_p * n)(*[g.data_ptr() for g in grids]),
+            (ctypes.c_void_p * n)(*[p.data_ptr() for p in pixels]),
+            (ctypes.c_int * n)(*[r for r, _ in dims]),
+            (ctypes.c_int * n)(*[c for _, c in dims]))
+
+
+def _tile_log2(tile_w):
+    if tile_w not in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+        raise ValueError(f"tile width must be a power of 2 up to 256, got {tile_w}")
+    return tile_w.bit_length() - 1
+
+
+def _layer_table(tensors):
+    n = len(tensors)
+    ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in tensors])
+    hs = (ctypes.c_int * n)(*[t.shape[0] for t in tensors])
+    ws = (ctypes.c_int * n)(*[t.shape[1] for t in tensors])
+    return ptrs, hs, ws
+
+
+def _band_table(band):
+    """h_globals and row0s of the C entries: NULL unbanded."""
+    if band is None:
+        return None, None
+    row0s, heights = band
     n = len(row0s)
     return (ctypes.c_int * n)(*heights), (ctypes.c_int * n)(*row0s)
 
 
-def gather_layers_banded(bands, grid, row0s, heights, compute="f32"):
-    """The banded K1: this rank's share of :func:`gather_layers` when every
-    layer ``l`` of the texture (``heights[l]`` rows) is split into row
-    bands and this rank holds rows ``[row0s[l], row0s[l] + bands[l].shape[0])``
-    of it. The corner indices and weights are those of the whole layer; a
-    corner adds its texel only when the texel's row lies in the band.
-    Summed over the bands of every rank, the partials are
-    :func:`gather_layers`: the background pixels at grid (-1, -1) read
-    texel (0, 0) with weight 1 and so belong to the band holding row 0.
+def _aggregated_layers(grids, shapes):
+    """Per level, the bit mask of the layers that K2 warp-aggregates there:
+    those of fewer texels (of the whole layer, ``shapes``) than
+    ``SPLAT_GROUP_BELOW`` times the level's pixels per view."""
+    masks = []
+    for grid in grids:
+        per_view = grid.numel() // 2
+        if grid.dim() >= 4 and grid.shape[0]:
+            per_view //= grid.shape[0]
+        masks.append(sum(1 << l for l, (h, w) in enumerate(shapes)
+                         if h * w < SPLAT_GROUP_BELOW * per_view))
+    return (ctypes.c_uint * len(grids))(*masks)
 
-    CPU tensors take :func:`gather_layers_banded_plain`; CUDA tensors
-    launch the kernel (one launch for all bands) or raise. Counts its
-    launches in ``.banded_launches`` (f32) and ``.banded_bf16_launches``.
+
+def _count(wrapper, compute, prefix=""):
+    attr = prefix + ("bf16_launches" if compute == "bf16" else "launches")
+    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
+def _gather(layers, grids, compute, band=None):
+    """One K1 launch over the level table; (outputs, whether it launched)."""
+    _check_levels(layers, grids)
+    if band is not None:
+        _check_bands([tuple(b.shape[:2]) for b in layers], *band)
+    outs = [torch.empty(g.shape[:-1] + (3,), dtype=torch.float32,
+                        device=g.device) for g in grids]
+    if not any(g.numel() for g in grids):
+        return outs, False
+    kernels.launch("stylemesh_gather", grids[0].device,
+                   *_level_table(grids, outs, GATHER_TILE_W), len(grids),
+                   _tile_log2(GATHER_TILE_W), *_layer_table(layers),
+                   *_band_table(band), len(layers), int(compute == "bf16"))
+    return outs, True
+
+
+def _splat(cots, grids, shapes, compute, band=None):
+    """One zero fill per layer (or band) and one K2 launch over the level
+    table; (gradients, whether it launched)."""
+    if not 1 <= len(shapes) <= MAX_LAYERS:
+        raise ValueError(f"1..{MAX_LAYERS} layers, got {len(shapes)}")
+    if len(cots) != len(grids):
+        raise ValueError(f"{len(cots)} cotangents for {len(grids)} grids")
+    for g, grid in zip(cots, grids):
+        if g.shape != grid.shape[:-1] + (3,):
+            raise ValueError(f"cotangent {tuple(g.shape)} vs grid "
+                             f"{tuple(grid.shape)}")
+    if band is not None:
+        _check_bands(shapes, *band)
+    kernels.require_cuda(*grids, *cots, dtype=torch.float32)
+    grads = [torch.zeros((h, w, 3), dtype=torch.float32, device=grids[0].device)
+             for (h, w) in shapes]
+    _check_levels(grads, grids)
+    if not any(g.numel() for g in grids):
+        return grads, False
+    full = shapes if band is None else [(h, w) for (_, w), h in
+                                        zip(shapes, band[1])]
+    kernels.launch("stylemesh_splat", grids[0].device,
+                   *_level_table(grids, cots, SPLAT_TILE_W),
+                   _aggregated_layers(grids, full), len(grids),
+                   _tile_log2(SPLAT_TILE_W), *_layer_table(grads),
+                   *_band_table(band), len(grads), int(compute == "bf16"))
+    return grads, True
+
+
+def gather_levels(layers, grids, compute="f32"):
+    """K1 over a level table: for each grid ``[..., 2]`` of ``grids`` (at
+    most ``MAX_LEVELS``), ``sum_l bilinear(layers[l], grid)`` ->
+    ``grid.shape[:-1] + (3,)``.
+
+    CPU tensors take :func:`gather_levels_plain`; CUDA tensors launch the
+    kernel (one launch for all grids and layers) or raise. Counts its
+    launches in ``.launches`` (f32) and ``.bf16_launches``.
     """
     _check_compute(compute)
-    bf16 = compute == "bf16"
-    if grid.device.type == "cpu":
-        return gather_layers_banded_plain(bands, grid, row0s, heights, compute)
-    _check_sampling(bands, grid)
-    _check_bands([tuple(b.shape[:2]) for b in bands], row0s, heights)
-    out = torch.empty(grid.shape[:-1] + (3,), dtype=torch.float32,
-                      device=grid.device)
-    ptrs, hs, ws = _layer_table(bands)
-    kernels.launch("stylemesh_gather_banded", grid.device, grid.data_ptr(),
-                   out.data_ptr(), grid.numel() // 2, ptrs, hs, ws,
-                   *_band_table(row0s, heights), len(bands), int(bf16))
-    if bf16:
-        gather_layers_banded.banded_bf16_launches += 1
-    else:
-        gather_layers_banded.banded_launches += 1
-    return out
+    if _on_cpu(grids):
+        return gather_levels_plain(layers, grids, compute)
+    outs, launched = _gather(layers, grids, compute)
+    if launched:
+        _count(gather_levels, compute)
+    return outs
 
 
-gather_layers_banded.banded_launches = 0
-gather_layers_banded.banded_bf16_launches = 0
+gather_levels.launches = 0
+gather_levels.bf16_launches = 0
 
 
-def splat_layers_banded(g, grid, band_shapes, row0s, heights, compute="f32"):
-    """The banded K2: the gradients of :func:`gather_layers_banded` for
-    cotangent ``g``, one zero-initialised float32 ``[band_h, W, 3]`` per
-    ``band_shapes[l]``: the scatter-add of :func:`splat_layers` restricted
-    to the corners whose row lies in the band.
+def splat_levels(cots, grids, shapes, compute="f32"):
+    """K2 over a level table: the atlas gradients of :func:`gather_levels`
+    for the cotangents ``cots[k]`` of its renders, every level splatted into
+    one zero-initialised float32 ``[H_l, W_l, 3]`` per ``shapes[l]``.
 
-    CPU tensors take :func:`splat_layers_banded_plain`; CUDA tensors launch
-    the kernel (one launch for all bands) or raise. Counts its launches in
-    ``.banded_launches`` (f32) and ``.banded_bf16_launches``.
+    CPU tensors take :func:`splat_levels_plain`; CUDA tensors launch the
+    kernel (one fill per layer, one launch for all grids and layers) or
+    raise. Equal to the sequential scatter-add up to summation order.
+    Counts its launches in ``.launches`` (f32) and ``.bf16_launches``.
     """
     _check_compute(compute)
-    bf16 = compute == "bf16"
-    if grid.device.type == "cpu":
-        return splat_layers_banded_plain(g, grid, band_shapes, row0s, heights,
-                                         compute)
-    grads = [torch.zeros((h, w, 3), dtype=torch.float32, device=grid.device)
-             for (h, w) in band_shapes]
-    _check_sampling(grads, grid)
-    _check_bands(band_shapes, row0s, heights)
-    kernels.require_cuda(g, dtype=torch.float32)
-    if g.shape != grid.shape[:-1] + (3,):
-        raise ValueError(f"cotangent {tuple(g.shape)} vs grid {tuple(grid.shape)}")
-    ptrs, hs, ws = _layer_table(grads)
-    kernels.launch("stylemesh_splat_banded", grid.device, grid.data_ptr(),
-                   g.data_ptr(), grid.numel() // 2, ptrs, hs, ws,
-                   *_band_table(row0s, heights), len(grads), int(bf16))
-    if bf16:
-        splat_layers_banded.banded_bf16_launches += 1
-    else:
-        splat_layers_banded.banded_launches += 1
+    if _on_cpu(grids):
+        return splat_levels_plain(cots, grids, shapes, compute)
+    grads, launched = _splat(cots, grids, shapes, compute)
+    if launched:
+        _count(splat_levels, compute)
     return grads
 
 
-splat_layers_banded.banded_launches = 0
-splat_layers_banded.banded_bf16_launches = 0
+splat_levels.launches = 0
+splat_levels.bf16_launches = 0
 
 
-class _SampleLayersBanded(torch.autograd.Function):
-    """This rank's partial of :func:`sample_layers` over its row bands;
-    differentiable w.r.t. the bands only."""
+def gather_levels_banded(bands, grids, row0s, heights, compute="f32"):
+    """The banded K1 over a level table: this rank's share of
+    :func:`gather_levels` when every layer ``l`` of the texture
+    (``heights[l]`` rows) is split into row bands and this rank holds rows
+    ``[row0s[l], row0s[l] + bands[l].shape[0])`` of it. The corner indices
+    and weights are those of the whole layer; a corner adds its texel only
+    when the texel's row lies in the band. Summed over the bands of every
+    rank, the partials are :func:`gather_levels`: the background pixels at
+    grid (-1, -1) read texel (0, 0) with weight 1 and so belong to the band
+    holding row 0.
+
+    CPU tensors take :func:`gather_levels_banded_plain`; CUDA tensors launch
+    the kernel (one launch for all grids and bands) or raise. Counts its
+    launches in ``.banded_launches`` (f32) and ``.banded_bf16_launches``.
+    """
+    _check_compute(compute)
+    if _on_cpu(grids):
+        return gather_levels_banded_plain(bands, grids, row0s, heights, compute)
+    outs, launched = _gather(bands, grids, compute, (row0s, heights))
+    if launched:
+        _count(gather_levels_banded, compute, "banded_")
+    return outs
+
+
+gather_levels_banded.banded_launches = 0
+gather_levels_banded.banded_bf16_launches = 0
+
+
+def splat_levels_banded(cots, grids, band_shapes, row0s, heights,
+                        compute="f32"):
+    """The banded K2 over a level table: the gradients of
+    :func:`gather_levels_banded` for the cotangents ``cots[k]``, every level
+    splatted into one zero-initialised float32 ``[band_h, W, 3]`` per
+    ``band_shapes[l]``: the scatter-add of :func:`splat_levels` restricted
+    to the corners whose row lies in the band.
+
+    CPU tensors take :func:`splat_levels_banded_plain`; CUDA tensors launch
+    the kernel (one launch for all grids and bands) or raise. Counts its
+    launches in ``.banded_launches`` (f32) and ``.banded_bf16_launches``.
+    """
+    _check_compute(compute)
+    if _on_cpu(grids):
+        return splat_levels_banded_plain(cots, grids, band_shapes, row0s,
+                                         heights, compute)
+    grads, launched = _splat(cots, grids, band_shapes, compute,
+                             (row0s, heights))
+    if launched:
+        _count(splat_levels_banded, compute, "banded_")
+    return grads
+
+
+splat_levels_banded.banded_launches = 0
+splat_levels_banded.banded_bf16_launches = 0
+
+
+def gather_layers(layers, grid, compute="f32"):
+    """K1 at one grid: :func:`gather_levels` of one level."""
+    return gather_levels(layers, [grid], compute)[0]
+
+
+def splat_layers(g, grid, shapes, compute="f32"):
+    """K2 at one grid: :func:`splat_levels` of one level."""
+    return splat_levels([g], [grid], shapes, compute)
+
+
+def gather_layers_banded(bands, grid, row0s, heights, compute="f32"):
+    """The banded K1 at one grid: :func:`gather_levels_banded` of one
+    level."""
+    return gather_levels_banded(bands, [grid], row0s, heights, compute)[0]
+
+
+def splat_layers_banded(g, grid, band_shapes, row0s, heights, compute="f32"):
+    """The banded K2 at one grid: :func:`splat_levels_banded` of one
+    level."""
+    return splat_levels_banded([g], [grid], band_shapes, row0s, heights,
+                               compute)
+
+
+class _SampleLevels(torch.autograd.Function):
+    """For each grid, the sum of bilinear samples of every layer, or with
+    ``band = (row0s, heights)`` this rank's partial over its row bands;
+    differentiable w.r.t. the layers only (UV grids are baked batch
+    constants). The backward splats only the renders that get a gradient:
+    a detached render's cotangent is None and its level stays out of the
+    K2 launch."""
 
     @staticmethod
-    def forward(ctx, grid, compute, row0s, heights, *bands):
-        ctx.save_for_backward(grid)
-        ctx.shapes = [tuple(b.shape[:2]) for b in bands]
-        ctx.compute, ctx.row0s, ctx.heights = compute, row0s, heights
-        return gather_layers_banded(bands, grid, row0s, heights, compute)
+    def forward(ctx, compute, band, n_grids, *tensors):
+        grids, layers = tensors[:n_grids], tensors[n_grids:]
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*grids)
+        ctx.shapes = [tuple(l.shape[:2]) for l in layers]
+        ctx.compute, ctx.band = compute, band
+        if band is None:
+            return tuple(gather_levels(layers, grids, compute))
+        return tuple(gather_levels_banded(layers, grids, *band, compute))
 
     @staticmethod
-    def backward(ctx, g):
-        (grid,) = ctx.saved_tensors
-        grads = splat_layers_banded(g.contiguous(), grid, ctx.shapes,
-                                    ctx.row0s, ctx.heights, ctx.compute)
-        return (None, None, None, None, *grads)
+    def backward(ctx, *cots):
+        grids = ctx.saved_tensors
+        live = [k for k, g in enumerate(cots) if g is not None]
+        grads = [None] * len(ctx.shapes)
+        if live:
+            args = ([cots[k].contiguous() for k in live],
+                    [grids[k] for k in live], ctx.shapes)
+            if ctx.band is None:
+                grads = splat_levels(*args, ctx.compute)
+            else:
+                grads = splat_levels_banded(*args, *ctx.band, ctx.compute)
+        return (None, None, None, *[None] * len(grids), *grads)
+
+
+def sample_levels(layers, grids, compute="f32"):
+    """For each grid of ``grids``, ``sum_l grid_sample(layers[l], grid)``,
+    with the K1/K2 autograd pair in the given ``compute`` mode: one K1
+    launch renders every grid, one K2 launch splats every render's
+    gradient into one gradient per layer."""
+    if not grids:
+        return []
+    return list(_SampleLevels.apply(compute, None, len(grids),
+                                    *[g.contiguous() for g in grids],
+                                    *[l.contiguous() for l in layers]))
+
+
+def sample_levels_banded(bands, grids, row0s, heights, compute="f32"):
+    """This rank's partial renders from its row bands, one per grid, with
+    the banded K1/K2 autograd pair (``row0s`` / ``heights``: each band's
+    first row and its layer's full height)."""
+    if not grids:
+        return []
+    return list(_SampleLevels.apply(compute, (tuple(row0s), tuple(heights)),
+                                    len(grids),
+                                    *[g.contiguous() for g in grids],
+                                    *[b.contiguous() for b in bands]))
+
+
+def sample_layers(layers, grid, compute="f32"):
+    """``sum_l grid_sample(layers[l], grid)``: :func:`sample_levels` of one
+    grid."""
+    return sample_levels(layers, [grid], compute)[0]
 
 
 def sample_layers_banded(bands, grid, row0s, heights, compute="f32"):
-    """This rank's partial render from its row bands, with the banded K1/K2
-    autograd pair (``row0s`` / ``heights``: each band's first row and its
-    layer's full height)."""
-    return _SampleLayersBanded.apply(grid.contiguous(), compute,
-                                     tuple(row0s), tuple(heights),
-                                     *[b.contiguous() for b in bands])
+    """This rank's partial render at one grid: :func:`sample_levels_banded`
+    of one grid."""
+    return sample_levels_banded(bands, [grid], row0s, heights, compute)[0]
 
 
 def launch_counts():
     """The launch counts of the sampling kernels, by kernel and mode."""
-    return {"gather": gather_layers.launches,
-            "gather_bf16": gather_layers.bf16_launches,
-            "splat": splat_layers.launches,
-            "splat_bf16": splat_layers.bf16_launches,
-            "gather_banded": gather_layers_banded.banded_launches,
-            "gather_banded_bf16": gather_layers_banded.banded_bf16_launches,
-            "splat_banded": splat_layers_banded.banded_launches,
-            "splat_banded_bf16": splat_layers_banded.banded_bf16_launches}
+    return {"gather": gather_levels.launches,
+            "gather_bf16": gather_levels.bf16_launches,
+            "splat": splat_levels.launches,
+            "splat_bf16": splat_levels.bf16_launches,
+            "gather_banded": gather_levels_banded.banded_launches,
+            "gather_banded_bf16": gather_levels_banded.banded_bf16_launches,
+            "splat_banded": splat_levels_banded.banded_launches,
+            "splat_banded_bf16": splat_levels_banded.banded_bf16_launches}
 
 
 def grid_sample(texture, grid):

@@ -5,12 +5,13 @@ Rank r holds rows ``[r * h_l / D, (r + 1) * h_l / D)`` of every layer ``l``
 and the Adam moments of those rows; the view batch, the loss and its
 constants are replicated on every rank.
 
-- forward: each rank renders its bands' partial of every pyramid level with
-  the banded K1 (``ops/grid_sample.py::gather_layers_banded``), and the
+- forward: each rank renders its bands' partial of every live pyramid
+  level with one launch of the banded K1
+  (``ops/grid_sample.py::gather_levels_banded``), and each level's
   partials are summed over the ranks (:func:`mesh.all_reduce_sum`);
-- backward: the summed render's cotangent is the same on every rank, and
-  the banded K2 scatters it into the rank's bands only: texture gradients
-  never cross ranks;
+- backward: the summed renders' cotangents are the same on every rank, and
+  one launch of the banded K2 scatters them into the rank's bands only:
+  texture gradients never cross ranks;
 - the regularizer sums each band's squares, all-reduces the sums and
   divides by the full layer sizes;
 - Adam and the clamp run on the bands.
@@ -29,9 +30,10 @@ from stylemesh_tpu_torch.models.pipeline import (
     PipelineConfig,
     TexturePipeline,
     TrainState,
+    _scatter_levels,
 )
 from stylemesh_tpu_torch.models.texture import Texture
-from stylemesh_tpu_torch.ops.grid_sample import sample_layers_banded
+from stylemesh_tpu_torch.ops.grid_sample import sample_levels_banded
 from stylemesh_tpu_torch.parallel.mesh import (
     Mesh,
     all_reduce_sum,
@@ -96,13 +98,15 @@ class AtlasShardedPipeline(TexturePipeline):
     # ----------------------------------------------- per-band loss pieces
 
     def _render_pyramid(self, texture: Texture, batch):
-        skip = set(self.config.skip_levels)
-        bands = list(texture.layers)
-        return [None if i in skip else all_reduce_sum(
-                    sample_layers_banded(bands, uv, self.row0s, self.heights,
-                                         self.config.kernel_compute),
-                    self.mesh)
-                for i, uv in enumerate(batch.uv)]
+        """The summed renders of the live levels: one banded K1 launch for
+        this rank's partials (one banded K2 in the backward), each level's
+        partial all-reduced."""
+        live = self._live_levels(batch)
+        partials = sample_levels_banded(
+            list(texture.layers), [batch.uv[i] for i in live], self.row0s,
+            self.heights, self.config.kernel_compute)
+        return _scatter_levels(len(batch.uv), live,
+                               [all_reduce_sum(p, self.mesh) for p in partials])
 
     def _tex_reg(self, texture: Texture):
         """The mean square of every full layer: the bands' sums of squares,

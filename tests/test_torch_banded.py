@@ -184,3 +184,47 @@ def test_banded_autograd_pair_and_checks():
     assert tgs.launch_counts() == before
     with pytest.raises(ValueError, match="outside"):
         tgs._check_bands([(32, W)], [40], [H])
+
+
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_banded_levels_sum_to_the_unbanded_call(compute):
+    """The banded multi-level pair (``sample_levels_banded``) for the 4
+    bands of D = 4, three levels of different sizes, one of them detached:
+    the bands' partial renders summed are ``sample_levels``'s renders and
+    the bands' gradients stacked its gradients (1e-6 of the largest value:
+    one more float32 sum)."""
+    rng = np.random.default_rng(11)
+    layers = [torch.from_numpy(rng.normal(0, 40, (48 >> l, 40 >> l, 3))
+                               .astype(np.float32)) for l in range(3)]
+    heights = [l.shape[0] for l in layers]
+    grids, cts = [], []
+    for h, w in ((9, 11), (5, 7), (12, 6)):
+        g = rng.uniform(-1.2, 1.2, (2, h, w, 2)).astype(np.float32)
+        g[:, :2, :3] = -1.0
+        grids.append(torch.from_numpy(g))
+        cts.append(torch.from_numpy(rng.normal(size=(2, h, w, 3))
+                                    .astype(np.float32)))
+
+    def loss(outs):
+        return ((outs[0] * cts[0]).sum() + (outs[1].detach() * cts[1]).sum()
+                + (outs[2] * cts[2]).sum())
+
+    leaves = [l.clone().requires_grad_() for l in layers]
+    full = tgs.sample_levels(leaves, grids, compute)
+    full_grads = torch.autograd.grad(loss(full), leaves)
+    d = 4
+    total, parts = None, [[] for _ in layers]
+    for b in range(d):
+        row0s = [b * h // d for h in heights]
+        bands = [l[r:r + h // d].clone().requires_grad_()
+                 for l, r, h in zip(layers, row0s, heights)]
+        outs = tgs.sample_levels_banded(bands, grids, row0s, heights, compute)
+        grads = torch.autograd.grad(loss(outs), bands)
+        outs = [o.detach() for o in outs]
+        total = outs if total is None else [t + o for t, o in zip(total, outs)]
+        for acc, g in zip(parts, grads):
+            acc.append(g)
+    for t, f in zip(total, full):
+        assert _rel(t.numpy(), f.detach().numpy()) <= 1e-6
+    for p, want in zip(parts, full_grads):
+        assert _rel(torch.cat(p).numpy(), want.numpy()) <= 1e-6

@@ -96,7 +96,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def _launch_counts():
-    return (gs.gather_layers.launches, gs.splat_layers.launches,
+    return (gs.gather_levels.launches, gs.splat_levels.launches,
             gram_kernels.masked_gram_sums.launches,
             gram_kernels.masked_gram_sums_grad.launches,
             conv_kernels.conv3x3.launches, head_kernels.conv_relu_pool.launches,
@@ -175,7 +175,7 @@ def test_slice3_entry_points_stay_on_the_card(monkeypatch, tmp_path):
     anything starts."""
     from stylemesh_tpu_torch import cli, optimize
 
-    before = (gs.gather_layers.bf16_launches, gs.splat_layers.bf16_launches,
+    before = (gs.gather_levels.bf16_launches, gs.splat_levels.bf16_launches,
               conv_kernels.conv3x3_mxu.launches)
     meta = torch.device("meta")
     grid = torch.zeros((1, 4, 4, 2), device=meta)
@@ -187,7 +187,7 @@ def test_slice3_entry_points_stay_on_the_card(monkeypatch, tmp_path):
     x, w9, _, _, _ = _conv_inputs(meta)
     with pytest.raises(ValueError, match="CUDA"):
         conv_kernels.conv3x3_mxu(x, w9)
-    assert (gs.gather_layers.bf16_launches, gs.splat_layers.bf16_launches,
+    assert (gs.gather_levels.bf16_launches, gs.splat_levels.bf16_launches,
             conv_kernels.conv3x3_mxu.launches) == before
 
     with pytest.raises(ValueError, match="exclusive"):

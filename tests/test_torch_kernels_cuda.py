@@ -10,7 +10,8 @@ On the card, without JAX installed:
 Tolerances, relative to the plain output's largest value: sampling 1e-5
 (float32, fused multiply-adds; 1e-6 in the bf16 mode, whose products of
 bf16 values are exact and whose other operations are unfused), splat 1e-5
-(float32 atomics order), Gram sums 1e-4 (float32 sums in another order;
+(float32 atomics order; 1e-4 over the level tables, whose 4x4 layer
+sums ~500 contributions per texel in warp groups and atomics), Gram sums 1e-4 (float32 sums in another order;
 exactly symmetric and equal from run to run on the card),
 Gram gradient two bf16 ulps; the trunk's convs K5-K9 1e-2 (about two bf16
 ulps: float32 sums in another order, then one rounding). Between the
@@ -171,6 +172,170 @@ def test_sampling_autograd_matches_cpu(cuda):
     _close(results[1], results[0], 1e-5)
 
 
+def _level_inputs(cuda, seed):
+    """Three levels: 2 views of 32x32 (every lane of a warp shares a texel
+    of the 4x4 layer), one of zero pixels, and 19x23 (an odd pixel count);
+    background pixels, both texel parities, cotangents zero on some rows;
+    layers of odd widths and a 4x4 layer."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    grids, cots = [], []
+    for v, h, w in ((2, 32, 32), (3, 0, 17), (1, 19, 23)):
+        grid = torch.rand((v, h, w, 2), generator=gen, device=cuda) * 2.4 - 1.2
+        grid[:, :2, :3] = -1.0
+        g = torch.randn((v, h, w, 3), generator=gen, device=cuda)
+        g[:, h // 2:h // 2 + 3] = 0.0
+        grids.append(grid)
+        cots.append(g)
+    layers = [torch.randn(s + (3,), generator=gen, device=cuda) * 50
+              for s in ((61, 97), (30, 48), (4, 4))]
+    return layers, grids, cots
+
+
+@pytest.mark.parametrize("tile_w", [256, 32, 8])
+@pytest.mark.parametrize("group_below", [0.0, 1.0, float("inf")])
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_levels_against_plain(cuda, monkeypatch, compute, group_below, tile_w):
+    """K1/K2 over a level table (one launch each) against the plain
+    versions per level and summed over the levels: gather 1e-5, splat 1e-4
+    (the 4x4 layer takes ~500 contributions per texel, summed in warp
+    groups and atomics in another order than ``index_add_``), with K2's
+    warp aggregation off, on the coarse layers, and on every layer, and
+    pixel tiles of runs of 256, 32x8 and 8x32; all-zero cotangents leave
+    the gradients zero."""
+    monkeypatch.setattr(gs, "GATHER_TILE_W", tile_w)
+    monkeypatch.setattr(gs, "SPLAT_TILE_W", tile_w)
+    monkeypatch.setattr(gs, "SPLAT_GROUP_BELOW", group_below)
+    layers, grids, cots = _level_inputs(cuda, 7)
+    shapes = [tuple(l.shape[:2]) for l in layers]
+    before = gs.launch_counts()
+    outs = gs.gather_levels(layers, grids, compute)
+    grads = gs.splat_levels(cots, grids, shapes, compute)
+    key = "" if compute == "f32" else "_bf16"
+    after = gs.launch_counts()
+    assert after["gather" + key] == before["gather" + key] + 1
+    assert after["splat" + key] == before["splat" + key] + 1
+    for out, want in zip(outs, gs.gather_levels_plain(layers, grids, compute)):
+        _close(out, want, 1e-5)
+    _close(grads, gs.splat_levels_plain(cots, grids, shapes, compute), 1e-4)
+    zero = gs.splat_levels([torch.zeros_like(g) for g in cots], grids, shapes,
+                           compute)
+    assert all(z.abs().max().item() == 0.0 for z in zero)
+
+
+@pytest.mark.parametrize("group_below", [0.0, float("inf")])
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_banded_levels_against_plain(cuda, monkeypatch, compute, group_below):
+    """The banded K1/K2 over a level table, for the 2 bands of D = 2 (the
+    4x4 layer's bands hold 2 rows): each band against its plain version
+    (gather 1e-5, splat 1e-4), the partials summed against the unbanded
+    K1 and the bands' gradients stacked against the unbanded K2."""
+    monkeypatch.setattr(gs, "SPLAT_GROUP_BELOW", group_below)
+    layers, grids, cots = _level_inputs(cuda, 8)
+    layers[0] = layers[0][:60].clone()
+    heights = [l.shape[0] for l in layers]
+    d = 2
+    total, parts = None, [[] for _ in layers]
+    for b in range(d):
+        row0s = [b * h // d for h in heights]
+        bands = [l[r:r + h // d].clone()
+                 for l, r, h in zip(layers, row0s, heights)]
+        shapes = [tuple(x.shape[:2]) for x in bands]
+        outs = gs.gather_levels_banded(bands, grids, row0s, heights, compute)
+        for out, want in zip(outs, gs.gather_levels_banded_plain(
+                bands, grids, row0s, heights, compute)):
+            _close(out, want, 1e-5)
+        total = outs if total is None else [a + o for a, o in zip(total, outs)]
+        grads = gs.splat_levels_banded(cots, grids, shapes, row0s, heights,
+                                       compute)
+        _close(grads, gs.splat_levels_banded_plain(cots, grids, shapes, row0s,
+                                                   heights, compute), 1e-4)
+        for acc, x in zip(parts, grads):
+            acc.append(x)
+    for t, want in zip(total, gs.gather_levels(layers, grids, compute)):
+        _close(t, want, 1e-5)
+    _close([torch.cat(p) for p in parts],
+           gs.splat_levels(cots, grids, [tuple(l.shape[:2]) for l in layers],
+                           compute), 1e-4)
+
+
+def test_sample_levels_one_launch_each_way(cuda):
+    """The autograd pair over the levels: one K1 launch forward, one K2
+    launch backward, a detached level left out, and the gradients those of
+    the other levels' plain splats."""
+    layers, grids, cots = _level_inputs(cuda, 9)
+    leaves = [l.requires_grad_() for l in layers]
+    before = gs.launch_counts()
+    outs = gs.sample_levels(leaves, grids)
+    loss = (outs[0] * cots[0]).sum() + (outs[2] * cots[2]).sum() \
+        + outs[1].detach().sum()
+    grads = torch.autograd.grad(loss, leaves)
+    after = gs.launch_counts()
+    assert after["gather"] == before["gather"] + 1
+    assert after["splat"] == before["splat"] + 1
+    _close(list(grads), gs.splat_levels_plain(
+        [cots[0], cots[2]], [grids[0], grids[2]],
+        [tuple(l.shape[:2]) for l in layers]), 1e-4)
+
+
+def _guarded(cuda, shape, guard=4096, fill=12345.0):
+    """A float32 buffer holding ``fill`` in ``guard`` elements before and
+    after a zeroed view of ``shape`` (16-byte aligned); (buffer, view)."""
+    n = 1
+    for d in shape:
+        n *= d
+    buf = torch.full((n + 2 * guard,), fill, device=cuda)
+    view = buf[guard:guard + n].view(shape)
+    view.zero_()
+    return buf, view
+
+
+def _fills_intact(buf, view, guard=4096, fill=12345.0):
+    torch.cuda.synchronize()
+    assert (buf[:guard] == fill).all()
+    assert (buf[guard + view.numel():] == fill).all()
+
+
+@pytest.mark.parametrize("tile_w", [256, 16])
+@pytest.mark.parametrize("banded", [False, True])
+def test_levels_write_only_their_outputs(cuda, tile_w, banded):
+    """Guards around every K1 output and every K2 gradient (or band) of a
+    level table at ragged shapes stay untouched: the C entries called with
+    tensors that lie inside larger buffers."""
+    layers, grids, cots = _level_inputs(cuda, 10)
+    heights = [l.shape[0] for l in layers]
+    row0s = [h // 2 for h in heights] if banded else None
+    if banded:
+        layers = [l[r:].clone() for l, r in zip(layers, row0s)]
+    band = (row0s, heights) if banded else None
+    out_bufs = [_guarded(cuda, g.shape[:-1] + (3,)) for g in grids]
+    grad_bufs = [_guarded(cuda, tuple(l.shape)) for l in layers]
+    dev = grids[0].device
+    kernels.launch("stylemesh_gather", dev,
+                   *gs._level_table(grids, [v for _, v in out_bufs], tile_w),
+                   len(grids), gs._tile_log2(tile_w), *gs._layer_table(layers),
+                   *gs._band_table(band), len(layers), 0)
+    grads = [v for _, v in grad_bufs]
+    full = [(h, l.shape[1]) for l, h in zip(layers, heights)]
+    kernels.launch("stylemesh_splat", dev,
+                   *gs._level_table(grids, cots, tile_w),
+                   gs._aggregated_layers(grids, full), len(grids),
+                   gs._tile_log2(tile_w), *gs._layer_table(grads),
+                   *gs._band_table(band), len(grads), 0)
+    for buf, view in out_bufs + grad_bufs:
+        _fills_intact(buf, view)
+    if banded:
+        want = gs.splat_levels_banded_plain(
+            cots, grids, [tuple(l.shape[:2]) for l in layers], row0s, heights)
+        outs_want = gs.gather_levels_banded_plain(layers, grids, row0s, heights)
+    else:
+        want = gs.splat_levels_plain(cots, grids,
+                                     [tuple(l.shape[:2]) for l in layers])
+        outs_want = gs.gather_levels_plain(layers, grids)
+    _close(grads, want, 1e-4)
+    for (_, view), w in zip(out_bufs, outs_want):
+        _close(view, w, 1e-5)
+
+
 # C = 192 and 320 take 64-wide column groups, as C = 64 does
 @pytest.mark.parametrize("c,k,p", [(64, 1, 1000), (128, 2, 4097),
                                    (256, 2, 33), (64, 2, 100003),
@@ -206,6 +371,8 @@ def test_wrappers_refuse_bad_inputs(cuda):
                                       dtype=torch.float64)], grid)
     with pytest.raises(ValueError):
         gs.gather_layers([torch.zeros((8, 8, 3), device=cuda)] * 9, grid)
+    with pytest.raises(ValueError, match="levels"):
+        gs.gather_levels([torch.zeros((8, 8, 3), device=cuda)], [grid] * 9)
     f = torch.zeros((1, 16, 48), dtype=torch.bfloat16, device=cuda)
     m = torch.zeros((1, 1, 16), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="multiple of 64"):

@@ -235,3 +235,102 @@ def test_texture_from_arrays_copies():
             p.add_(1.0)
     for l, b in zip(layers, before):
         np.testing.assert_array_equal(l, b)
+
+
+def _level_grids(v=2, sizes=((9, 11), (5, 7), (12, 6))):
+    """A step's UV pyramid in small: levels of different sizes."""
+    return [_grid(v, h, w) for h, w in sizes]
+
+
+def _cotangents(grids):
+    return [RNG.normal(size=g.shape[:-1] + (3,)).astype(np.float32)
+            for g in grids]
+
+
+@pytest.mark.parametrize("n_layers", [1, 3])
+def test_sample_levels_value_and_gradient(n_layers):
+    """One sampling call over three levels of different sizes (the
+    multi-level K1/K2 pair, their plain versions here) against the JAX
+    package's ``sample_texture`` per level, the levels' losses summed under
+    ``jax.grad`` (float32, F32)."""
+    layers = _layers(n=n_layers)
+    grids = _level_grids()
+    cts = _cotangents(grids)
+
+    jtex = jtexture.Texture(layers=tuple(jnp.asarray(l) for l in layers))
+
+    def loss(t):
+        return sum(jnp.sum(jtexture.sample_texture(t, jnp.asarray(g)) * c)
+                   for g, c in zip(grids, cts))
+
+    jgrad = jax.grad(loss)(jtex)
+    jouts = [jtexture.sample_texture(jtex, jnp.asarray(g)) for g in grids]
+
+    ttex = texture_from_jax(layers, device="cpu")
+    touts = ttexture.sample_texture(ttex, [torch.from_numpy(g) for g in grids])
+    tgrads = torch.autograd.grad(touts, list(ttex.layers),
+                                 [torch.from_numpy(c) for c in cts])
+    assert len(touts) == len(grids)
+    for t, j in zip(touts, jouts):
+        np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), **F32)
+    for tg, jg in zip(tgrads, jgrad.layers):
+        np.testing.assert_allclose(tg.numpy(), np.asarray(jg), **F32)
+
+
+def test_sample_levels_bf16_against_per_level_plain():
+    """The bf16 mode over a level table: each render the per-level bf16
+    plain gather, the gradients the per-level bf16 plain splats summed in
+    level order (float32 sums of the same products: 1e-6 relative)."""
+    layers = [torch.from_numpy(l) for l in _layers(n=3)]
+    grids = [torch.from_numpy(g) for g in _level_grids()]
+    cts = [torch.from_numpy(c) for c in _cotangents(grids)]
+    leaves = [l.clone().requires_grad_() for l in layers]
+    outs = tgs.sample_levels(leaves, grids, compute="bf16")
+    grads = torch.autograd.grad(outs, leaves, cts)
+    for out, grid in zip(outs, grids):
+        np.testing.assert_allclose(
+            out.detach().numpy(),
+            tgs.gather_layers_plain_bf16(layers, grid).numpy(), rtol=1e-6)
+    shapes = [tuple(l.shape[:2]) for l in layers]
+    want = [sum(parts) for parts in zip(*[
+        tgs.splat_layers_plain_bf16(c, g, shapes) for c, g in zip(cts, grids)])]
+    for got, w in zip(grads, want):
+        np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=1e-6,
+                                   atol=1e-6 * np.abs(w.numpy()).max())
+    # the mode rounds: the exact function differs
+    exact = tgs.gather_levels_plain(layers, grids)
+    assert max(np.abs(o.detach().numpy() - e.numpy()).max()
+               for o, e in zip(outs, exact)) > 1e-4
+
+
+def test_sample_levels_detached_level_and_one_level():
+    """A level whose render is detached gets no cotangent and stays out of
+    the splat; one level is ``sample_layers``; more levels than the kernels'
+    table holds raise on any device."""
+    layers = [torch.from_numpy(l) for l in _layers(n=2)]
+    grids = [torch.from_numpy(g) for g in _level_grids()]
+    cts = [torch.from_numpy(c) for c in _cotangents(grids)]
+    shapes = [tuple(l.shape[:2]) for l in layers]
+    leaves = [l.clone().requires_grad_() for l in layers]
+    before = tgs.launch_counts()
+    outs = tgs.sample_levels(leaves, grids)
+    loss = ((outs[0] * cts[0]).sum() + (outs[1].detach() * cts[1]).sum()
+            + (outs[2] * cts[2]).sum())
+    grads = torch.autograd.grad(loss, leaves)
+    want = tgs.splat_levels_plain([cts[0], cts[2]], [grids[0], grids[2]],
+                                  shapes)
+    for got, w in zip(grads, want):
+        assert torch.equal(got, w)
+    assert tgs.launch_counts() == before  # the CPU launches nothing
+
+    one = tgs.sample_levels(leaves, grids[:1])
+    assert len(one) == 1
+    single = tgs.sample_layers(leaves, grids[0])
+    assert torch.equal(one[0], single)
+    g1 = torch.autograd.grad(one[0], leaves, cts[0])
+    g2 = torch.autograd.grad(single, leaves, cts[0])
+    for a, b in zip(g1, g2):
+        assert torch.equal(a, b)
+    assert tgs.sample_levels(leaves, []) == []
+    with pytest.raises(ValueError, match="levels"):
+        tgs.gather_levels(layers, grids * 3)
