@@ -228,6 +228,18 @@ def style_image(h, w):
         (rng.random((1, h, w, 3), dtype=np.float32) - 0.45) * 255.0)
 
 
+def bench_workload():
+    """The bench step's workload: the pipeline of :func:`bench_config` with
+    random VGG weights and a random 512x683 style image, and bench.py's view
+    batch (V = 4, 256x341 content, UV levels 256..784); (pipe, batch)."""
+    batch = synthetic_view_batch(
+        num_views=4, content_hw=(256, 341), level_heights=(256, 432, 608, 784),
+        aspect=1280.0 / 960.0, min_depth=0.25, seed=0, depth_range=(0.4, 7.0))
+    pipe = TexturePipeline(bench_config(), init_vgg_params(rng=0, scale=0.05),
+                           style_image(512, 683))
+    return pipe, batch
+
+
 def cuda_times(fn, reps=REPS):
     """(median, min, max) milliseconds of ``fn`` on the card, each of
     ``reps`` calls after a warm-up timed with its own pair of events."""
@@ -271,16 +283,12 @@ def read_counts():
 
 
 def main_path():
-    batch = synthetic_view_batch(
-        num_views=4, content_hw=(256, 341), level_heights=(256, 432, 608, 784),
-        aspect=1280.0 / 960.0, min_depth=0.25, seed=0, depth_range=(0.4, 7.0))
-    vgg = init_vgg_params(rng=0, scale=0.05)
     t0 = time.perf_counter()
-    pipe = TexturePipeline(bench_config(), vgg, style_image(512, 683))
+    pipe, batch = bench_workload()
     state = pipe.init()
     aux = pipe.prepare_batch(batch)
     torch.cuda.synchronize()
-    log(f"[main] setup (style targets, init, prepare_batch): "
+    log(f"[main] setup (batch, style targets, init, prepare_batch): "
         f"{time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     aux = pipe.prepare_batch(batch)
@@ -1002,10 +1010,15 @@ def sampling_step(layers, grids, cots, add):
     layer at every level (K1), one ``torch.autograd.grad`` over all the
     levels' ``F.grid_sample`` renders with PyTorch's accumulation of the
     levels' gradients (K2). Bounds: K1 the grids, outputs and touched
-    texels; K2 the grids, cotangents and the dense gradient written once."""
+    texels; K2 the cotangents, the grid of the pixels whose cotangent is
+    not all zero (the kernel reads no other) and the dense gradient written
+    once."""
     where = f"step, {len(grids)} levels"
     shapes = [tuple(l.shape[:2]) for l in layers]
     npx = sum(g.numel() // 2 for g in grids)
+    live_px = sum(int((c != 0).any(-1).sum()) for c in cots)
+    log(f"[kernel] K2 {where}: {live_px} of {npx} pixels with a nonzero "
+        f"cotangent")
     layers_cf = [l.permute(2, 0, 1)[None] for l in layers]
     opts = dict(mode="bilinear", padding_mode="border", align_corners=True)
 
@@ -1051,7 +1064,8 @@ def sampling_step(layers, grids, cots, add):
                      library_gather, npx * (8 + 12) + 12 * touched),
                     (f"K2_splat{suffix}{mode}", splat, splat_plain,
                      library_splat,
-                     npx * (12 + 8) + 12 * sum(a * b for a, b in tshapes))):
+                     npx * 12 + live_px * 8
+                     + 12 * sum(a * b for a, b in tshapes))):
                 err = check(k, fn(compute), plain(compute), f"{where} {at}")
                 ms = add(k, f"{where} {at}", err, lambda f=fn, c=compute: f(c),
                          lambda f=plain, c=compute: f(c),
@@ -1289,7 +1303,7 @@ def kernel_phase(pipe, state, batch, aux, launches):
     for i, grid in enumerate(batch.uv):
         v, h, w, _ = grid.shape
         with torch.no_grad():
-            pred = sample_texture(state.texture, grid)
+            pred = sample_texture(state.texture, [grid])[0]
         trunk_kernels(f"level {i}", pipe, pred, add)
         k9_kernels(f"level {i}", pipe, pred, add)
         # K1 / K2 at this level alone, checked; timed at step level below.
@@ -1315,7 +1329,7 @@ def kernel_phase(pipe, state, batch, aux, launches):
         if not fused:
             continue
         with torch.no_grad():
-            pred = sample_texture(state.texture, grid)
+            pred = sample_texture(state.texture, [grid])[0]
             encs = vgg_features(pipe.vgg_params, pred, list(fused),
                                 compute_dtype=torch.bfloat16,
                                 precision="default")

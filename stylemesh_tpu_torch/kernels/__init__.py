@@ -26,11 +26,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argument types (every entry point returns an int status)
 _SIGNATURES = {
-    # level table (grids, outputs or cotangents, rows, cols[, K2's
-    # aggregation masks]), levels, tile width's log2, layer table (ptrs,
-    # hs, ws, h_globals, row0s; the last two NULL unbanded), layers, bf16
-    "stylemesh_gather": [_P] * 4 + [_I, _I] + [_P] * 5 + [_I, _I, _P],
-    "stylemesh_splat": [_P] * 5 + [_I, _I] + [_P] * 5 + [_I, _I, _P],
+    # level table (grids, outputs or cotangents, pixel counts), levels,
+    # layer table (ptrs, hs, ws, h_globals, row0s; the last two NULL
+    # unbanded), layers, bf16
+    "stylemesh_gather": [_P] * 3 + [_I] + [_P] * 5 + [_I, _I, _P],
+    "stylemesh_splat": [_P] * 3 + [_I] + [_P] * 5 + [_I, _I, _P],
     "stylemesh_gram_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "stylemesh_gram_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "stylemesh_conv3x3": [_P, _P, _P, _P] + [_I] * 9 + [_P],

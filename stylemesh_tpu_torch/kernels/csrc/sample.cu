@@ -14,14 +14,12 @@
 // dense gradient is filled and written once a step and nothing adds
 // per-level gradients afterwards.
 //
-// Level table: the blocks of a launch walk the levels in order, each level
-// cut into pixel tiles of 256 threads, (1 << tile_w_log2) pixels wide; a
-// level's pixels [..., H, W] are `rows` rows of `cols` (rows = 1 and a tile
-// 256 wide give runs of 256 consecutive pixels, the host's choice: 2-D
-// tiles of 32x8, 16x16 and 8x32 pixels were 1-5% slower at the bench
-// shapes on an H100, for both kernels). tile0 holds the prefix sums of the
-// levels' tiles, so a block finds its level by a scan of at most
-// SM_MAX_LEVELS entries. A level of zero pixels has no tile.
+// Level table: the blocks of a launch walk the levels in order, each block
+// a run of 256 consecutive pixels of one level (2-D tiles of 32x8, 16x16 and
+// 8x32 pixels were 1-5% slower at the bench shapes on an H100, for both
+// kernels). tile0 holds the prefix sums of the levels' blocks, so a block
+// finds its level by a scan of at most SM_MAX_LEVELS entries. A level of
+// zero pixels has no block.
 //
 // What bounds them on an H100: memory and, for the splat, the atomics. Per
 // pixel the gather reads 8 grid bytes and 4 corners x 12 texel bytes per
@@ -42,17 +40,15 @@
 // texel's 8-byte-aligned pair and one scalar atomic (red_texel), two atomic
 // instructions instead of three. Where a texel covers several screen
 // pixels (the coarse layers), several lanes of a warp add into one texel,
-// and the L2 would serialise their atomics: for each layer whose bit is set
-// in the level's `agg` mask, the lanes of a warp that share a corner's texel
-// (__match_any_sync on its flat index) sum their contributions by shuffles
-// in a fixed tree over their lane order, and the group's first lane alone
-// issues the atomics (splat_corner). The host sets the bit for every layer
-// (grid_sample.py::SPLAT_GROUP_BELOW): at the bench shapes on an H100 it
-// took the 512^2 layer's time from 0.152 to 0.085 ms and the 1024^2
-// layer's from 0.141 to 0.109-0.130, cost nothing measurable on the 4096^2
-// layer and 1.5% on the 2048^2 one, and so beat setting it only where a
-// layer has fewer texels than the level has pixels per view (0.546 against
-// 0.590 ms for all four layers; tools/torch_sampling_variants.py). The sum
+// and the L2 would serialise their atomics: on every layer, the lanes of a
+// warp that share a corner's texel (__match_any_sync on its flat index) sum
+// their contributions by shuffles in a fixed tree over their lane order, and
+// the group's first lane alone issues the atomics (splat_corner). At the
+// bench shapes on an H100 this took the 512^2 layer's time from 0.152 to
+// 0.085 ms and the 1024^2 layer's from 0.141 to 0.109-0.130, cost nothing
+// measurable on the 4096^2 layer and 1.5% on the 2048^2 one, and so beat
+// aggregating only where a layer has fewer texels than the level has pixels
+// per view (0.546 against 0.590 ms for all four layers; PERF.md). The sum
 // equals the sequential scatter-add only up to summation order, as with
 // plain atomics.
 //
@@ -105,13 +101,9 @@ struct Layers {
 
 struct Levels {
   const float2* grid[SM_MAX_LEVELS];
-  float* px[SM_MAX_LEVELS];  // K1: the output [rows, cols, 3]; K2: the cotangent
-  int rows[SM_MAX_LEVELS];
-  int cols[SM_MAX_LEVELS];
-  int tiles_x[SM_MAX_LEVELS];
+  float* px[SM_MAX_LEVELS];  // K1: the output [npx, 3]; K2: the cotangent
+  int npx[SM_MAX_LEVELS];
   int tile0[SM_MAX_LEVELS + 1];  // first block of each level; [n..] all blocks
-  unsigned agg[SM_MAX_LEVELS];   // K2: bit l = warp-aggregate layer l
-  int tile_w_log2;
   int n;
 };
 
@@ -121,21 +113,15 @@ struct Pixel {
   bool valid;
 };
 
-// this thread's pixel: the block's level and tile, the thread's place in it
+// this thread's pixel: the block's level and run, the thread's place in it
 __device__ __forceinline__ Pixel pixel_of(const Levels& lv) {
   const int b = blockIdx.x;
   int l = 0;
   while (b >= lv.tile0[l + 1]) ++l;
-  const int k = b - lv.tile0[l];
-  const int ty = k / lv.tiles_x[l];
-  const int tx = k - ty * lv.tiles_x[l];
-  const int s = lv.tile_w_log2;
-  const int x = (tx << s) + (threadIdx.x & ((1 << s) - 1));
-  const int y = ty * (SM_THREADS >> s) + (threadIdx.x >> s);
   Pixel p;
   p.level = l;
-  p.valid = x < lv.cols[l] && y < lv.rows[l];
-  p.i = (long long)y * lv.cols[l] + x;
+  p.i = (long long)(b - lv.tile0[l]) * SM_THREADS + threadIdx.x;
+  p.valid = p.i < lv.npx[l];
   return p;
 }
 
@@ -336,14 +322,14 @@ __device__ __forceinline__ void reduce_group(unsigned lanes, unsigned peers,
 // One corner of one layer for this pixel: adds (g * wr) * wc, in the bf16
 // mode bf16(wr * g) * wc (g, wr and wc already rounded: the TPU kernel's bf16
 // row_w * g times the bf16 col_w, a product exact in float32), to texel i;
-// a corner of weight zero or outside the band adds nothing. With `group`,
-// every lane of `lanes` calls this together and the lanes adding into one
-// texel send one sum.
+// a corner of weight zero or outside the band adds nothing. Every lane of
+// `lanes` calls this together, and the lanes adding into one texel send one
+// sum.
 template <bool BF16>
 __device__ __forceinline__ void splat_corner(float* t, bool in, int i, float wr,
                                              float wc, bool round, float g0,
                                              float g1, float g2,
-                                             unsigned lanes, bool group) {
+                                             unsigned lanes) {
   const bool use = in && wr != 0.0f && wc != 0.0f;
   float c0 = g0 * wr, c1 = g1 * wr, c2 = g2 * wr;
   if (BF16 && round) {
@@ -354,13 +340,11 @@ __device__ __forceinline__ void splat_corner(float* t, bool in, int i, float wr,
   c0 *= wc;
   c1 *= wc;
   c2 *= wc;
-  if (group) {
-    const int lane = threadIdx.x & 31;
-    // a lane that adds nothing gets a key of its own
-    const unsigned peers = __match_any_sync(lanes, use ? i : -1 - lane);
-    reduce_group(lanes, peers, c0, c1, c2);
-    if (peers & ((1u << lane) - 1u)) return;  // not the group's first lane
-  }
+  const int lane = threadIdx.x & 31;
+  // a lane that adds nothing gets a key of its own
+  const unsigned peers = __match_any_sync(lanes, use ? i : -1 - lane);
+  reduce_group(lanes, peers, c0, c1, c2);
+  if (peers & ((1u << lane) - 1u)) return;  // not the group's first lane
   if (use) red_texel(t, i, c0, c1, c2);
 }
 
@@ -382,7 +366,6 @@ __global__ void __launch_bounds__(SM_THREADS) splat_kernel(Levels lv,
     g1 = bf16r(g1);
     g2 = bf16r(g2);
   }
-  const unsigned agg = lv.agg[p.level];  // the same for the whole block
   for (int l = 0; l < grads.n; ++l) {
     Corners c = corners(g.x, g.y, BANDED ? grads.h_global[l] : grads.h[l],
                         grads.w[l]);
@@ -398,15 +381,14 @@ __global__ void __launch_bounds__(SM_THREADS) splat_kernel(Levels lv,
       ux = 1.0f - c.wx;
       uy = 1.0f - c.wy;
     }
-    const bool group = (agg >> l) & 1u;
     splat_corner<BF16>(t, b.in0, c.i00 - b.off, uy, ux, round, g0, g1, g2,
-                       lanes, group);
+                       lanes);
     splat_corner<BF16>(t, b.in0, c.i01 - b.off, uy, wx, round, g0, g1, g2,
-                       lanes, group);
+                       lanes);
     splat_corner<BF16>(t, b.in1, c.i10 - b.off, wy, ux, round, g0, g1, g2,
-                       lanes, group);
+                       lanes);
     splat_corner<BF16>(t, b.in1, c.i11 - b.off, wy, wx, round, g0, g1, g2,
-                       lanes, group);
+                       lanes);
   }
 }
 
@@ -429,27 +411,18 @@ static Layers make_layers(void* const* ptrs, const int* hs, const int* ws,
 // the level table; returns the number of blocks, or -1 for a table the
 // kernels do not take
 static long long make_levels(Levels* lv, void* const* grids, void* const* pxs,
-                             const int* rows, const int* cols,
-                             const unsigned* aggs, int n_levels,
-                             int tile_w_log2) {
-  if (n_levels < 1 || n_levels > SM_MAX_LEVELS || tile_w_log2 < 0 ||
-      tile_w_log2 > 8)
-    return -1;
-  const int tw = 1 << tile_w_log2, th = SM_THREADS >> tile_w_log2;
+                             const int* npxs, int n_levels) {
+  if (n_levels < 1 || n_levels > SM_MAX_LEVELS) return -1;
   long long tiles = 0;
   lv->n = n_levels;
-  lv->tile_w_log2 = tile_w_log2;
   for (int i = 0; i < SM_MAX_LEVELS; ++i) {
     const bool used = i < n_levels;
-    if (used && (rows[i] < 0 || cols[i] < 0)) return -1;
+    if (used && npxs[i] < 0) return -1;
     lv->grid[i] = used ? (const float2*)grids[i] : nullptr;
     lv->px[i] = used ? (float*)pxs[i] : nullptr;
-    lv->rows[i] = used ? rows[i] : 0;
-    lv->cols[i] = used ? cols[i] : 0;
-    lv->tiles_x[i] = (lv->cols[i] + tw - 1) / tw;
-    lv->agg[i] = used && aggs ? aggs[i] : 0u;
+    lv->npx[i] = used ? npxs[i] : 0;
     lv->tile0[i] = (int)tiles;
-    tiles += (long long)lv->tiles_x[i] * ((lv->rows[i] + th - 1) / th);
+    tiles += ((long long)lv->npx[i] + SM_THREADS - 1) / SM_THREADS;
     if (tiles > INT_MAX) return -1;
   }
   lv->tile0[SM_MAX_LEVELS] = (int)tiles;
@@ -480,21 +453,20 @@ static int launch_splat(const Levels& lv, long long blocks,
   return (int)cudaGetLastError();
 }
 
-// K1 over a level table: for each level k, outs[k] [rows_k, cols_k, 3] =
-// sum over the layers of the bilinear sample at grids[k] [rows_k, cols_k, 2].
+// K1 over a level table: for each level k, outs[k] [npxs[k], 3] = sum over
+// the layers of the bilinear sample at grids[k] [npxs[k], 2].
 // Layers: ptrs / hs / ws; banded when row0s is given (band_hs in hs, each
 // full layer's rows in h_globals; 0 <= row0, row0 + band_h <= h_global).
 // bf16: 0 = the exact float32 function, 1 = the bf16 mode.
 extern "C" int stylemesh_gather(void* const* grids, void* const* outs,
-                                const int* rows, const int* cols, int n_levels,
-                                int tile_w_log2, void* const* layer_ptrs,
+                                const int* npxs, int n_levels,
+                                void* const* layer_ptrs,
                                 const int* hs, const int* ws,
                                 const int* h_globals, const int* row0s,
                                 int n_layers, int bf16, void* stream) {
   if (n_layers < 1 || n_layers > SM_MAX_LAYERS) return (int)cudaErrorInvalidValue;
   Levels lv;
-  long long blocks = make_levels(&lv, grids, outs, rows, cols, nullptr,
-                                 n_levels, tile_w_log2);
+  long long blocks = make_levels(&lv, grids, outs, npxs, n_levels);
   if (blocks < 0) return (int)cudaErrorInvalidValue;
   if (blocks == 0) return 0;
   Layers layers = make_layers(layer_ptrs, hs, ws, n_layers, h_globals, row0s);
@@ -505,19 +477,16 @@ extern "C" int stylemesh_gather(void* const* grids, void* const* outs,
 
 // K2 over a level table: adds every level's splat of its cotangent cots[k]
 // into the zeroed gradients grad_ptrs (one per layer, or band when row0s is
-// given, as in stylemesh_gather); aggs[k] bit l: warp-aggregate layer l at
-// level k.
+// given, as in stylemesh_gather).
 extern "C" int stylemesh_splat(void* const* grids, void* const* cots,
-                               const int* rows, const int* cols,
-                               const unsigned* aggs, int n_levels,
-                               int tile_w_log2, void* const* grad_ptrs,
+                               const int* npxs, int n_levels,
+                               void* const* grad_ptrs,
                                const int* hs, const int* ws,
                                const int* h_globals, const int* row0s,
                                int n_layers, int bf16, void* stream) {
   if (n_layers < 1 || n_layers > SM_MAX_LAYERS) return (int)cudaErrorInvalidValue;
   Levels lv;
-  long long blocks = make_levels(&lv, grids, cots, rows, cols, aggs, n_levels,
-                                 tile_w_log2);
+  long long blocks = make_levels(&lv, grids, cots, npxs, n_levels);
   if (blocks < 0) return (int)cudaErrorInvalidValue;
   if (blocks == 0) return 0;
   Layers grads = make_layers(grad_ptrs, hs, ws, n_layers, h_globals, row0s);

@@ -12,7 +12,7 @@ from torch import nn
 
 from stylemesh_tpu_torch import resolve_device
 from stylemesh_tpu_torch.ops.color import GATYS_MAX, GATYS_MIN
-from stylemesh_tpu_torch.ops.grid_sample import sample_layers, sample_levels
+from stylemesh_tpu_torch.ops.grid_sample import sample_levels
 
 
 class Texture(nn.Module):
@@ -64,15 +64,12 @@ def clamp_texture(texture: Texture) -> Texture:
 
 
 def sample_texture(texture: Texture, grids, compute="f32"):
-    """Sample all layers at a grid ``[..., 2]`` and sum; given a list of
-    grids (a step's UV pyramid levels), one render per grid. On the card
-    one K1 launch renders all grids and one K2 launch splats all their
-    gradients in the backward. ``compute``: ``"f32"`` (exact) or
+    """For each grid ``[..., 2]`` of the list ``grids`` (a step's UV pyramid
+    levels), all layers sampled at it and summed: one render per grid. On
+    the card one K1 launch renders all grids and one K2 launch splats all
+    their gradients in the backward. ``compute``: ``"f32"`` (exact) or
     ``"bf16"``, the kernels' bf16 mode (``ops/grid_sample.py``)."""
-    layers = list(texture.layers)
-    if torch.is_tensor(grids):
-        return sample_layers(layers, grids, compute)
-    return sample_levels(layers, list(grids), compute)
+    return sample_levels(list(texture.layers), list(grids), compute)
 
 
 def texture_regularizer(texture: Texture, weights):
@@ -91,4 +88,4 @@ def texture_image(texture: Texture):
     xs = torch.linspace(-1.0, 1.0, w, device=device)
     ys = torch.linspace(-1.0, 1.0, h, device=device)
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
-    return sample_texture(texture, torch.stack([gx, gy], dim=-1))
+    return sample_texture(texture, [torch.stack([gx, gy], dim=-1)])[0]

@@ -51,16 +51,6 @@ from stylemesh_tpu_torch import kernels
 MAX_LAYERS = 8  # SM_MAX_LAYERS in kernels/csrc/sample.cu
 MAX_LEVELS = 8  # SM_MAX_LEVELS
 COMPUTE_MODES = ("f32", "bf16")
-# Pixel tiles of the kernels' 256-thread blocks: their width in pixels (a
-# power of 2; 256 = runs of consecutive pixels, whatever the grid's width).
-# K2 warp-aggregates layer l at a level when the layer has fewer texels than
-# SPLAT_GROUP_BELOW times the level's pixels per view (0: never, inf: every
-# layer). At the bench shapes on an H100 runs of 256 were the fastest tiles
-# for both kernels, and aggregation on every layer the fastest K2
-# (tools/torch_sampling_variants.py; PERF.md).
-GATHER_TILE_W = 256
-SPLAT_TILE_W = 256
-SPLAT_GROUP_BELOW = float("inf")
 
 
 def _corner_indices_weights(grid, h, w):
@@ -354,31 +344,13 @@ def _check_bands(band_shapes, row0s, heights):
                              f"a layer of {h} rows")
 
 
-def _pixel_rows(grid, tile_w):
-    """(rows, cols) of a grid's pixels as the kernels tile them: rows of the
-    grid's width, or, with tiles 256 wide, one row of all its pixels (runs
-    of 256 consecutive pixels)."""
-    npx = grid.numel() // 2
-    if tile_w == 256 or grid.dim() < 3 or npx == 0:
-        return 1, npx
-    return npx // grid.shape[-2], grid.shape[-2]
-
-
-def _level_table(grids, pixels, tile_w):
+def _level_table(grids, pixels):
     """The C level table: grid and per-pixel array (output or cotangent)
-    pointers, rows and cols of each level."""
+    pointers, and the pixel count of each level."""
     n = len(grids)
-    dims = [_pixel_rows(g, tile_w) for g in grids]
     return ((ctypes.c_void_p * n)(*[g.data_ptr() for g in grids]),
             (ctypes.c_void_p * n)(*[p.data_ptr() for p in pixels]),
-            (ctypes.c_int * n)(*[r for r, _ in dims]),
-            (ctypes.c_int * n)(*[c for _, c in dims]))
-
-
-def _tile_log2(tile_w):
-    if tile_w not in (1, 2, 4, 8, 16, 32, 64, 128, 256):
-        raise ValueError(f"tile width must be a power of 2 up to 256, got {tile_w}")
-    return tile_w.bit_length() - 1
+            (ctypes.c_int * n)(*[g.numel() // 2 for g in grids]))
 
 
 def _layer_table(tensors):
@@ -398,20 +370,6 @@ def _band_table(band):
     return (ctypes.c_int * n)(*heights), (ctypes.c_int * n)(*row0s)
 
 
-def _aggregated_layers(grids, shapes):
-    """Per level, the bit mask of the layers that K2 warp-aggregates there:
-    those of fewer texels (of the whole layer, ``shapes``) than
-    ``SPLAT_GROUP_BELOW`` times the level's pixels per view."""
-    masks = []
-    for grid in grids:
-        per_view = grid.numel() // 2
-        if grid.dim() >= 4 and grid.shape[0]:
-            per_view //= grid.shape[0]
-        masks.append(sum(1 << l for l, (h, w) in enumerate(shapes)
-                         if h * w < SPLAT_GROUP_BELOW * per_view))
-    return (ctypes.c_uint * len(grids))(*masks)
-
-
 def _count(wrapper, compute, prefix=""):
     attr = prefix + ("bf16_launches" if compute == "bf16" else "launches")
     setattr(wrapper, attr, getattr(wrapper, attr) + 1)
@@ -427,8 +385,8 @@ def _gather(layers, grids, compute, band=None):
     if not any(g.numel() for g in grids):
         return outs, False
     kernels.launch("stylemesh_gather", grids[0].device,
-                   *_level_table(grids, outs, GATHER_TILE_W), len(grids),
-                   _tile_log2(GATHER_TILE_W), *_layer_table(layers),
+                   *_level_table(grids, outs), len(grids),
+                   *_layer_table(layers),
                    *_band_table(band), len(layers), int(compute == "bf16"))
     return outs, True
 
@@ -452,12 +410,9 @@ def _splat(cots, grids, shapes, compute, band=None):
     _check_levels(grads, grids)
     if not any(g.numel() for g in grids):
         return grads, False
-    full = shapes if band is None else [(h, w) for (_, w), h in
-                                        zip(shapes, band[1])]
     kernels.launch("stylemesh_splat", grids[0].device,
-                   *_level_table(grids, cots, SPLAT_TILE_W),
-                   _aggregated_layers(grids, full), len(grids),
-                   _tile_log2(SPLAT_TILE_W), *_layer_table(grads),
+                   *_level_table(grids, cots), len(grids),
+                   *_layer_table(grads),
                    *_band_table(band), len(grads), int(compute == "bf16"))
     return grads, True
 

@@ -561,7 +561,7 @@ def _log_image_grid(logger, state, batch, step):
     hw = tuple(batch.rgb.shape[1:3])
     # the pyramid level matching the content resolution
     uv = next((u for u in batch.uv if u.shape[1] == hw[0]), batch.uv[0])
-    pred = resize_bilinear(gatys_post(sample_texture(state.texture, uv)), hw)
+    pred = resize_bilinear(gatys_post(sample_texture(state.texture, [uv])[0]), hw)
     rgb = gatys_post(batch.rgb)
     mask3 = batch.mask.float().expand(-1, -1, -1, 3)
     angle3 = batch.angle_guidance.float().expand(-1, -1, -1, 3)

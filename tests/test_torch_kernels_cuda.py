@@ -191,20 +191,13 @@ def _level_inputs(cuda, seed):
     return layers, grids, cots
 
 
-@pytest.mark.parametrize("tile_w", [256, 32, 8])
-@pytest.mark.parametrize("group_below", [0.0, 1.0, float("inf")])
 @pytest.mark.parametrize("compute", ["f32", "bf16"])
-def test_levels_against_plain(cuda, monkeypatch, compute, group_below, tile_w):
+def test_levels_against_plain(cuda, compute):
     """K1/K2 over a level table (one launch each) against the plain
     versions per level and summed over the levels: gather 1e-5, splat 1e-4
     (the 4x4 layer takes ~500 contributions per texel, summed in warp
-    groups and atomics in another order than ``index_add_``), with K2's
-    warp aggregation off, on the coarse layers, and on every layer, and
-    pixel tiles of runs of 256, 32x8 and 8x32; all-zero cotangents leave
-    the gradients zero."""
-    monkeypatch.setattr(gs, "GATHER_TILE_W", tile_w)
-    monkeypatch.setattr(gs, "SPLAT_TILE_W", tile_w)
-    monkeypatch.setattr(gs, "SPLAT_GROUP_BELOW", group_below)
+    groups and atomics in another order than ``index_add_``); all-zero
+    cotangents leave the gradients zero."""
     layers, grids, cots = _level_inputs(cuda, 7)
     shapes = [tuple(l.shape[:2]) for l in layers]
     before = gs.launch_counts()
@@ -222,14 +215,12 @@ def test_levels_against_plain(cuda, monkeypatch, compute, group_below, tile_w):
     assert all(z.abs().max().item() == 0.0 for z in zero)
 
 
-@pytest.mark.parametrize("group_below", [0.0, float("inf")])
 @pytest.mark.parametrize("compute", ["f32", "bf16"])
-def test_banded_levels_against_plain(cuda, monkeypatch, compute, group_below):
+def test_banded_levels_against_plain(cuda, compute):
     """The banded K1/K2 over a level table, for the 2 bands of D = 2 (the
     4x4 layer's bands hold 2 rows): each band against its plain version
     (gather 1e-5, splat 1e-4), the partials summed against the unbanded
     K1 and the bands' gradients stacked against the unbanded K2."""
-    monkeypatch.setattr(gs, "SPLAT_GROUP_BELOW", group_below)
     layers, grids, cots = _level_inputs(cuda, 8)
     layers[0] = layers[0][:60].clone()
     heights = [l.shape[0] for l in layers]
@@ -295,9 +286,8 @@ def _fills_intact(buf, view, guard=4096, fill=12345.0):
     assert (buf[guard + view.numel():] == fill).all()
 
 
-@pytest.mark.parametrize("tile_w", [256, 16])
 @pytest.mark.parametrize("banded", [False, True])
-def test_levels_write_only_their_outputs(cuda, tile_w, banded):
+def test_levels_write_only_their_outputs(cuda, banded):
     """Guards around every K1 output and every K2 gradient (or band) of a
     level table at ragged shapes stay untouched: the C entries called with
     tensors that lie inside larger buffers."""
@@ -311,15 +301,13 @@ def test_levels_write_only_their_outputs(cuda, tile_w, banded):
     grad_bufs = [_guarded(cuda, tuple(l.shape)) for l in layers]
     dev = grids[0].device
     kernels.launch("stylemesh_gather", dev,
-                   *gs._level_table(grids, [v for _, v in out_bufs], tile_w),
-                   len(grids), gs._tile_log2(tile_w), *gs._layer_table(layers),
+                   *gs._level_table(grids, [v for _, v in out_bufs]),
+                   len(grids), *gs._layer_table(layers),
                    *gs._band_table(band), len(layers), 0)
     grads = [v for _, v in grad_bufs]
-    full = [(h, l.shape[1]) for l, h in zip(layers, heights)]
     kernels.launch("stylemesh_splat", dev,
-                   *gs._level_table(grids, cots, tile_w),
-                   gs._aggregated_layers(grids, full), len(grids),
-                   gs._tile_log2(tile_w), *gs._layer_table(grads),
+                   *gs._level_table(grids, cots), len(grids),
+                   *gs._layer_table(grads),
                    *gs._band_table(band), len(grads), 0)
     for buf, view in out_bufs + grad_bufs:
         _fills_intact(buf, view)

@@ -52,7 +52,7 @@ def test_sample_value_and_gradient(n_layers):
     (jgrad,) = jvjp(jnp.asarray(ct))
 
     ttex = texture_from_jax(layers, device="cpu")
-    tout = ttexture.sample_texture(ttex, torch.from_numpy(grid))
+    tout = ttexture.sample_texture(ttex, [torch.from_numpy(grid)])[0]
     tgrads = torch.autograd.grad(tout, list(ttex.layers), torch.from_numpy(ct))
 
     np.testing.assert_allclose(tout.detach().numpy(), np.asarray(jout), **F32)
@@ -213,7 +213,7 @@ def test_bf16_mode_plain_versions():
 
     ttex = texture_from_jax(layers, device="cpu")
     for compute in ("f32", "bf16"):
-        out = ttexture.sample_texture(ttex, tg, compute=compute)
+        out = ttexture.sample_texture(ttex, [tg], compute=compute)[0]
         grads = torch.autograd.grad(out, list(ttex.layers), torch.from_numpy(ct))
         plain = (tgs.splat_layers_plain_bf16 if compute == "bf16"
                  else tgs.splat_layers_plain)(

@@ -8,9 +8,9 @@ adds in one profiled step.
 import path, so ``stylemesh_tpu_torch`` and its ``chip_smoke.py`` come from
 there, and its kernels are built into its own ``build/torch_ext``. Running
 it on two checkouts in turns (A B B A), each in its own process on one
-card, compares two commits. The workload is ``chip_smoke.py``'s bench step
-(V = 4, 4096^2 x 4 atlas, UV levels 256..784, bf16 VGG, float32 K1/K2,
-Adam), 2 warm-up steps, then ``--steps`` timed steps (host clock ending in
+card, compares two commits (each must have ``chip_smoke.bench_workload``).
+The workload is ``chip_smoke.py``'s bench step (V = 4, 4096^2 x 4 atlas, UV
+levels 256..784, bf16 VGG, float32 K1/K2, Adam), 2 warm-up steps, then ``--steps`` timed steps (host clock ending in
 a synchronize), then one step under ``torch.profiler``. Prints one JSON
 line; exits nonzero without CUDA.
 """
@@ -36,16 +36,9 @@ def main(argv):
     if not torch.cuda.is_available():
         print("torch_step_ab: CUDA is not available", file=sys.stderr)
         return 1
-    from chip_smoke import bench_config, style_image
-    from stylemesh_tpu_torch.data.synthetic import synthetic_view_batch
-    from stylemesh_tpu_torch.models.pipeline import TexturePipeline
-    from stylemesh_tpu_torch.models.vgg import init_vgg_params
+    from chip_smoke import bench_workload
 
-    batch = synthetic_view_batch(
-        num_views=4, content_hw=(256, 341), level_heights=(256, 432, 608, 784),
-        aspect=1280.0 / 960.0, min_depth=0.25, seed=0, depth_range=(0.4, 7.0))
-    pipe = TexturePipeline(bench_config(), init_vgg_params(rng=0, scale=0.05),
-                           style_image(512, 683))
+    pipe, batch = bench_workload()
     state = pipe.init()
     aux = pipe.prepare_batch(batch)
     for _ in range(2):
