@@ -29,9 +29,17 @@ phase fails. Phases:
 4. run loop: a ScanNet-layout scene of 16 views (480x640 photos, UV levels
    256..784) written to a temporary directory, trained by the port's CLI
    (``--preset scannet_full --bfloat16``: K1/K2 in their bf16 mode, the
-   kernel trunk) for one epoch of batches of 4 views repeated twice; the
-   losses must be finite, ``texture.npz`` written, K1/K2's bf16 mode
-   launched once each a train step, and K3-K8 launched;
+   kernel trunk, ``--tb_logs``) for one epoch of batches of 4 views
+   repeated twice; the losses must be finite, ``texture.npz`` written,
+   K1/K2's bf16 mode launched once each a train step, and K3-K8 launched.
+   The run ends with the CLI's post chain: every view's ``styled/<idx>.png``,
+   ``styled.mp4`` of 16 frames, the eval JSON's six accuracies finite with
+   ``lpips_calibrated`` false, the ``post_*`` phases in ``wallclock.json``
+   and an event file must exist, and the post chain must launch float32 K1
+   (2 render launches, 96 warps) and nothing else, apart from the train
+   steps. The same post chain then runs on the CPU (plain versions) from
+   the exported texture: its frames within 1/255 of the card's, its eval
+   of the card's frames within 1e-4 (MSE) and 1e-3 (LPIPS) relative;
 5. K9: the same CLI call with ``STYLEMESH_CONV_FLIPVJP=0
    STYLEMESH_FAST_CONV=1`` (the unfused trunk), one step per batch; K9 must
    be launched and K5-K8 not, and the profile of a bench step under the same
@@ -46,7 +54,9 @@ phase fails. Phases:
    again with ``--kernel_compute f32``: every rank must launch the banded
    K1/K2 of its mode once a train step and no unbanded K1/K2, the first
    step's losses must lie within 1e-4 relative of the one-rank run's, and
-   the exported texture must have the full shapes and be finite;
+   the exported texture must have the full shapes and be finite; the f32
+   run also runs the post chain, on rank 0 alone (one eval, one set of
+   frames, finite accuracies);
    [dp] ``--data_parallel`` over 2 ranks, the first step's losses within
    1e-4; then ``--preset scannet_dip`` (``gram_mode='average'``) over 2
    ranks: finite losses and the Gram cache's count equal to one rank's;
@@ -72,7 +82,11 @@ phase fails. Phases:
    sum against the unbanded K1/K2), then all of them at step level, as the
    main path calls them: one launch over the 4 levels each, against their
    plain versions, timed (K2 with its zero fill; the banded forms for rank
-   0's bands of D = 2).
+   0's bands of D = 2); K1 at the post chain's shapes: the render (8 views
+   of the 784-px UV level over the 4 layers, one launch) and the eval's
+   warps (8 launches of one 3-channel 256x341 image each, grids with
+   +-inf, NaN, huge and border entries), each against its plain version
+   and timed per call.
 
 The last two lines of standard output are the ``{"kernels": [...]}`` JSON
 line and the ``{"ok": true, "device": ...}`` JSON line.
@@ -104,6 +118,7 @@ from stylemesh_tpu_torch.models.texture import sample_texture
 from stylemesh_tpu_torch.models.vgg import init_vgg_params, vgg_features
 from stylemesh_tpu_torch.ops import conv_kernels, gram_kernels, head_kernels
 from stylemesh_tpu_torch.ops import grid_sample as gs
+from stylemesh_tpu_torch.optimize import RENDER_CHUNK
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12   # dense bf16 tensor-core peak
@@ -172,6 +187,14 @@ KERNELS = {  # launches: (wrapper, attribute holding its launch count)
         source=SAMPLE_SRC, replaces="stylemesh_tpu/ops/grid_sample.py:210",
         launches=(gs.splat_levels_banded, "banded_bf16_launches"),
         rel_tol=1e-4),
+    # K1 (f32) on the post chain's paths; its launches there are read from
+    # the CLI's post-chain line, by phase
+    "K1_gather_post_render": dict(
+        source=SAMPLE_SRC, replaces="stylemesh_tpu/ops/splat_pallas.py:486",
+        launches=None, post_phase="post_render", rel_tol=1e-5),
+    "K1_gather_warp": dict(
+        source=SAMPLE_SRC, replaces="stylemesh_tpu/ops/splat_pallas.py:486",
+        launches=None, post_phase="post_eval", rel_tol=1e-5),
 }
 # the kernels each driven path must launch
 BENCH_KERNELS = ("K1_gather", "K2_splat", "K3_gram_fwd", "K4_gram_bwd",
@@ -272,11 +295,13 @@ def cuda_ms(fn, reps=PLAIN_REPS):
 
 def reset_counts():
     for spec in KERNELS.values():
-        setattr(*spec["launches"], 0)
+        if spec["launches"] is not None:
+            setattr(*spec["launches"], 0)
 
 
 def read_counts():
-    return {name: getattr(*spec["launches"]) for name, spec in KERNELS.items()}
+    return {name: getattr(*spec["launches"]) for name, spec in KERNELS.items()
+            if spec["launches"] is not None}
 
 
 # ---------------------------------------------------------------- phase 1
@@ -542,12 +567,16 @@ def write_scene(root, n=16):
     return str(style)
 
 
-def cli_argv(tag, root, style, index_repeat, extra=(), preset="scannet_full"):
+def cli_argv(tag, root, style, index_repeat, extra=(), preset="scannet_full",
+             post=False):
+    """The CLI's arguments for a run on the scene; with ``post`` the run
+    ends with the post chain (the CLI's default), else
+    ``--no_post_steps``."""
     return ["--preset", preset, "--root_path", str(root), "--scene", SCENE,
             "--style_image_path", style, "--bfloat16", "--batch_size", "4",
             "--max_epochs", "1", "--index_repeat", str(index_repeat),
-            "--no_post_steps", "--log_dir", str(root / f"runs_{tag}"),
-            *extra]
+            *([] if post else ["--no_post_steps"]),
+            "--log_dir", str(root / f"runs_{tag}"), *extra]
 
 
 def read_metrics(log_dir):
@@ -585,12 +614,15 @@ def run_result(tag, log_dir, exports=("texture.npz",)):
 
 def cli_run(tag, root, style, index_repeat, required, forbidden=(), extra=(),
             preset="scannet_full", exports=("texture.npz",),
-            per_step=("gather_bf16", "splat_bf16")):
+            per_step=("gather_bf16", "splat_bf16"), post=False):
     """One CLI training run on the scene, on one rank in this process; the
     launch counts of this run alone (set to 0 just before it, read just
     after), and the run's closing line (``train``): its train steps must
-    launch each sampling kernel of ``per_step`` once a step."""
-    argv = cli_argv(tag, root, style, index_repeat, extra, preset)
+    launch each sampling kernel of ``per_step`` once a step. With ``post``
+    the run ends with the post chain (:func:`check_post`), whose float32
+    K1 launches must be all the run's but the epoch texture image's (the
+    train steps and the validation run K1 in its bf16 mode)."""
+    argv = cli_argv(tag, root, style, index_repeat, extra, preset, post)
     log(f"[{tag}] python -m stylemesh_tpu_torch.cli " + " ".join(argv))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -616,8 +648,130 @@ def cli_run(tag, root, style, index_repeat, required, forbidden=(), extra=(),
     for name in forbidden:
         if counts[name] != 0:
             raise RuntimeError(f"[{tag}] {name} was launched {counts[name]} times")
+    post_result = None
+    if post:
+        post_result = check_post(tag, log_dir, out.getvalue(),
+                                 tb="--tb_logs" in extra)
+        # besides the post chain, each epoch's texture image
+        # (``texture_image``, one launch) runs K1 in float32
+        f32 = sum(n.get("gather", 0) for n in post_result["launches"].values())
+        epochs = int(argv[argv.index("--max_epochs") + 1])
+        if (counts["K1_gather"] != f32 + epochs
+                or rank_line["train_launches"]["gather"]):
+            raise RuntimeError(f"[{tag}] float32 K1 launched {counts['K1_gather']}"
+                               f" times, the post chain {f32}")
     return dict(counts=counts, steps=result["steps"], log_dir=log_dir,
-                state=state, train=rank_line)
+                state=state, train=rank_line, argv=argv, post=post_result)
+
+
+POST_LAUNCHES = re.compile(r"^post-chain launches: (\{.*\})$", re.M)
+
+
+def check_post(tag, log_dir, out, views=16, tb=False):
+    """Check the post chain of a CLI run: every view's styled frame, a
+    video of ``views`` frames, one eval JSON with the six accuracies finite
+    and ``lpips_calibrated`` false, the ``post_*`` phases in
+    ``wallclock.json``, with ``tb`` an event file, and the sampling kernels'
+    launches of its one post-chain line (``out``): float32 K1 only, one
+    launch per render chunk of 8 views and two per view and pairing in the
+    eval (colour and mask warps). Returns the phases' seconds and the
+    launches."""
+    import cv2
+
+    styled = sorted(os.listdir(os.path.join(log_dir, "styled")))
+    if styled != sorted(f"{i}.png" for i in range(views)):
+        raise RuntimeError(f"[{tag}] styled/ holds {styled}")
+    cap = cv2.VideoCapture(os.path.join(log_dir, "styled.mp4"))
+    frames = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    cap.release()
+    outputs = [f for f in os.listdir(log_dir) if f.endswith("_output.json")]
+    if frames != views or len(outputs) != 1:
+        raise RuntimeError(f"[{tag}] styled.mp4 of {frames} frames, eval "
+                           f"outputs {outputs}")
+    with open(os.path.join(log_dir, outputs[0])) as f:
+        results = json.load(f)
+    acc = results["accuracies"]
+    if (len(acc) != 6 or not all(math.isfinite(v) for v in acc.values())
+            or results["lpips_calibrated"] is not False):
+        raise RuntimeError(f"[{tag}] eval results {results}")
+    with open(os.path.join(log_dir, "wallclock.json")) as f:
+        wall = json.load(f)
+    phases = {k: wall[k]["total_s"] for k in ("post_render", "post_video",
+                                              "post_eval")}
+    if tb and not any(f.startswith("events.out.tfevents")
+                      for f in os.listdir(log_dir)):
+        raise RuntimeError(f"[{tag}] --tb_logs wrote no event file")
+    lines = POST_LAUNCHES.findall(out)
+    if len(lines) != 1 or out.count("reprojection eval:") != 1:
+        raise RuntimeError(f"[{tag}] {len(lines)} post-chain launch lines, "
+                           f"{out.count('reprojection eval:')} evals")
+    launches = json.loads(lines[0])
+    want = {"post_render": {"gather": -(-views // 8)},
+            "post_eval": {"gather": 2 * 3 * views}}
+    if launches != want:
+        raise RuntimeError(f"[{tag}] post-chain launches {launches}, "
+                           f"expected {want}")
+    log(f"[{tag}] post chain: {json.dumps(phases)} s; accuracies "
+        f"{json.dumps(acc)}; launches {json.dumps(launches)}")
+    return dict(phases=phases, launches=launches, accuracies=acc)
+
+
+def post_chain_on_cpu(tag, argv, log_dir):
+    """The post chain of a card run again on the CPU (plain versions): the
+    run's exported texture rendered and held against the card's frames
+    (within 1/255), and the eval of the card's styled folder held against
+    the card's eval (MSE within 1e-4 relative, LPIPS within 1e-3). Prints
+    the gaps found."""
+    from PIL import Image
+
+    from stylemesh_tpu_torch.data.loading import SceneCache
+    from stylemesh_tpu_torch.eval.reprojection import (
+        eval_reprojection_consistency,
+    )
+    from stylemesh_tpu_torch.optimize import (
+        build_lpips,
+        discover_scene,
+        render_styled_frames,
+    )
+    from stylemesh_tpu_torch.presets import apply_preset, explicit_cli_keys
+    from stylemesh_tpu_torch.utils.checkpoint import load_texture_npz
+
+    t0 = time.perf_counter()
+    args = cli.build_parser().parse_args(argv)
+    args = apply_preset(args, args.preset,
+                        explicit=explicit_cli_keys(cli.build_parser, argv))
+    run, _ = cli.configs_from_args(args)
+    cache = SceneCache(discover_scene(run), resize_size=run.resize_size)
+    texture = load_texture_npz(os.path.join(log_dir, "texture.npz"),
+                               device="cpu")
+    cpu_dir = os.path.join(log_dir, "cpu")
+    frames = render_styled_frames(texture, cache, os.path.join(cpu_dir, "styled"))
+    worst, differing = 0, 0
+    for path in frames:
+        a = np.asarray(Image.open(path), np.int16)
+        b = np.asarray(Image.open(os.path.join(
+            log_dir, "styled", os.path.basename(path))), np.int16)
+        worst = max(worst, int(np.abs(a - b).max()))
+        differing += int((a != b).any(-1).sum())
+    results = eval_reprojection_consistency(
+        cache, os.path.join(log_dir, "styled"), out_dir=cpu_dir, seed=42,
+        lpips_fn=build_lpips(run.vgg_model_path, device="cpu"),
+        save_images=False, device="cpu")
+    (card_json,) = [f for f in os.listdir(log_dir) if f.endswith("_output.json")]
+    with open(os.path.join(log_dir, card_json)) as f:
+        card = json.load(f)
+    if card["pairs"] != results["pairs"]:
+        raise RuntimeError(f"[{tag}] the CPU eval drew other pairs")
+    gaps = {k: abs(card["accuracies"][k] - v) / abs(v)
+            for k, v in results["accuracies"].items()}
+    log(f"[{tag} on the CPU] render: max |card - cpu| {worst}/255, "
+        f"{differing} pixels differ; eval relative gaps {json.dumps(gaps)} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    if worst > 1 or any(g > (1e-3 if k.endswith("_lpips") else 1e-4)
+                        for k, g in gaps.items()):
+        raise RuntimeError(f"[{tag}] the card's post chain differs from "
+                           f"the CPU's")
+    return dict(render_max_diff=worst, eval_gaps=gaps)
 
 
 class _Tee(io.StringIO):
@@ -679,11 +833,13 @@ def k9_step(pipe, state, batch, aux):
     return counts["K9_conv3x3_mxu"] / (STEPS + 2)
 
 
-def run_loop_phases(pipe, state, batch, aux):
-    """Phases 4, 5 and 6; returns {kernel: (launches, launches per step)}
-    for the kernels these runs drive first: K1/K2's bf16 mode (the CLI
-    run), K9 (the K9 CLI run; per step from the K9 bench step, since the
-    run's count also holds the style targets', content targets' and
+def run_loop_phases(pipe, state, batch, aux, smi):
+    """Phases 4, 5 and 6; returns {kernel: (launches, launches per step or
+    per timed call)} for the kernels these runs drive first: K1/K2's bf16
+    mode (the CLI run), K1 in the post chain (the CLI run: the render, one
+    launch per chunk of 8 views; the eval's warps, timed in chunks of 8
+    launches), K9 (the K9 CLI run; per step from the K9 bench step, since
+    the run's count also holds the style targets', content targets' and
     validation's launches) and the banded K1/K2 (rank 0 of the atlas
     runs)."""
     with tempfile.TemporaryDirectory(prefix="stylemesh_chip_smoke_") as tmp:
@@ -692,12 +848,19 @@ def run_loop_phases(pipe, state, batch, aux):
         style = write_scene(root)
         log(f"[run] scene written in {time.perf_counter() - t0:.3f} s")
         run = cli_run("run", root, style, 2, RUN_KERNELS,
-                      forbidden=("K9_conv3x3_mxu",))
+                      forbidden=("K9_conv3x3_mxu",), extra=["--tb_logs"],
+                      post=True)
+        log(f"[post] {json.dumps(run['post']['phases'])} | {smi}")
+        post_chain_on_cpu("run", run["argv"], run["log_dir"])
         train = run["train"]
         launches = {k: (run["counts"][k], train["train_launches"][key]
                         / train["train_steps"])
                     for k, key in (("K1_gather_bf16", "gather_bf16"),
                                    ("K2_splat_bf16", "splat_bf16"))}
+        for k, per_call in (("K1_gather_post_render", 1),
+                            ("K1_gather_warp", RENDER_CHUNK)):
+            phase = run["post"]["launches"][KERNELS[k]["post_phase"]]
+            launches[k] = (phase["gather"], per_call)
         os.environ.update(K9_ENV)
         try:
             run = cli_run("k9", root, style, 1, ("K9_conv3x3_mxu",),
@@ -721,8 +884,8 @@ UNBANDED = ("gather", "gather_bf16", "splat", "splat_bf16")
 def torchrun(tag, argv, nproc):
     """The CLI on ``nproc`` ranks; returns each rank's closing line
     (run_training's JSON: backend, device, train-step launches, Gram cache
-    count, memory). Raises when a rank fails. The ranks are killed with
-    their launcher at the time limit."""
+    count, memory) and the ranks' output. Raises when a rank fails. The
+    ranks are killed with their launcher at the time limit."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", str(nproc), "-m", "stylemesh_tpu_torch.cli",
            *argv]
@@ -750,7 +913,7 @@ def torchrun(tag, argv, nproc):
     if sorted(ranks) != list(range(nproc)):
         raise RuntimeError(f"[{tag}] closing lines of ranks {sorted(ranks)}")
     log(f"[{tag}] {nproc} ranks in {wall_s:.3f} s")
-    return ranks
+    return ranks, out
 
 
 def rank_lines(out):
@@ -839,7 +1002,9 @@ def multi_device_phases(root, style, nproc=2):
             ("atlas_f32", "f32", ("K1_gather_banded", "K2_splat_banded"))):
         extra = ["--shard_atlas"] + (["--kernel_compute", "f32"]
                                      if mode == "f32" else [])
-        ranks = torchrun(tag, cli_argv(tag, root, style, 1, extra), nproc)
+        # the f32 run ends with the post chain, on rank 0 alone
+        ranks, out = torchrun(tag, cli_argv(tag, root, style, 1, extra,
+                                            post=mode == "f32"), nproc)
         suffix = "_bf16" if mode == "bf16" else ""
         check_ranks(tag, ranks, ("gather_banded" + suffix,
                                  "splat_banded" + suffix), UNBANDED)
@@ -848,6 +1013,8 @@ def multi_device_phases(root, style, nproc=2):
         log(f"[{tag}] " + json.dumps(result))
         if mode == "bf16":  # the one-rank run is the CLI's bf16 mode
             compare_first_step(tag, log_dir, ref)
+        else:
+            check_post(tag, log_dir, out)
         check_export(tag, log_dir, one["log_dir"])
         steps = ranks[0]["train_steps"]
         for name, key in zip(names, ("gather_banded" + suffix,
@@ -855,8 +1022,8 @@ def multi_device_phases(root, style, nproc=2):
             n = ranks[0]["train_launches"][key]
             launches[name] = (n, n / steps)
 
-    ranks = torchrun("dp", cli_argv("dp", root, style, 1, ["--data_parallel"]),
-                     nproc)
+    ranks, _ = torchrun("dp", cli_argv("dp", root, style, 1,
+                                       ["--data_parallel"]), nproc)
     check_ranks("dp", ranks, ("gather_bf16", "splat_bf16"),
                 ("gather_banded_bf16", "splat_banded_bf16"))
     log_dir = str(root / "runs_dp" / "version_0")
@@ -866,8 +1033,9 @@ def multi_device_phases(root, style, nproc=2):
     dip = cli_run("dip_one_rank", root, style, 1,
                   ("K1_gather_bf16", "K2_splat_bf16"), preset="scannet_dip")
     count = int(dip["state"].gram_cache.count)
-    ranks = torchrun("dip", cli_argv("dip", root, style, 1, ["--data_parallel"],
-                                     preset="scannet_dip"), nproc)
+    ranks, _ = torchrun("dip", cli_argv("dip", root, style, 1,
+                                        ["--data_parallel"],
+                                        preset="scannet_dip"), nproc)
     log("[dip] " + json.dumps(run_result(
         "dip", str(root / "runs_dip" / "version_0"))))
     for r, line in ranks.items():
@@ -886,7 +1054,7 @@ def multi_device_phases(root, style, nproc=2):
                        {"total": ref["total"]},
                        key_map={"total": "total_style0"})
     sweep_ref = first_step_losses(sweep["log_dir"])
-    ranks = torchrun("multistyle_ranks", cli_argv(
+    ranks, _ = torchrun("multistyle_ranks", cli_argv(
         "multistyle_ranks", root, style, 1,
         [a for p in styles[:nproc - 1] for a in ("--style_image_path", p)]),
         nproc)
@@ -1379,6 +1547,7 @@ def kernel_phase(pipe, state, batch, aux, launches):
             del fcat, scat
 
     sampling_step(layers, list(batch.uv), cots, add)
+    post_chain_kernels(layers, batch.uv[-1], add)
     out = []
     for name, spec in KERNELS.items():
         r = rows[name]
@@ -1386,7 +1555,8 @@ def kernel_phase(pipe, state, batch, aux, launches):
         row = dict(
             name=name, route="cuda", source=spec["source"],
             replaces=spec["replaces"], launches=n,
-            launches_per_step=per_step,
+            **({"launches_per_call": per_step} if "post_phase" in spec
+               else {"launches_per_step": per_step}),
             max_abs_err=r["err"], tol=r["tol"], ms=r["ms"],
             kernel_ms=r["ms"], ms_min=r["ms_min"], ms_max=r["ms_max"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
@@ -1401,6 +1571,71 @@ def kernel_phase(pipe, state, batch, aux, launches):
             row["f32_mode_ms"] = r["f32_mode_ms"]
         out.append(row)
     return out
+
+
+WARP_HW = (256, 341)  # phase 4's content size: 480x640 at --resize_size 256
+# warp-grid entries far outside [-1, 1]: where 1e-8 + z is 0 a projection
+# is +-inf (NaN where its numerator is 0 too), and the border exactly
+WARP_SPECIALS = (float("inf"), -float("inf"), float("nan"), 1e30, -1e30,
+                 1.0, -1.0)
+
+
+def post_chain_kernels(layers, top_level, add):
+    """K1 (float32) at the post chain's shapes, against its plain version
+    and timed: the render (one launch over the texture's layers at
+    RENDER_CHUNK views of the finest UV level, the bench batch's views
+    repeated) and the eval's warps (one chunk: RENDER_CHUNK launches, each
+    one view's 3-channel image at its own grid, with 30% of the grid
+    entries from WARP_SPECIALS). Yardsticks: ``F.grid_sample`` of every
+    layer at the render grid; one ``F.grid_sample`` of the 8 images at
+    their 8 grids. Bounds: grids, outputs and touched texels."""
+    opts = dict(mode="bilinear", padding_mode="border", align_corners=True)
+    grid = torch.cat([top_level] * -(-RENDER_CHUNK // top_level.shape[0]))
+    grid = grid[:RENDER_CHUNK].contiguous()
+    npx = grid.numel() // 2
+    where = f"post render {tuple(grid.shape[:-1])}, {len(layers)} layers"
+    layers_cf = [l.permute(2, 0, 1)[None] for l in layers]
+    err = check("K1_gather_post_render", gs.gather_layers(layers, grid),
+                gs.gather_levels_plain(layers, [grid])[0], where)
+    add("K1_gather_post_render", where, err,
+        lambda: gs.gather_layers(layers, grid),
+        lambda: gs.gather_levels_plain(layers, [grid])[0],
+        lambda: sum(F.grid_sample(x.expand(RENDER_CHUNK, -1, -1, -1), grid,
+                                  **opts) for x in layers_cf),
+        npx * (8 + 12) + 12 * touched_texels(grid, layers))
+    del grid
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    h, w = WARP_HW
+    images, grids = [], []
+    specials = torch.tensor(WARP_SPECIALS, device="cuda")
+    for _ in range(RENDER_CHUNK):
+        images.append((torch.rand((h, w, 3), generator=gen, device="cuda")
+                       - 0.45) * 255.0)
+        g = torch.rand((h, w, 2), generator=gen, device="cuda") * 3.0 - 1.5
+        pick = torch.rand(g.shape, generator=gen, device="cuda") < 0.3
+        idx = torch.randint(0, len(WARP_SPECIALS), g.shape, generator=gen,
+                            device="cuda")
+        grids.append(torch.where(pick, specials[idx], g).contiguous())
+    where = f"warp {RENDER_CHUNK} x {WARP_HW}, +-inf / NaN / huge / border"
+
+    def warps():
+        return [gs.gather_layers([x], g) for x, g in zip(images, grids)]
+
+    def warps_plain():
+        return [gs.gather_levels_plain([x], [g])[0]
+                for x, g in zip(images, grids)]
+
+    outs = warps()
+    if not all(torch.isfinite(o).all() for o in outs):
+        raise RuntimeError("K1 gave a non-finite warp")
+    err = check("K1_gather_warp", outs, warps_plain(), where)
+    images_cf = torch.stack(images).permute(0, 3, 1, 2)
+    grids_b = torch.stack(grids)
+    add("K1_gather_warp", where, err, warps, warps_plain,
+        lambda: F.grid_sample(images_cf, grids_b, **opts),
+        sum(g.numel() // 2 * (8 + 12) + 12 * touched_texels(g, [x])
+            for x, g in zip(images, grids)))
 
 
 def live_tile_px(m, tile):
@@ -1501,7 +1736,7 @@ def main(argv):
     launches = {k: (counts[k], counts[k] / STEPS) for k in BENCH_KERNELS}
     reference_check()
     reference_check_bf16()
-    launches.update(run_loop_phases(pipe, state, batch, aux))
+    launches.update(run_loop_phases(pipe, state, batch, aux, smi))
     rows = kernel_phase(pipe, state, batch, aux, launches)
     for r in rows:
         other = (f"library {r['library_ms']:.4f} ({r['library_ms_min']:.4f}-"
@@ -1510,10 +1745,12 @@ def main(argv):
                  else "library none")
         rate = (f", {r['tflop_per_s']:.1f} TFLOP/s" if "tflop_per_s" in r
                 else "")
-        log(f"[kernel] {r['name']}: {r['ms']:.4f} ms/step ({r['ms_min']:.4f}-"
+        unit, per = (("call", r["launches_per_call"]) if "launches_per_call" in r
+                     else ("step", r["launches_per_step"]))
+        log(f"[kernel] {r['name']}: {r['ms']:.4f} ms/{unit} ({r['ms_min']:.4f}-"
             f"{r['ms_max']:.4f}; bound {r['bound_ms']:.4f} "
             f"by {r['bound_by']}), plain {r['plain_ms']:.4f}, {other}, "
-            f"{r['launches_per_step']:g} launches/step{rate}")
+            f"{per:g} launches/{unit}, {r['launches']} launches{rate}")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

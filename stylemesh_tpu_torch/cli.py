@@ -3,7 +3,7 @@
 
     python -m stylemesh_tpu_torch.cli --preset scannet_full \\
         --root_path <data root> --scene <scene> --style_image_path <style.jpg> \\
-        --bfloat16 --no_post_steps
+        --bfloat16
 
 ``--platform cpu`` runs the kernels' plain versions on the CPU. Under
 ``torchrun`` every rank runs this module (``parallel/mesh.py::
@@ -13,18 +13,18 @@ init_from_env``): ``--shard_atlas`` bands the texture over the ranks,
 
     torchrun --nproc_per_node 2 -m stylemesh_tpu_torch.cli --shard_atlas ...
 
-Differences from the JAX CLI:
+After training, unless ``--no_post_steps``, rank 0 runs the post chain for
+each exported texture (:func:`post_steps`): the styled frames, their video
+and the reprojection eval, with the JAX CLI's files and printed lines.
 
-- ``--bfloat16`` also sets ``precision="default"``, so the VGG trunk runs on
-  the hand-written conv kernels. The JAX CLI keeps ``HIGHEST`` there, which
-  for bf16 operands is the same function but keeps its convs off its TPU
-  kernels.
-- Not ported yet; each raises before training: the eval and post chain
-  (every run without ``--no_post_steps``, ROADMAP queue 1, item 6) and
-  ``--tb_logs`` (item 5).
+Difference from the JAX CLI: ``--bfloat16`` also sets
+``precision="default"``, so the VGG trunk runs on the hand-written conv
+kernels. The JAX CLI keeps ``HIGHEST`` there, which for bf16 operands is
+the same function but keeps its convs off its TPU kernels.
 """
 
 import argparse
+import json
 import os
 
 import torch
@@ -36,9 +36,17 @@ from stylemesh_tpu_torch.models.losses import (
     DEFAULT_STYLE_WEIGHTS,
 )
 from stylemesh_tpu_torch.models.pipeline import PipelineConfig
-from stylemesh_tpu_torch.optimize import RunConfig, run_training
+from stylemesh_tpu_torch.ops import grid_sample
+from stylemesh_tpu_torch.optimize import (
+    RunConfig,
+    _write_wallclock,
+    build_lpips,
+    render_styled_frames,
+    run_training,
+)
 from stylemesh_tpu_torch.parallel.mesh import init_from_env, shutdown
 from stylemesh_tpu_torch.presets import PRESETS, apply_preset, explicit_cli_keys
+from stylemesh_tpu_torch.utils.profiling import StepProfiler
 
 
 def build_parser():
@@ -139,7 +147,8 @@ def build_parser():
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--no_post_steps", default=False, action="store_true")
     p.add_argument("--tb_logs", default=False, action="store_true",
-                   help="TensorBoard event files (not ported yet)")
+                   help="also write TensorBoard event files (scalars and "
+                        "image grids; utils/tb_events.py)")
     return p
 
 
@@ -225,29 +234,65 @@ def configs_from_args(args):
     return run, pipe
 
 
-def check_ported(run: RunConfig, pipe_cfg: PipelineConfig):
-    """Raise, before any training, for what the port does not run yet."""
-    if run.run_post_steps:
-        raise NotImplementedError(
-            "the eval and post chain is not ported yet (ROADMAP queue 1, "
-            "item 6): pass --no_post_steps")
-    if run.tb_logs:
-        raise NotImplementedError(
-            "--tb_logs (utils/tb_events.py) is not ported yet (ROADMAP "
-            "queue 1, item 5)")
+def post_steps(run: RunConfig, textures, cache, log_dir, device):
+    """The post chain, once per exported texture (``_style<s>`` tags for a
+    sweep): render every cached view into ``styled<tag>/``, assemble
+    ``styled<tag>.mp4``, and run the reprojection eval with LPIPS into
+    ``<stamp>_output<tag>.json``. Merges the ``post_render``,
+    ``post_video`` and ``post_eval`` phases into ``wallclock.json`` and
+    prints the sampling kernels' launches of the render and eval phases."""
+    from stylemesh_tpu_torch.eval.reprojection import (
+        eval_reprojection_consistency,
+    )
+    from stylemesh_tpu_torch.texturing.video import video_from_files
+
+    clock = StepProfiler(device)
+    launches = {}
+
+    def counted(phase, fn, *args, **kwargs):
+        before = grid_sample.launch_counts()
+        with clock.phase(phase):
+            out = fn(*args, **kwargs)
+        counts = launches.setdefault(phase, {})
+        for k, n in grid_sample.launch_counts().items():
+            if n - before[k]:
+                counts[k] = counts.get(k, 0) + n - before[k]
+        return out
+
+    # the reference always reports LPIPS beside the MSE; lpips_calibrated
+    # in the JSON says whether converted lin weights were found
+    lpips_fn = build_lpips(run.vgg_model_path, device=device)
+    for s, tex in textures:
+        tag = "" if s is None else f"_style{s}"
+        styled_dir = os.path.join(log_dir, "styled" + tag)
+        frames = counted("post_render", render_styled_frames, tex, cache,
+                         styled_dir)
+        with clock.phase("post_video"):
+            video_from_files(frames, os.path.join(log_dir, f"styled{tag}.mp4"))
+        results = counted("post_eval", eval_reprojection_consistency, cache,
+                          styled_dir, out_dir=log_dir, seed=42,
+                          lpips_fn=lpips_fn, suffix=tag, device=device)
+        print(f"reprojection eval{tag}:", results)
+    _write_wallclock(log_dir, clock.summary())
+    print("post-chain wall-clock:",
+          {k: v["total_s"] for k, v in clock.summary().items()})
+    print("post-chain launches:", json.dumps(launches), flush=True)
 
 
 def main(argv=None):
-    """Parse ``argv``, train, and return ``(state, log_dir)``."""
+    """Parse ``argv``, train, run the post chain on rank 0 unless
+    ``--no_post_steps``, and return ``(state, log_dir)``."""
     args = build_parser().parse_args(argv)
     if args.preset:
         args = apply_preset(args, args.preset,
                             explicit=explicit_cli_keys(build_parser, argv))
     run, pipe_cfg = configs_from_args(args)
-    check_ported(run, pipe_cfg)
     mesh = init_from_env("cpu" if args.platform == "cpu" else None)
     try:
-        state, log_dir, _ = run_training(run, pipe_cfg, mesh=mesh)
+        state, log_dir, cache, textures = run_training(run, pipe_cfg,
+                                                       mesh=mesh)
+        if run.run_post_steps and mesh.is_root:
+            post_steps(run, textures, cache, log_dir, mesh.device)
     finally:
         shutdown(mesh)
     return state, log_dir

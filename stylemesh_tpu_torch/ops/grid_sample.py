@@ -53,13 +53,22 @@ MAX_LEVELS = 8  # SM_MAX_LEVELS
 COMPUTE_MODES = ("f32", "bf16")
 
 
+def _clamped_pixel(grid, h, w):
+    """The align_corners=True pixel coordinates of ``grid``, clamped to the
+    layer (border padding). A NaN coordinate becomes 0, as the kernels'
+    ``fminf(fmaxf(p, 0), size - 1)`` makes it; ``torch.clamp`` alone keeps
+    NaN, and the integer index of NaN is undefined."""
+    px = (grid[..., 0] + 1.0) * 0.5 * (w - 1)
+    py = (grid[..., 1] + 1.0) * 0.5 * (h - 1)
+    px = torch.clamp(torch.nan_to_num(px, nan=0.0), 0.0, w - 1)
+    py = torch.clamp(torch.nan_to_num(py, nan=0.0), 0.0, h - 1)
+    return px, py
+
+
 def _corner_indices_weights(grid, h, w):
     """Clamped corner indices and the x1/y1 bilinear weights of an
     align_corners=True, border-padded sample."""
-    px = (grid[..., 0] + 1.0) * 0.5 * (w - 1)
-    py = (grid[..., 1] + 1.0) * 0.5 * (h - 1)
-    px = torch.clamp(px, 0.0, w - 1)
-    py = torch.clamp(py, 0.0, h - 1)
+    px, py = _clamped_pixel(grid, h, w)
     ix0 = torch.floor(px).long()
     iy0 = torch.floor(py).long()
     ix1 = torch.clamp(ix0 + 1, max=w - 1)
@@ -629,14 +638,20 @@ def grid_sample(texture, grid):
     return sample_layers([texture], grid)
 
 
-def grid_sample_nearest(texture, grid):
-    """Nearest-neighbour sample, border padding, align_corners=True; rounds
-    half to even like torch's ``grid_sample(mode='nearest')``. Not
-    differentiable (depth lookups)."""
-    h, w, c = texture.shape
-    px = torch.clamp((grid[..., 0] + 1.0) * 0.5 * (w - 1), 0.0, w - 1)
-    py = torch.clamp((grid[..., 1] + 1.0) * 0.5 * (h - 1), 0.0, h - 1)
+def nearest_indices(grid, h, w):
+    """Flat texel indices ``iy * w + ix`` of a nearest-neighbour sample of
+    an ``h x w`` layer at ``grid [..., 2]`` (border padding,
+    align_corners=True); rounds half to even like torch's
+    ``grid_sample(mode='nearest')``."""
+    px, py = _clamped_pixel(grid, h, w)
     ix = torch.clamp(torch.round(px).long(), 0, w - 1)
     iy = torch.clamp(torch.round(py).long(), 0, h - 1)
-    idx = iy * w + ix
+    return iy * w + ix
+
+
+def grid_sample_nearest(texture, grid):
+    """Nearest-neighbour sample of ``texture [H, W, C]`` at ``grid [..., 2]``
+    (:func:`nearest_indices`). Not differentiable (depth lookups)."""
+    h, w, c = texture.shape
+    idx = nearest_indices(grid, h, w)
     return texture.reshape(h * w, c)[idx.reshape(-1)].reshape(idx.shape + (c,))

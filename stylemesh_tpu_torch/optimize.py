@@ -29,8 +29,11 @@ its own scene cache and draws the same chunks from the same seed; rank 0
 alone writes the logs, checkpoints and exports, which hold the full
 texture and have the single-device run's shapes and keys.
 
-Not here yet: the eval and post chain (``render_styled_frames``, ROADMAP
-queue 1, item 6).
+After training the CLI runs the post chain on rank 0
+(``cli.py::post_steps``): :func:`render_styled_frames` renders every cached
+view with each exported texture (one K1 launch per chunk of 8 views on the
+card), and :func:`build_lpips` gives the reprojection eval its LPIPS
+distance.
 """
 
 import dataclasses
@@ -44,7 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from stylemesh_tpu_torch import kernels
+from stylemesh_tpu_torch import kernels, resolve_device
 from stylemesh_tpu_torch.convert import batch_from_numpy
 from stylemesh_tpu_torch.data.grad_masks import grad_weight_masks
 from stylemesh_tpu_torch.data.loading import SceneCache, gatys_pre_np
@@ -68,7 +71,7 @@ from stylemesh_tpu_torch.models.vgg import (
 )
 from stylemesh_tpu_torch.ops import grid_sample
 from stylemesh_tpu_torch.ops.color import gatys_post
-from stylemesh_tpu_torch.ops.resize import resize_bilinear
+from stylemesh_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 from stylemesh_tpu_torch.parallel.atlas import AtlasShardedPipeline
 from stylemesh_tpu_torch.parallel.mesh import (
     barrier,
@@ -136,7 +139,7 @@ class RunConfig:
     checkpoint_every_steps: int = 0  # 0 = only per-epoch texture exports
     resume_from: str = ""  # checkpoint dir of save_train_state to restore
     log_dir: str = "runs"
-    tb_logs: bool = False  # raises (utils/tb_events.py is not ported)
+    tb_logs: bool = False  # also write TensorBoard event files
     vgg_model_path: str = ""
     style_image_path: str = ""
     seed: int = 0
@@ -276,7 +279,9 @@ def run_training(run: RunConfig, pipe_cfg: PipelineConfig,
                  scene_cache: Optional[SceneCache] = None,
                  vgg_params=None, style_image=None, device=None, mesh=None):
     """The full optimization loop on ``mesh`` (one rank on ``device`` when
-    None). Returns (state, log_dir, scene_cache)."""
+    None). Returns (state, log_dir, scene_cache, textures): ``textures`` the
+    (style index or None, full texture) pairs exported on rank 0, an empty
+    list on the other ranks."""
     if mesh is None:
         mesh = make_mesh(device=device)
     device = mesh.device
@@ -514,7 +519,8 @@ def run_training(run: RunConfig, pipe_cfg: PipelineConfig,
     print(f"[rank {mesh.rank}/{n_dev}] {json.dumps(rank_line)}\n", end="",
           flush=True)
     with clock.phase("texture_export"):
-        for s, tex in _export_textures(pipe, state, mesh):
+        textures = _export_textures(pipe, state, mesh)
+        for s, tex in textures:
             name = "texture.npz" if s is None else f"texture_style{s}.npz"
             save_texture_npz(tex, join(log_dir, name))
     logger.close()
@@ -535,7 +541,7 @@ def run_training(run: RunConfig, pipe_cfg: PipelineConfig,
         _write_wallclock(log_dir, wall)
     say("wall-clock:", {k: v["total_s"] for k, v in wall.items()
                         if "total_s" in v})
-    return state, log_dir, scene_cache
+    return state, log_dir, scene_cache, textures
 
 
 def _loss_scalars(losses):
@@ -569,3 +575,61 @@ def _log_image_grid(logger, state, batch, step):
     rows = torch.cat([pred * mask3, rgb, mask3, angle3, depth3], dim=2)
     logger.image("Images/train", rows.reshape(-1, *rows.shape[2:]).cpu().numpy(),
                  step)
+
+
+RENDER_CHUNK = 8  # views per render launch
+
+
+@torch.no_grad()
+def render_styled_frames(texture, scene_cache: SceneCache, out_dir):
+    """Render every cached view by sampling the trained texture at its baked
+    UV map of the finest pyramid level, masked, as
+    ``<out_dir>/<dataset idx>.png``; returns the paths. The post-train
+    render: the reference runs a native mipmap renderer here. Renders on
+    the texture's device, one :func:`sample_texture` call per chunk of
+    ``RENDER_CHUNK`` views (one float32 K1 launch on the card)."""
+    from PIL import Image
+
+    os.makedirs(out_dir, exist_ok=True)
+    device = texture.layers[0].device
+    b = scene_cache._batch_all
+    uv = b.uv[-1]
+    n = len(scene_cache.indices)
+    paths = []
+    for c0 in range(0, n, RENDER_CHUNK):
+        sl = slice(c0, min(c0 + RENDER_CHUNK, n))
+        grid = torch.as_tensor(np.asarray(uv[sl], np.float32)).to(device)
+        mask = torch.as_tensor(np.asarray(b.mask[sl], np.float32)).to(device)
+        # the mask is at content resolution: brought to the UV level's
+        m = resize_nearest(mask, tuple(grid.shape[1:3]))
+        imgs = (gatys_post(sample_texture(texture, [grid])[0]) * m).cpu().numpy()
+        for o, idx in enumerate(scene_cache.indices[sl]):
+            path = join(out_dir, f"{idx}.png")
+            Image.fromarray((np.clip(imgs[o], 0, 1) * 255 + 0.5)
+                            .astype(np.uint8)).save(path)
+            paths.append(path)
+    return paths
+
+
+def build_lpips(vgg_model_path="", lpips_weights="", device=None):
+    """The LPIPS distance of the eval chain, on ``device``.
+
+    Calibrated lin weights are loaded from ``lpips_weights``, the
+    ``STYLEMESH_LPIPS_WEIGHTS`` environment variable, or an
+    ``lpips_lin.npz`` next to the VGG weights file; otherwise the
+    uncalibrated distance runs and the result JSON carries
+    ``lpips_calibrated: false`` (its numbers are then not comparable to the
+    paper's)."""
+    from stylemesh_tpu_torch.eval.lpips import LPIPSDistance
+
+    device = resolve_device(device)
+    candidates = [lpips_weights, os.environ.get("STYLEMESH_LPIPS_WEIGHTS", "")]
+    if vgg_model_path:
+        candidates.append(join(os.path.dirname(vgg_model_path), "lpips_lin.npz"))
+    lin = None
+    for c in candidates:
+        if c and os.path.exists(c):
+            lin = LPIPSDistance.load_lin_weights(c, device)
+            break
+    return LPIPSDistance(load_vgg(vgg_model_path, device=device),
+                         lin_weights=lin)

@@ -3,8 +3,8 @@
 
 Scalars follow the reference's taxonomy (``Batch/Loss/<state>/<type>``,
 per-epoch means ``Loss/<state>/<type>``) in ``metrics.jsonl``; image grids
-are saved as pngs. TensorBoard event files (``tb=True``) wait for the port
-of ``utils/tb_events.py`` (ROADMAP queue 1, item 5) and raise until then.
+are saved as pngs. With ``tb=True`` the scalars and images also go to a
+TensorBoard event file (``utils/tb_events.py``).
 """
 
 import json
@@ -15,21 +15,22 @@ from os.path import join
 
 import numpy as np
 
+from stylemesh_tpu_torch.utils.tb_events import TBEventWriter
+
 
 class MetricsLogger:
     """Writes under ``log_dir``; with ``log_dir`` None (the ranks other than
     0 of a multi-device run) it keeps the epoch means and writes nothing."""
 
     def __init__(self, log_dir, tb=False):
-        if tb:
-            raise NotImplementedError(
-                "TensorBoard event files (utils/tb_events.py) are not ported "
-                "yet (ROADMAP queue 1, item 5)")
         self.log_dir = log_dir
         self._f = None
+        self._tb = None
         if log_dir is not None:
             os.makedirs(log_dir, exist_ok=True)
             self._f = open(join(log_dir, "metrics.jsonl"), "a")
+            if tb:
+                self._tb = TBEventWriter(log_dir)
         self._epoch_hist = defaultdict(list)
         self._t0 = time.perf_counter()
 
@@ -39,6 +40,8 @@ class MetricsLogger:
         rec = {"tag": tag, "value": float(value), "step": int(step),
                "t": round(time.perf_counter() - self._t0, 3)}
         self._f.write(json.dumps(rec) + "\n")
+        if self._tb is not None:
+            self._tb.add_scalar(tag, value, step)
 
     def batch_losses(self, state, losses, step):
         for k, v in losses.items():
@@ -61,11 +64,15 @@ class MetricsLogger:
         arr = np.clip(np.asarray(img_hwc), 0.0, 1.0)
         path = join(self.log_dir, f"{tag.replace('/', '_')}_{step}.png")
         Image.fromarray((arr * 255 + 0.5).astype(np.uint8)).save(path)
+        if self._tb is not None:
+            self._tb.add_image(tag, arr, step)
         return path
 
     def close(self):
         if self._f is not None:
             self._f.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 class StepTimer:

@@ -237,3 +237,32 @@ def test_parallel_entry_points_stay_on_the_card(monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mesh.init_from_env()
+
+
+def test_post_chain_entry_points_stay_on_the_card(monkeypatch, tmp_path):
+    """The post chain's and the tools' entry points default to CUDA and
+    raise without it before writing anything; their modules are among the
+    files the import scan covers."""
+    import importlib
+
+    from stylemesh_tpu_torch import optimize
+    from stylemesh_tpu_torch.eval import circles, reprojection
+
+    mask_texture = importlib.import_module(
+        "stylemesh_tpu_torch.texturing.mask_texture")
+    names = {p.relative_to(ROOT / "stylemesh_tpu_torch").as_posix()
+             for p in (ROOT / "stylemesh_tpu_torch").rglob("*.py")}
+    assert {"geometry/project.py", "eval/lpips.py", "eval/reprojection.py",
+            "eval/__main__.py", "eval/circles.py", "texturing/video.py",
+            "texturing/mask_texture.py", "texturing/mask_image.py",
+            "utils/tb_events.py"} <= names
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        optimize.build_lpips()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        reprojection.eval_reprojection_consistency(None, str(tmp_path / "s"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        circles.measure_circles_for_scene(None, str(tmp_path / "s"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mask_texture.compute_texture_mask([], [], (4, 4))
+    assert not (tmp_path / "s").exists()

@@ -172,6 +172,62 @@ def test_sampling_autograd_matches_cpu(cuda):
     _close(results[1], results[0], 1e-5)
 
 
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_gather_at_nonfinite_grids(cuda, compute):
+    """K1 at warp grids far outside [-1, 1]: huge, +-inf, NaN (pixel 0, as
+    the plain version's ``nan_to_num`` makes it) and exactly on the
+    border, against its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    layer = torch.randn((23, 31, 3), generator=gen, device=cuda) * 50
+    grid = torch.rand((2, 23, 31, 2), generator=gen, device=cuda) * 3 - 1.5
+    special = torch.tensor([float("inf"), -float("inf"), float("nan"), 1e30,
+                            -1e30, 1.0, -1.0, 1.0 + 1e-7], device=cuda)
+    idx = torch.randint(0, special.numel(), grid.shape, generator=gen,
+                        device=cuda)
+    pick = torch.rand(grid.shape, generator=gen, device=cuda) < 0.3
+    grid = torch.where(pick, special[idx], grid).contiguous()
+    out = gs.gather_layers([layer], grid, compute)
+    assert torch.isfinite(out).all()
+    _close(out, gs.gather_levels_plain([layer.cpu()], [grid.cpu()],
+                                       compute)[0].to(cuda), 1e-5)
+
+
+def test_reproject_on_card_matches_cpu(cuda):
+    """``geometry/project.py::reproject`` on the card (K1 for the colour and
+    the three-channel mask warps, one launch each per view, views whose
+    slices are not 16-byte aligned) against the same call on the CPU: the
+    valid masks agree but for pixels at a threshold (float32 sums in
+    another order), the warped colours to 1e-5."""
+    from stylemesh_tpu_torch.geometry.project import reproject
+
+    gen = torch.Generator().manual_seed(0)
+    n, h, w = 4, 23, 31
+    poses = torch.eye(4).repeat(n, 1, 1)
+    for i in range(n):
+        a = torch.tensor(0.12 * i - 0.1)
+        poses[i, 0, 0], poses[i, 0, 2] = torch.cos(a), torch.sin(a)
+        poses[i, 2, 0], poses[i, 2, 2] = -torch.sin(a), torch.cos(a)
+        poses[i, :3, 3] = torch.tensor([0.25 * i, 0.02 * i, -0.1 * i])
+    intr = torch.eye(4).repeat(n, 1, 1)
+    intr[:, 0, 0], intr[:, 1, 1] = 28.0, 27.0
+    intr[:, 0, 2], intr[:, 1, 2] = w / 2, h / 2
+    depth = 3.0 + 0.05 * torch.randn((n, h, w, 1), generator=gen)
+    depth[:, 6:15, 9:18] = 1.4
+    depth[:, 18:20, 2:6] = 0.0
+    color = torch.rand((n, h, w, 3), generator=gen)
+    src, tar = [0, 1, 2, 3], [1, 0, 3, 1]
+    args = [poses[src], poses[tar], intr[src], depth[src], depth[tar],
+            color[tar], (depth[tar] > 0).float()]
+    before = gs.gather_levels.launches
+    warped, valid = reproject(*[a.to(cuda) for a in args])
+    assert gs.gather_levels.launches - before == 2 * n
+    want_warped, want_valid = reproject(*args)
+    assert 0.1 < want_valid.float().mean() < 0.9
+    assert (valid.cpu() != want_valid).float().mean().item() < 1e-2
+    both = (valid.cpu() & want_valid).expand(-1, -1, -1, 3)
+    _close(warped.cpu()[both], want_warped[both], 1e-5)
+
+
 def _level_inputs(cuda, seed):
     """Three levels: 2 views of 32x32 (every lane of a warp shares a texel
     of the 4x4 layer), one of zero pixels, and 19x23 (an odd pixel count);

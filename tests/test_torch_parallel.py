@@ -242,7 +242,7 @@ def test_shard_atlas_run_loop_matches_one_rank(spawned):
     ranks goes on from its step."""
     tmp, inputs, ranks = spawned
     run = RunConfig(log_dir=str(tmp / "run_one"), **inputs["run"])
-    _, one_dir, _ = run_training(run, tpipeline.PipelineConfig(**RUN_CFG),
+    _, one_dir, _, _ = run_training(run, tpipeline.PipelineConfig(**RUN_CFG),
                                  device="cpu")
     two_dir = ranks[0]["run_atlas"]["log_dir"]
     assert ranks[1]["run_atlas"]["log_dir"] == two_dir

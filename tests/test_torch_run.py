@@ -2,7 +2,9 @@
 packages on one ScanNet-layout scene written to ``tmp_path`` (float32, a
 64² x 2 Laplacian atlas, so that the JAX package attaches no splat plans,
 two UV levels, two epochs, batches of two views each repeated twice), and
-the CLI's configuration and refusals.
+the CLI: its configuration, its refusals of mode combinations, and its runs
+on the CPU with the post chain (styled frames, video, reprojection eval)
+and TensorBoard event files.
 
 The scene is made so that the run loop's level decisions all occur: views
 0-1 see only level 0 (their batch skips level 1), views 2-3 see level 1
@@ -20,7 +22,9 @@ so texels whose gradient is at float32 noise move differently.
 
 import dataclasses
 import json
+import os
 
+import cv2
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -134,7 +138,7 @@ def test_run_training_matches_jax(tmp_path, monkeypatch):
     _, jdir, _ = joptimize.run_training(
         joptimize.RunConfig(log_dir=str(tmp_path / "jax"), **run),
         JPipelineConfig(**PIPE))
-    _, tdir, _ = toptimize.run_training(
+    _, tdir, _, _ = toptimize.run_training(
         toptimize.RunConfig(log_dir=str(tmp_path / "port"), **run),
         TPipelineConfig(precision="highest", **PIPE), device="cpu")
 
@@ -217,18 +221,75 @@ def test_configs_from_args_match_jax(preset, bf16):
     assert tpipe.kernel_compute == "bf16"
 
 
-@pytest.mark.parametrize("argv,match", [
-    ([], "--no_post_steps"),
-    (["--no_post_steps", "--tb_logs"], "--tb_logs"),
-])
-def test_unported_flags_raise_before_training(tmp_path, monkeypatch, argv,
-                                              match):
-    monkeypatch.setattr(toptimize, "discover_scene", lambda run: pytest.fail(
-        "training started"))
-    with pytest.raises(NotImplementedError, match=match):
-        tcli.main(argv + ["--root_path", str(tmp_path), "--platform", "cpu",
-                          "--log_dir", str(tmp_path / "runs")])
-    assert not (tmp_path / "runs").exists()
+def _cli(tmp_path, *extra):
+    style = _make_scene(tmp_path)
+    return tcli.main([
+        "--preset", "scannet_full", "--root_path", str(tmp_path),
+        "--scene", SCENE, "--style_image_path", style, "--texture_size", "64,64",
+        "--resize_size", "16", "--min_pyramid_height", "16",
+        "--batch_size", "2", "--max_epochs", "1", "--index_repeat", "1",
+        "--platform", "cpu", "--log_dir", str(tmp_path / "runs"), *extra])
+
+
+def _post_outputs(log_dir, tag="", views=5):
+    """Check the post chain's files for one texture; its eval's JSON."""
+    styled = sorted(os.listdir(f"{log_dir}/styled{tag}"))
+    assert styled == sorted(f"{i}.png" for i in range(views))
+    assert Image.open(f"{log_dir}/styled{tag}/0.png").size == (32, 24)
+    cap = cv2.VideoCapture(f"{log_dir}/styled{tag}.mp4")
+    assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == views
+    cap.release()
+    (out,) = [f for f in os.listdir(log_dir) if f.endswith(f"_output{tag}.json")]
+    results = _json(f"{log_dir}/{out}")
+    assert sorted(results["accuracies"]) == sorted(
+        f"reprojection{p}{l}" for p in ("", "_short", "_long")
+        for l in ("", "_lpips"))
+    assert all(np.isfinite(v) for v in results["accuracies"].values())
+    assert results["lpips_calibrated"] is False
+    assert results["number_files"] == views
+    return results
+
+
+def test_cli_runs_the_post_chain_on_cpu(tmp_path, capsys):
+    """The JAX CLI's default run (no ``--no_post_steps``): after training,
+    the styled frame of every view, ``styled.mp4`` with one frame per
+    view, ``<stamp>_output.json`` with the six accuracies, the ``post_*``
+    phases merged into ``wallclock.json``, and the JAX CLI's printed
+    lines."""
+    _, log_dir = _cli(tmp_path)
+    _post_outputs(log_dir)
+    wall = _json(f"{log_dir}/wallclock.json")
+    assert {"train_steps", "post_render", "post_video", "post_eval"} <= set(wall)
+    out = capsys.readouterr().out
+    assert "reprojection eval: {" in out and "post-chain wall-clock:" in out
+    launches = json.loads(out.split("post-chain launches: ")[1].splitlines()[0])
+    assert launches == {"post_render": {}, "post_eval": {}}  # plain on the CPU
+    assert not any(f.startswith("events.out") for f in os.listdir(log_dir))
+
+
+def test_cli_tb_logs_write_events(tmp_path):
+    """The same run with ``--tb_logs``: one event file beside
+    ``metrics.jsonl`` holding every logged scalar."""
+    from tests.test_torch_tb_events import _load
+
+    _, log_dir = _cli(tmp_path, "--tb_logs")
+    (events,) = [f for f in os.listdir(log_dir) if f.startswith("events.out")]
+    _post_outputs(log_dir)
+    tags = set(_load(f"{log_dir}/{events}").Tags()["scalars"])
+    assert tags == {r["tag"] for r in _metrics(log_dir)}
+    assert "Batch/Loss/train/total" in tags
+
+
+def test_cli_post_chain_per_style(tmp_path):
+    """A 2-style sweep runs one post chain per style, its files tagged
+    ``_style<s>``."""
+    other = tmp_path / "style2.jpg"
+    Image.fromarray(np.random.default_rng(3).integers(
+        0, 255, (36, 44, 3), dtype=np.uint8)).save(other)
+    _, log_dir = _cli(tmp_path, "--style_image_path", str(other))
+    for s in (0, 1):
+        _post_outputs(log_dir, f"_style{s}")
+    assert not os.path.exists(f"{log_dir}/styled")
 
 
 @pytest.mark.parametrize("argv,match", [

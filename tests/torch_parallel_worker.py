@@ -161,11 +161,11 @@ def _run_training(mesh, inputs, tag, out, directory):
 
     cfg = PipelineConfig(**inputs["run_cfg"])
     run = RunConfig(log_dir=os.path.join(directory, tag), **inputs["run"])
-    _, log_dir, _ = run_training(run, cfg, mesh=mesh)
+    _, log_dir, _, _ = run_training(run, cfg, mesh=mesh)
     resumed = dataclasses.replace(
         run, log_dir=os.path.join(directory, tag + "_resumed"),
         resume_from=os.path.join(log_dir, "ckpt"))
-    state, _, _ = run_training(resumed, cfg, mesh=mesh)
+    state, _, _, _ = run_training(resumed, cfg, mesh=mesh)
     out[tag] = dict(log_dir=log_dir, resumed_step=state.step)
 
 
