@@ -112,6 +112,8 @@ import torch.nn.functional as F
 
 from stylemesh_tpu_torch import cli, kernels
 from stylemesh_tpu_torch.data.synthetic import synthetic_view_batch
+from stylemesh_tpu_torch.eval.reprojection import EVAL_CHUNK
+from stylemesh_tpu_torch.geometry import project
 from stylemesh_tpu_torch.models.pipeline import PipelineConfig, TexturePipeline
 from stylemesh_tpu_torch.models import vgg
 from stylemesh_tpu_torch.models.texture import sample_texture
@@ -130,7 +132,8 @@ REPO = Path(__file__).resolve().parent
 SAMPLE_SRC = "stylemesh_tpu_torch/kernels/csrc/sample.cu"
 GEMM_SRC = "stylemesh_tpu_torch/kernels/csrc/conv_gemm.cu"
 BWD_SRC = "stylemesh_tpu_torch/kernels/csrc/conv_pool_bwd.cu"
-KERNELS = {  # launches: (wrapper, attribute holding its launch count)
+KERNELS = {  # launches: (wrapper, attribute holding its launch count);
+    # unit: what the row's launches_per_unit counts per (default a step)
     "K1_gather": dict(source="stylemesh_tpu_torch/kernels/csrc/sample.cu",
                       replaces="stylemesh_tpu/ops/splat_pallas.py:486",
                       launches=(gs.gather_levels, "launches"), rel_tol=1e-5),
@@ -187,14 +190,15 @@ KERNELS = {  # launches: (wrapper, attribute holding its launch count)
         source=SAMPLE_SRC, replaces="stylemesh_tpu/ops/grid_sample.py:210",
         launches=(gs.splat_levels_banded, "banded_bf16_launches"),
         rel_tol=1e-4),
-    # K1 (f32) on the post chain's paths; its launches there are read from
-    # the CLI's post-chain line, by phase
+    # K1 (f32) on the post chain's paths, per call of the render and of the
+    # eval's warp; their launches in the run are read from the CLI's
+    # post-chain line, by phase
     "K1_gather_post_render": dict(
         source=SAMPLE_SRC, replaces="stylemesh_tpu/ops/splat_pallas.py:486",
-        launches=None, post_phase="post_render", rel_tol=1e-5),
+        launches=(gs.gather_levels, "launches"), unit="call", rel_tol=1e-5),
     "K1_gather_warp": dict(
         source=SAMPLE_SRC, replaces="stylemesh_tpu/ops/splat_pallas.py:486",
-        launches=None, post_phase="post_eval", rel_tol=1e-5),
+        launches=(gs.gather_levels, "launches"), unit="call", rel_tol=1e-5),
 }
 # the kernels each driven path must launch
 BENCH_KERNELS = ("K1_gather", "K2_splat", "K3_gram_fwd", "K4_gram_bwd",
@@ -295,13 +299,11 @@ def cuda_ms(fn, reps=PLAIN_REPS):
 
 def reset_counts():
     for spec in KERNELS.values():
-        if spec["launches"] is not None:
-            setattr(*spec["launches"], 0)
+        setattr(*spec["launches"], 0)
 
 
 def read_counts():
-    return {name: getattr(*spec["launches"]) for name, spec in KERNELS.items()
-            if spec["launches"] is not None}
+    return {name: getattr(*spec["launches"]) for name, spec in KERNELS.items()}
 
 
 # ---------------------------------------------------------------- phase 1
@@ -524,10 +526,11 @@ def reference_check_bf16():
 
 SCENE = "scene0000_00"
 SCENE_HW = (480, 640)
+SCENE_VIEWS = 16
 SCENE_LEVELS = (256, 432, 608, 784)
 
 
-def write_scene(root, n=16):
+def write_scene(root, n=SCENE_VIEWS):
     """A ScanNet-layout scene of ``n`` views under ``root/train/images``
     (the layout of tests/test_data.py) from a synthetic panning camera:
     color jpg and uint16 depth png (mm) at 480x640, ``uv_<h>/<i>.npy``
@@ -667,7 +670,7 @@ def cli_run(tag, root, style, index_repeat, required, forbidden=(), extra=(),
 POST_LAUNCHES = re.compile(r"^post-chain launches: (\{.*\})$", re.M)
 
 
-def check_post(tag, log_dir, out, views=16, tb=False):
+def check_post(tag, log_dir, out, views=SCENE_VIEWS, tb=False):
     """Check the post chain of a CLI run: every view's styled frame, a
     video of ``views`` frames, one eval JSON with the six accuracies finite
     and ``lpips_calibrated`` false, the ``post_*`` phases in
@@ -706,7 +709,7 @@ def check_post(tag, log_dir, out, views=16, tb=False):
         raise RuntimeError(f"[{tag}] {len(lines)} post-chain launch lines, "
                            f"{out.count('reprojection eval:')} evals")
     launches = json.loads(lines[0])
-    want = {"post_render": {"gather": -(-views // 8)},
+    want = {"post_render": {"gather": -(-views // RENDER_CHUNK)},
             "post_eval": {"gather": 2 * 3 * views}}
     if launches != want:
         raise RuntimeError(f"[{tag}] post-chain launches {launches}, "
@@ -834,14 +837,14 @@ def k9_step(pipe, state, batch, aux):
 
 
 def run_loop_phases(pipe, state, batch, aux, smi):
-    """Phases 4, 5 and 6; returns {kernel: (launches, launches per step or
-    per timed call)} for the kernels these runs drive first: K1/K2's bf16
-    mode (the CLI run), K1 in the post chain (the CLI run: the render, one
-    launch per chunk of 8 views; the eval's warps, timed in chunks of 8
-    launches), K9 (the K9 CLI run; per step from the K9 bench step, since
-    the run's count also holds the style targets', content targets' and
-    validation's launches) and the banded K1/K2 (rank 0 of the atlas
-    runs)."""
+    """Phases 4, 5 and 6; returns {kernel: (launches, launches per step)}
+    for the kernels these runs drive first: K1/K2's bf16 mode (the CLI run),
+    K9 (the K9 CLI run; per step from the K9 bench step, since the run's
+    count also holds the style targets', content targets' and validation's
+    launches) and the banded K1/K2 (rank 0 of the atlas runs); and
+    {kernel: (launches, None)} for K1 in the post chain (the CLI run, by
+    phase: the render, the eval's warps), whose launches per call
+    :func:`kernel_phase` measures."""
     with tempfile.TemporaryDirectory(prefix="stylemesh_chip_smoke_") as tmp:
         root = Path(tmp)
         t0 = time.perf_counter()
@@ -857,10 +860,9 @@ def run_loop_phases(pipe, state, batch, aux, smi):
                         / train["train_steps"])
                     for k, key in (("K1_gather_bf16", "gather_bf16"),
                                    ("K2_splat_bf16", "splat_bf16"))}
-        for k, per_call in (("K1_gather_post_render", 1),
-                            ("K1_gather_warp", RENDER_CHUNK)):
-            phase = run["post"]["launches"][KERNELS[k]["post_phase"]]
-            launches[k] = (phase["gather"], per_call)
+        for k, phase in (("K1_gather_post_render", "post_render"),
+                         ("K1_gather_warp", "post_eval")):
+            launches[k] = (run["post"]["launches"][phase]["gather"], None)
         os.environ.update(K9_ENV)
         try:
             run = cli_run("k9", root, style, 1, ("K9_conv3x3_mxu",),
@@ -1547,16 +1549,26 @@ def kernel_phase(pipe, state, batch, aux, launches):
             del fcat, scat
 
     sampling_step(layers, list(batch.uv), cots, add)
-    post_chain_kernels(layers, batch.uv[-1], add)
+    # the post chain's K1 launches in phase 4: its calls (the render's
+    # chunks; per pairing and eval chunk, a colour and a mask warp) times
+    # the launches measured in one call
+    calls = {"K1_gather_post_render": -(-SCENE_VIEWS // RENDER_CHUNK),
+             "K1_gather_warp": 3 * 2 * -(-SCENE_VIEWS // EVAL_CHUNK)}
+    for name, per_call in post_chain_kernels(state.texture, batch.uv[-1],
+                                             add).items():
+        n = launches[name][0]
+        if n != calls[name] * per_call:
+            raise RuntimeError(f"{name}: {n} launches in the post chain, "
+                               f"{calls[name]} calls of {per_call}")
+        launches[name] = (n, per_call)
     out = []
     for name, spec in KERNELS.items():
         r = rows[name]
-        n, per_step = launches[name]
+        n, per_unit = launches[name]
         row = dict(
             name=name, route="cuda", source=spec["source"],
-            replaces=spec["replaces"], launches=n,
-            **({"launches_per_call": per_step} if "post_phase" in spec
-               else {"launches_per_step": per_step}),
+            replaces=spec["replaces"], launches=n, launches_per_unit=per_unit,
+            unit=spec.get("unit", "step"),
             max_abs_err=r["err"], tol=r["tol"], ms=r["ms"],
             kernel_ms=r["ms"], ms_min=r["ms_min"], ms_max=r["ms_max"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
@@ -1580,25 +1592,39 @@ WARP_SPECIALS = (float("inf"), -float("inf"), float("nan"), 1e30, -1e30,
                  1.0, -1.0)
 
 
-def post_chain_kernels(layers, top_level, add):
-    """K1 (float32) at the post chain's shapes, against its plain version
-    and timed: the render (one launch over the texture's layers at
-    RENDER_CHUNK views of the finest UV level, the bench batch's views
-    repeated) and the eval's warps (one chunk: RENDER_CHUNK launches, each
-    one view's 3-channel image at its own grid, with 30% of the grid
-    entries from WARP_SPECIALS). Yardsticks: ``F.grid_sample`` of every
-    layer at the render grid; one ``F.grid_sample`` of the 8 images at
-    their 8 grids. Bounds: grids, outputs and touched texels."""
+def post_chain_kernels(texture, top_level, add):
+    """K1 (float32) at the post chain's shapes, through the post chain's own
+    calls, against its plain version and timed: the render
+    (``sample_texture`` under ``no_grad``, as ``render_styled_frames`` calls
+    it, at RENDER_CHUNK views of the finest UV level, the bench batch's
+    views repeated) and one warp of the eval (``project._warp``, as
+    ``reproject`` calls it, of EVAL_CHUNK views' 3-channel images, each at
+    its own grid, with 30% of the grid entries from WARP_SPECIALS).
+    Returns {kernel: K1 launches in one call}, read from K1's counter
+    around one call of each. Yardsticks: ``F.grid_sample`` of every layer
+    at the render grid; one ``F.grid_sample`` of the images at their grids.
+    Bounds: grids, outputs and touched texels."""
     opts = dict(mode="bilinear", padding_mode="border", align_corners=True)
+    layers = [l.detach() for l in texture.layers]
     grid = torch.cat([top_level] * -(-RENDER_CHUNK // top_level.shape[0]))
     grid = grid[:RENDER_CHUNK].contiguous()
     npx = grid.numel() // 2
     where = f"post render {tuple(grid.shape[:-1])}, {len(layers)} layers"
     layers_cf = [l.permute(2, 0, 1)[None] for l in layers]
-    err = check("K1_gather_post_render", gs.gather_layers(layers, grid),
+
+    @torch.no_grad()
+    def render():
+        return sample_texture(texture, [grid])[0]
+
+    def launches_of(fn):
+        n0 = gs.gather_levels.launches
+        fn()
+        return gs.gather_levels.launches - n0
+
+    per_call = {"K1_gather_post_render": launches_of(render)}
+    err = check("K1_gather_post_render", render(),
                 gs.gather_levels_plain(layers, [grid])[0], where)
-    add("K1_gather_post_render", where, err,
-        lambda: gs.gather_layers(layers, grid),
+    add("K1_gather_post_render", where, err, render,
         lambda: gs.gather_levels_plain(layers, [grid])[0],
         lambda: sum(F.grid_sample(x.expand(RENDER_CHUNK, -1, -1, -1), grid,
                                   **opts) for x in layers_cf),
@@ -1607,35 +1633,34 @@ def post_chain_kernels(layers, top_level, add):
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     h, w = WARP_HW
-    images, grids = [], []
+    images = (torch.rand((EVAL_CHUNK, h, w, 3), generator=gen, device="cuda")
+              - 0.45) * 255.0
+    grids = torch.rand((EVAL_CHUNK, h, w, 2), generator=gen,
+                       device="cuda") * 3.0 - 1.5
+    pick = torch.rand(grids.shape, generator=gen, device="cuda") < 0.3
+    idx = torch.randint(0, len(WARP_SPECIALS), grids.shape, generator=gen,
+                        device="cuda")
     specials = torch.tensor(WARP_SPECIALS, device="cuda")
-    for _ in range(RENDER_CHUNK):
-        images.append((torch.rand((h, w, 3), generator=gen, device="cuda")
-                       - 0.45) * 255.0)
-        g = torch.rand((h, w, 2), generator=gen, device="cuda") * 3.0 - 1.5
-        pick = torch.rand(g.shape, generator=gen, device="cuda") < 0.3
-        idx = torch.randint(0, len(WARP_SPECIALS), g.shape, generator=gen,
-                            device="cuda")
-        grids.append(torch.where(pick, specials[idx], g).contiguous())
-    where = f"warp {RENDER_CHUNK} x {WARP_HW}, +-inf / NaN / huge / border"
+    grids = torch.where(pick, specials[idx], grids).contiguous()
+    where = f"warp {EVAL_CHUNK} x {WARP_HW}, +-inf / NaN / huge / border"
 
     def warps():
-        return [gs.gather_layers([x], g) for x, g in zip(images, grids)]
+        return project._warp(images, grids)
 
     def warps_plain():
-        return [gs.gather_levels_plain([x], [g])[0]
-                for x, g in zip(images, grids)]
+        return torch.stack([gs.gather_levels_plain([x], [g])[0]
+                            for x, g in zip(images, grids)])
 
-    outs = warps()
-    if not all(torch.isfinite(o).all() for o in outs):
+    per_call["K1_gather_warp"] = launches_of(warps)
+    out = warps()
+    if not torch.isfinite(out).all():
         raise RuntimeError("K1 gave a non-finite warp")
-    err = check("K1_gather_warp", outs, warps_plain(), where)
-    images_cf = torch.stack(images).permute(0, 3, 1, 2)
-    grids_b = torch.stack(grids)
+    err = check("K1_gather_warp", out, warps_plain(), where)
     add("K1_gather_warp", where, err, warps, warps_plain,
-        lambda: F.grid_sample(images_cf, grids_b, **opts),
+        lambda: F.grid_sample(images.permute(0, 3, 1, 2), grids, **opts),
         sum(g.numel() // 2 * (8 + 12) + 12 * touched_texels(g, [x])
             for x, g in zip(images, grids)))
+    return per_call
 
 
 def live_tile_px(m, tile):
@@ -1745,8 +1770,7 @@ def main(argv):
                  else "library none")
         rate = (f", {r['tflop_per_s']:.1f} TFLOP/s" if "tflop_per_s" in r
                 else "")
-        unit, per = (("call", r["launches_per_call"]) if "launches_per_call" in r
-                     else ("step", r["launches_per_step"]))
+        unit, per = r["unit"], r["launches_per_unit"]
         log(f"[kernel] {r['name']}: {r['ms']:.4f} ms/{unit} ({r['ms_min']:.4f}-"
             f"{r['ms_max']:.4f}; bound {r['bound_ms']:.4f} "
             f"by {r['bound_by']}), plain {r['plain_ms']:.4f}, {other}, "

@@ -15,9 +15,9 @@ for three pairings: random (within ±pair_threshold), short (deterministic
 from the seed, so they equal the JAX package's.
 
 The warps and LPIPS run on ``device`` (the card unless the caller asks for
-the CPU): per pairing and chunk of 8 views one :func:`reproject` (one K1
-launch per view for the colours and one for the mask) and one LPIPS call
-per side.
+the CPU): per pairing and chunk of ``EVAL_CHUNK`` views one
+:func:`reproject` (one K1 launch per view for the colours and one for the
+mask) and one LPIPS call per side.
 """
 
 import json
@@ -33,6 +33,8 @@ from stylemesh_tpu_torch import resolve_device
 from stylemesh_tpu_torch.data.loading import gatys_pre_np
 from stylemesh_tpu_torch.geometry.project import reproject
 from stylemesh_tpu_torch.ops.color import gatys_post
+
+EVAL_CHUNK = 8  # views per reproject call and per LPIPS call
 
 
 def sample_pairs(n, threshold=10, rng=None):
@@ -130,11 +132,11 @@ def eval_reprojection_consistency(scene_cache, styled_dir, out_dir=None,
                   "reprojection_long_lpips": 0.0}
 
     @torch.no_grad()
-    def eval_pairing(pair_idx, key, chunk=8):
+    def eval_pairing(pair_idx, key):
         j = torch.as_tensor(pair_idx, device=device)
         warped_all, mask_all = [], []
-        for c0 in range(0, n, chunk):
-            ii = torch.arange(c0, min(c0 + chunk, n), device=device)
+        for c0 in range(0, n, EVAL_CHUNK):
+            ii = torch.arange(c0, min(c0 + EVAL_CHUNK, n), device=device)
             jj = j[ii]
             mask_other = (depth[jj] > 0).float()
             warped, mask = reproject(poses[ii], poses[jj], intr[ii],
@@ -148,8 +150,8 @@ def eval_reprojection_consistency(scene_cache, styled_dir, out_dir=None,
         accums[key].sq += float(torch.sum(d.double() ** 2))
         accums[key].n += int(m3.sum()) * styled.shape[-1]
         if lpips_fn is not None:
-            for c0 in range(0, n, chunk):
-                sl = slice(c0, min(c0 + chunk, n))
+            for c0 in range(0, n, EVAL_CHUNK):
+                sl = slice(c0, min(c0 + EVAL_CHUNK, n))
                 a01 = gatys_post(styled[sl] * m3[sl])
                 b01 = gatys_post(warped[sl] * m3[sl])
                 lpips_sums[key + "_lpips"] += float(torch.sum(lpips_fn(a01, b01)))

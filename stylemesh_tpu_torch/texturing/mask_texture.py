@@ -17,19 +17,16 @@ import numpy as np
 import torch
 
 from stylemesh_tpu_torch import resolve_device
+from stylemesh_tpu_torch.ops import grid_sample
 
 
 def _splat_counts(uv_grid, mask, tex_h, tex_w):
     """One view: ``[tex_h, tex_w]`` float, 1 where a corner of a valid pixel
-    lies. ``uv_grid [H, W, 2]`` in [-1, 1] (x, y); ``mask [H, W, 1]``."""
-    px = (uv_grid[..., 0] + 1.0) * 0.5 * (tex_w - 1)
-    py = (uv_grid[..., 1] + 1.0) * 0.5 * (tex_h - 1)
-    px = torch.clamp(px, 0.0, tex_w - 1)
-    py = torch.clamp(py, 0.0, tex_h - 1)
-    x0 = torch.floor(px).long()
-    y0 = torch.floor(py).long()
-    x1 = torch.clamp(x0 + 1, max=tex_w - 1)
-    y1 = torch.clamp(y0 + 1, max=tex_h - 1)
+    lies. ``uv_grid [H, W, 2]`` in [-1, 1] (x, y); ``mask [H, W, 1]``. The
+    corners are those of the bilinear gather (align_corners=True, border
+    clamp); their weights are not used."""
+    y0, y1, x0, x1, _, _ = grid_sample._corner_indices_weights(
+        uv_grid, tex_h, tex_w)
     m = mask[..., 0].reshape(-1)
     flat = torch.zeros((tex_h * tex_w,), dtype=torch.float32,
                        device=uv_grid.device)

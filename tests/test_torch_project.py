@@ -82,6 +82,35 @@ def test_reproject_matches_jax(src, tar):
     assert not valid[:, 18:20, 2:6].any()  # zero depth in the source
 
 
+def test_reproject_nan_projection_is_invalid():
+    """A source pixel whose projection is 0 / 0 (its camera x and y are 0
+    and ``1e-8 + z`` is 0) is invalid with colour 0 in the port, where the
+    JAX package's colour there is NaN; every other pixel matches the JAX
+    package as in :func:`test_reproject_matches_jax`."""
+    poses, intr, depth, color, mask = scene()
+    poses[:2] = np.eye(4, dtype=np.float32)  # src view 0, target view 1
+    intr[0, 0, 2], intr[0, 1, 2] = 15.0, 11.0  # the pixel (11, 15) is on axis
+    depth[0, 11, 15] = -1e-8
+    # a NaN coordinate samples pixel 0 (K1's clamp): there the target's
+    # depth agrees and its mask is 1, so that only the bounds check can
+    # reject the pixel
+    depth[1, 0, 0], mask[1, 0, 0] = 0.0, 1.0
+    args = _pairs(poses, intr, depth, color, mask, [0, 2], [1, 3])
+    warped, valid = project.reproject(*[torch.from_numpy(a) for a in args])
+    jwarped, jvalid = (np.asarray(x) for x in
+                       jax_reproject(*[jnp.asarray(a) for a in args]))
+    assert np.isnan(jwarped[0, 11, 15]).all()  # the JAX package lets NaN through
+    assert not valid[0, 11, 15, 0]
+    assert (warped[0, 11, 15] == 0).all()
+    assert torch.isfinite(warped).all()
+    rest = np.ones(valid.shape[:3], bool)
+    rest[0, 11, 15] = False
+    np.testing.assert_array_equal(valid.numpy()[rest], jvalid[rest])
+    assert 0.2 < jvalid[rest].mean() < 0.9
+    np.testing.assert_allclose(warped.numpy()[rest], jwarped[rest], rtol=0,
+                               atol=1e-4)
+
+
 def test_warps_take_k1_layers(monkeypatch):
     """Every texture that the warps sample is ``[H, W, 3]`` and 16-byte
     aligned, as K1 takes them on the card (the one-channel mask is warped
