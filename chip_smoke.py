@@ -86,7 +86,28 @@ phase fails. Phases:
    of the 784-px UV level over the 4 layers, one launch) and the eval's
    warps (8 launches of one 3-channel 256x341 image each, grids with
    +-inf, NaN, huge and border entries), each against its plain version
-   and timed per call.
+   and timed per call;
+7. the demo room (after phase 3): the port's ``build_demo_scene`` (24 views
+   of 480x640, the native bake at 480x640 and heights 256..960, the frame
+   renders and the bake timed apart); views 0-3 re-baked by
+   ``bake_scene(backend="torch")`` on the card and by the native backend,
+   timed in ms per view; every view and size of the torch bake held against
+   the same scan in float64 with tests/test_native.py's bounds (more than
+   99% of the pixels with the same hit and winning triangle, there UV
+   within 1e-4, depth within 1e-4 relative, angle and LOD within 1e-3), the
+   native bake's own gap to float64 reported beside it; the torch
+   rasterizer's peak memory at 960x1280 with full 256-face chunks; one
+   480x640 view of the room with each wall split into 128x128 quads
+   (196,608 faces), torch against native with those bounds, both timed;
+   the full-method step of phase 1's configuration on the room (V = 4
+   views spread over the orbit, UV levels 256..784, 1 warm-up and 5 timed
+   steps): finite losses, K1-K8 launched, K1 and K2 once a step, the
+   step's profile as in phase 1; K1 and K2 at step level on the room's
+   UV maps against phase 3's synthetic batch; and the two quality gates
+   of tests/test_quality_gates.py at its sizes, steps and thresholds
+   (float32): self-reproduction PSNR (under 16 dB at the start, over 24
+   dB and 9 dB more at the end) and the circle-uniformity separation of
+   the full arm and the only-2D arm (its seven assertions).
 
 The last two lines of standard output are the ``{"kernels": [...]}`` JSON
 line and the ``{"ok": true, "device": ...}`` JSON line.
@@ -110,17 +131,25 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from stylemesh_tpu_torch import cli, kernels
+from stylemesh_tpu_torch import cli, kernels, preprocess
+from stylemesh_tpu_torch.convert import batch_from_numpy
+from stylemesh_tpu_torch.data import demo_scene
+from stylemesh_tpu_torch.data.loading import (SceneCache, load_extrinsics,
+                                              rescale_intrinsics)
+from stylemesh_tpu_torch.data.scenes import discover_scannet_scenes, select_scene
 from stylemesh_tpu_torch.data.synthetic import synthetic_view_batch
+from stylemesh_tpu_torch.eval.circles import measure_circles_for_scene
 from stylemesh_tpu_torch.eval.reprojection import EVAL_CHUNK
-from stylemesh_tpu_torch.geometry import project
+from stylemesh_tpu_torch.geometry import mesh_io, native, project, rasterize
 from stylemesh_tpu_torch.models.pipeline import PipelineConfig, TexturePipeline
 from stylemesh_tpu_torch.models import vgg
 from stylemesh_tpu_torch.models.texture import sample_texture
 from stylemesh_tpu_torch.models.vgg import init_vgg_params, vgg_features
 from stylemesh_tpu_torch.ops import conv_kernels, gram_kernels, head_kernels
 from stylemesh_tpu_torch.ops import grid_sample as gs
-from stylemesh_tpu_torch.optimize import RENDER_CHUNK
+from stylemesh_tpu_torch.ops.color import gatys_post
+from stylemesh_tpu_torch.ops.resize import resize_bilinear
+from stylemesh_tpu_torch.optimize import RENDER_CHUNK, render_styled_frames
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12   # dense bf16 tensor-core peak
@@ -727,15 +756,10 @@ def post_chain_on_cpu(tag, argv, log_dir):
     the gaps found."""
     from PIL import Image
 
-    from stylemesh_tpu_torch.data.loading import SceneCache
     from stylemesh_tpu_torch.eval.reprojection import (
         eval_reprojection_consistency,
     )
-    from stylemesh_tpu_torch.optimize import (
-        build_lpips,
-        discover_scene,
-        render_styled_frames,
-    )
+    from stylemesh_tpu_torch.optimize import build_lpips, discover_scene
     from stylemesh_tpu_torch.presets import apply_preset, explicit_cli_keys
     from stylemesh_tpu_torch.utils.checkpoint import load_texture_npz
 
@@ -1663,6 +1687,462 @@ def post_chain_kernels(texture, top_level, add):
     return per_call
 
 
+# ---------------------------------------------------------------- phase 7
+
+DEMO_VIEWS = 24                # tools/make_demo_scene.py's room
+DEMO_BAKE_VIEWS = (0, 1, 2, 3)  # re-baked by the torch backend
+SPLIT_GRID = 128               # quads per wall side: 6 * 2 * 128^2 faces
+# tests/test_native.py's bounds: hit agreement, then where both hit
+AGREE, UV_ATOL, DEPTH_RTOL, ANGLE_ATOL, LOD_ATOL = 0.99, 1e-4, 1e-4, 1e-3, 1e-3
+
+
+def split_room(n=SPLIT_GRID):
+    """The demo room with each wall split into an n x n grid of quads (two
+    triangles each): positions and UVs bilinear over the wall's corners, so
+    the UVs stay inside the wall's island, and the wall's normal at each of
+    its vertices."""
+    room = demo_scene.room_mesh()
+    g = np.linspace(0.0, 1.0, n + 1)
+    s, t = (a[..., None] for a in np.meshgrid(g, g, indexing="xy"))
+    parts = {"v": [], "uv": [], "n": [], "f": []}
+    for q in range(6):
+        corners = slice(4 * q, 4 * q + 4)
+
+        def bilinear(c):
+            c = np.asarray(c, np.float64)
+            return ((1 - s) * (1 - t) * c[0] + s * (1 - t) * c[1]
+                    + s * t * c[2] + (1 - s) * t * c[3]).reshape(-1, c.shape[1])
+
+        base = sum(len(v) for v in parts["v"])
+        parts["v"].append(bilinear(room.vertices[corners]))
+        parts["uv"].append(bilinear(room.uvs[corners]))
+        parts["n"].append(np.repeat(room.normals[4 * q][None], (n + 1) ** 2, 0))
+        idx = base + np.arange((n + 1) ** 2).reshape(n + 1, n + 1)
+        a, b, c, d = idx[:-1, :-1], idx[:-1, 1:], idx[1:, 1:], idx[1:, :-1]
+        parts["f"] += [np.stack([a, b, c], -1).reshape(-1, 3),
+                       np.stack([a, c, d], -1).reshape(-1, 3)]
+    return mesh_io.Mesh(
+        vertices=np.concatenate(parts["v"]).astype(np.float32),
+        faces=np.concatenate(parts["f"]).astype(np.int32),
+        uvs=np.concatenate(parts["uv"]).astype(np.float32),
+        normals=np.concatenate(parts["n"]).astype(np.float32))
+
+
+def raster_maps(mesh, pose, k, hw, dtype=torch.float32):
+    """The torch rasterizer's maps (uv, angle, depth, hit, lod) of one view
+    on the card, computed in ``dtype`` (float64: the precision reference),
+    as numpy, and the index of each pixel's winning (clipped) triangle."""
+    fv, fuv, fn = rasterize._camera_faces(mesh.vertices, mesh.faces, mesh.uvs,
+                                          mesh.normals, pose, "cuda")
+    fv, fuv, fn = fv.to(dtype), fuv.to(dtype), fn.to(dtype)
+    cam = (float(k[0, 0]), float(k[1, 1]), float(k[0, 2]), float(k[1, 2]))
+    maps = rasterize._rasterize_impl(fv, fuv, fn, *cam, hw, 256)
+    cv, _, _ = rasterize._clip_faces(fv, fuv, fn, *cam, hw)
+    _, face = rasterize._depth_scan(cv, *cam, hw, 256)
+    return [x.cpu().numpy() for x in maps], face.reshape(hw).cpu().numpy()
+
+
+def compare_maps(where, got, want, faces=None, gate=True):
+    """Hold maps (uv, angle, depth, hit, lod) against others with the
+    bounds of tests/test_native.py: a pixel agrees when both miss, or both
+    hit (and, with ``faces``, the same triangle won: a pixel on an edge may
+    go to the neighbour, as a missed edge pixel may); more than AGREE of the
+    pixels agree, and where they agree and hit, UV within UV_ATOL, depth
+    within DEPTH_RTOL, angle and LOD within ANGLE_ATOL / LOD_ATOL. Logs the
+    agreement and the largest errors; with ``gate``, raises on a miss.
+    Returns whether the bounds held."""
+    uv_g, ang_g, d_g, hit_g, lod_g = got
+    uv_w, ang_w, d_w, hit_w, lod_w = want
+    agree = hit_g == hit_w
+    if faces is not None:
+        agree &= ~hit_g | (faces[0] == faces[1])
+    both = agree & hit_g
+    err = dict(
+        uv=float(np.abs(uv_g - uv_w)[both].max(initial=0.0)),
+        depth_rel=float((np.abs(d_g - d_w) / np.maximum(d_w, 1e-12))[both]
+                        .max(initial=0.0)),
+        angle=float(np.abs(ang_g - ang_w)[both].max(initial=0.0)),
+        lod=float(np.abs(lod_g - lod_w)[both].max(initial=0.0)))
+    share = float(agree.mean())
+    ok = (share > AGREE and both.any() and err["uv"] <= UV_ATOL
+          and err["depth_rel"] <= DEPTH_RTOL and err["angle"] <= ANGLE_ATOL
+          and err["lod"] <= LOD_ATOL)
+    close = ((np.abs(uv_g - uv_w).max(-1) <= UV_ATOL)
+             & (np.abs(d_g - d_w) <= DEPTH_RTOL * np.abs(d_w))
+             & (np.abs(ang_g - ang_w) <= ANGLE_ATOL)
+             & (np.abs(lod_g - lod_w) <= LOD_ATOL))
+    within = float(((hit_g == hit_w) & (~hit_g | close)).mean())
+    log(f"[bake] {where}: agree {share:.5f}, every map within the bounds at "
+        f"{within:.5f} of the pixels, hit {float(hit_g.mean()):.3f}, "
+        f"max err uv {err['uv']:.3g} depth rel {err['depth_rel']:.3g} angle "
+        f"{err['angle']:.3g} lod {err['lod']:.3g} -> "
+        f"{'within' if ok else 'OUTSIDE'} the bounds")
+    if gate and not ok:
+        raise RuntimeError(f"{where}: the torch bake is outside the bounds")
+    return ok
+
+
+def build_room(root):
+    """Step 1: tools/make_demo_scene.py's call, timing the frame renders
+    and the bake apart. Returns the scene directory."""
+    real_bake = demo_scene.bake_scene
+    times = {}
+
+    def timed_bake(*args, **kw):
+        t0 = time.perf_counter()
+        n = real_bake(*args, **kw)
+        times["bake"] = time.perf_counter() - t0
+        return n
+
+    t0 = time.perf_counter()
+    demo_scene.bake_scene = timed_bake
+    try:
+        scene = demo_scene.build_demo_scene(str(root), n_views=DEMO_VIEWS,
+                                            verbose=False)
+    finally:
+        demo_scene.bake_scene = real_bake
+    total = time.perf_counter() - t0
+    log(f"[demo] built the room ({DEMO_VIEWS} views of 480x640, pyramid "
+        f"{preprocess.DEFAULT_PYRAMID_HEIGHTS}): frame renders "
+        f"{total - times['bake']:.3f} s, native bake {times['bake']:.3f} s")
+    return Path(scene)
+
+
+def bake_backends(root, scene):
+    """Step 2: views DEMO_BAKE_VIEWS re-baked by the torch backend on the
+    card and by the native one, timed; each view and size held against the
+    scan in float64 (the gate; the native maps reported beside it); then one
+    480x640 view of the split room, torch against native (the gate)."""
+    from stylemesh_tpu_torch.data.scenes import _scannet_intrinsics
+
+    k, size, _ = _scannet_intrinsics(str(scene))
+    mesh_path = str(root / "room_uvs_blender.ply")
+    pose_dir = str(scene / "pose")
+    heights = preprocess.DEFAULT_PYRAMID_HEIGHTS
+    ms = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for backend in ("torch", "native"):
+        out = root / f"bake_{backend}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preprocess.bake_scene(mesh_path, pose_dir, k, size, str(out),
+                              base_hw=SCENE_HW, pyramid_heights=heights,
+                              backend=backend, frame_ids=DEMO_BAKE_VIEWS,
+                              verbose=False, device="cuda")
+        torch.cuda.synchronize()
+        ms[backend] = (time.perf_counter() - t0) * 1e3 / len(DEMO_BAKE_VIEWS)
+    log(f"[bake] room, {len(heights) + 1} sizes a view: torch "
+        f"{ms['torch']:.1f} ms/view (peak "
+        f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.3f} GB), native "
+        f"{ms['native']:.1f} ms/view")
+
+    mesh = mesh_io.load_mesh(mesh_path)
+    native_ok = []
+    for i in DEMO_BAKE_VIEWS:
+        pose = load_extrinsics(os.path.join(pose_dir, f"{i}.txt"))
+        for hw in [SCENE_HW] + [(h, int(h * SCENE_HW[1] / SCENE_HW[0]))
+                                for h in heights]:
+            kk = rescale_intrinsics(k, size, (hw[1], hw[0]))
+            got, face32 = raster_maps(mesh, pose, kk, hw)
+            ref, face64 = raster_maps(mesh, pose, kk, hw, torch.float64)
+            nat = native.rasterize_mesh_native(mesh.vertices, mesh.faces,
+                                               mesh.uvs, mesh.normals, pose,
+                                               kk, hw)
+            where = f"room view {i} {hw[0]}x{hw[1]}"
+            compare_maps(f"{where} torch vs float64", got, ref, (face32, face64))
+            native_ok.append(compare_maps(f"{where} native vs float64", nat,
+                                          ref, gate=False))
+            compare_maps(f"{where} torch vs native", got, nat, gate=False)
+            level = "uv" if hw == SCENE_HW else f"uv_{hw[0]}"
+            uv3 = np.load(root / "bake_torch" / level / f"{i}.npy")
+            if not (np.array_equal(uv3[..., :2], got[0])
+                    and np.array_equal(uv3[..., 2], got[4])):
+                raise RuntimeError(f"{where}: bake_scene wrote other maps "
+                                   f"than the torch rasterizer gives")
+    log(f"[bake] room: native within the bounds of float64 at "
+        f"{sum(native_ok)} of {len(native_ok)} view sizes")
+
+    # the 960x1280 level's peak with full 256-face chunks
+    coarse = split_room(32)
+    pose = load_extrinsics(os.path.join(pose_dir, "0.txt"))
+    kk = rescale_intrinsics(k, size, (1280, 960))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    rasterize.rasterize_mesh(coarse.vertices, coarse.faces, coarse.uvs,
+                             coarse.normals, pose, kk, (960, 1280),
+                             device="cuda")
+    torch.cuda.synchronize()
+    log(f"[bake] torch rasterizer at 960x1280, {len(coarse.faces)} faces "
+        f"(chunks of 256): {(time.perf_counter() - t0) * 1e3:.1f} ms, peak "
+        f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.3f} GB")
+
+    split = split_room()
+    times = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for rep in range(2):
+        t0 = time.perf_counter()
+        got = rasterize.rasterize_mesh(split.vertices, split.faces, split.uvs,
+                                       split.normals, pose, k, SCENE_HW,
+                                       device="cuda")
+        got = [x.cpu().numpy() for x in got]
+        times.setdefault("torch", []).append((time.perf_counter() - t0) * 1e3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    for rep in range(2):
+        t0 = time.perf_counter()
+        nat = native.rasterize_mesh_native(split.vertices, split.faces,
+                                           split.uvs, split.normals, pose, k,
+                                           SCENE_HW)
+        times.setdefault("native", []).append((time.perf_counter() - t0) * 1e3)
+    log(f"[bake] split room, {len(split.faces)} faces, one 480x640 view: "
+        f"torch {times['torch'][0]:.1f} / {times['torch'][1]:.1f} ms "
+        f"(first / second call), peak {peak:.3f} GB; native "
+        f"{times['native'][0]:.1f} / {times['native'][1]:.1f} ms")
+    compare_maps("split room view 0 480x640 torch vs native", got, nat)
+
+
+def demo_step(scene_root, kernel_rows, synthetic_uv):
+    """Step 3: bench.py::_run_demo_bench on the port: the full-method step
+    of bench_config() on the room, V = 4 views spread over the orbit, 1
+    warm-up and STEPS timed steps; then K1 and K2 on this batch at step
+    level beside phase 3's rows on the synthetic batch (``synthetic_uv``,
+    the bench batch's UV levels), and how many of K2's atomic adds land on
+    one texel on each."""
+    scenes = discover_scannet_scenes(str(scene_root / "train" / "images"),
+                                     pyramid_levels=4, min_pyramid_height=256)
+    cache = SceneCache(select_scene(scenes, min_images=1), resize_size=256)
+    n = cache.num_views
+    idx = [cache.indices[(i * n) // 4] for i in range(4)]
+    batch = batch_from_numpy(cache.get_batch(idx), "cuda")
+    pipe = TexturePipeline(bench_config(), init_vgg_params(rng=0, scale=0.05),
+                           style_image(512, 683))
+    state = pipe.init()
+    aux = pipe.prepare_batch(batch)
+    losses = pipe.train_step(state, batch, aux)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    history = [pipe.train_step(state, batch, aux) for _ in range(STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    for i, l in enumerate([losses] + history):
+        l = {k: float(v) for k, v in l.items()}
+        log(f"[demo] step {i}: " + json.dumps(l))
+        if not all(math.isfinite(x) for x in l.values()):
+            raise RuntimeError(f"demo room: non-finite loss at step {i}")
+    for name in BENCH_KERNELS:
+        log(f"[demo] {name}: {counts[name]} launches in {STEPS} steps")
+        if counts[name] == 0:
+            raise RuntimeError(f"{name} was not launched on the demo room")
+    for name in ("K1_gather", "K2_splat"):
+        if counts[name] != STEPS:
+            raise RuntimeError(f"demo room: {name} launched {counts[name]} "
+                               f"times in {STEPS} steps, not one a step")
+    step_ms = wall / STEPS * 1e3
+    result = dict(step_ms=step_ms, views_per_s=STEPS * 4 / wall,
+                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                  uv_levels=[tuple(u.shape[1:3]) for u in batch.uv])
+    log("[demo] " + json.dumps(result))
+    profile_step(pipe, state, batch, aux, step_ms)
+
+    # K1 / K2 at step level on the room's UV maps, as in sampling_step
+    layers = [l.detach() for l in state.texture.layers]
+    shapes = [tuple(l.shape[:2]) for l in layers]
+    grids = list(batch.uv)
+    cots = []
+    for i, grid in enumerate(grids):
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        g = torch.randn(tuple(grid.shape[:3]) + (3,), generator=gen,
+                        device="cuda")
+        cots.append((g * aux.grad_weights[i]).contiguous())
+    npx = sum(g.numel() // 2 for g in grids)
+    live_px = sum(int((c != 0).any(-1).sum()) for c in cots)
+    touched = sum(touched_texels(g, layers) for g in grids)
+    rows = {r["name"]: r for r in kernel_rows}
+    for name, fn, plain, nbytes in (
+            ("K1_gather", lambda: gs.gather_levels(layers, grids),
+             lambda: gs.gather_levels_plain(layers, grids),
+             npx * (8 + 12) + 12 * touched),
+            ("K2_splat", lambda: gs.splat_levels(cots, grids, shapes),
+             lambda: gs.splat_levels_plain(cots, grids, shapes),
+             npx * 12 + live_px * 8 + 12 * sum(a * b for a, b in shapes))):
+        check(name, fn(), plain(), "demo room step")
+        t, lo, hi = cuda_times(fn)
+        b_ms, by = bound_ms(nbytes)
+        r = rows[name]
+        log(f"[demo] {name} on the room: {t:.4f} ms ({lo:.4f}-{hi:.4f}; bound "
+            f"{b_ms:.4f} by {by}, {b_ms / t:.0%} of it); phase 3 on the "
+            f"synthetic batch: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+            f"{r['bound_ms'] / r['ms']:.0%})")
+    # K2 adds 4 corners x layers per sample with a nonzero cotangent; the
+    # fewer distinct texels they hit, the more adds contend for one address
+    for what, uv, n_live, texels in (("room", grids, live_px, touched),
+                                     ("synthetic", synthetic_uv, None, None)):
+        n_samples = sum(g.numel() // 2 for g in uv)
+        if texels is None:
+            texels = sum(touched_texels(g, layers) for g in uv)
+        log(f"[demo] {what} UV maps: {n_samples} samples"
+            + ("" if n_live is None else f" ({n_live} with a nonzero "
+               f"cotangent)")
+            + f", {texels} distinct texels over the {len(layers)} layers, "
+            f"{4 * len(layers) * n_samples / texels:.2f} corner reads a texel")
+    return result
+
+
+def quality_scene_cache(root, texture, view_hw, heights, resize,
+                        frame_hook=None, n_views=6):
+    """tests/test_quality_gates.py::_scene_cache with the port."""
+    demo_scene.build_demo_scene(str(root), n_views=n_views, view_hw=view_hw,
+                                pyramid_heights=heights, texture=texture,
+                                shading=False, frame_hook=frame_hook,
+                                verbose=False)
+    scenes = discover_scannet_scenes(os.path.join(root, "train", "images"),
+                                     pyramid_levels=len(heights),
+                                     min_pyramid_height=heights[0])
+    return SceneCache(select_scene(scenes, min_images=1), resize_size=resize)
+
+
+def reconstruction_cfg(tex_size):
+    """tests/test_quality_gates.py::_reconstruction_cfg: content-only on
+    shallow layers of the random VGG, float32 (the JAX config's
+    ``use_splat_kernel=False`` has no counterpart: on the card sampling is
+    K1/K2, the same function)."""
+    return PipelineConfig(
+        steps_per_epoch=1, texture_width=tex_size, texture_height=tex_size,
+        hierarchical_layers=2,
+        content_layers=("r11", "r21"), content_weights=(1.0, 1.0),
+        use_angle_weight=True, use_depth_scaling=True,
+        content_weight=1.0, style_weight=0.0, tex_reg_weight=0.0,
+        style_min_size=16, learning_rate=1.0, decay_step_size=10 ** 6)
+
+
+def _gate_pipeline(cfg, device):
+    rng = np.random.default_rng(0)
+    style = torch.from_numpy(
+        (rng.random((1, 48, 64, 3), dtype=np.float32) - 0.45) * 255.0)
+    return TexturePipeline(cfg, init_vgg_params(rng=0, device=device), style,
+                           device=device)
+
+
+def reconstruct(cache, cfg, steps, device="cuda"):
+    """tests/test_quality_gates.py::_optimize: ``steps`` train steps on all
+    the cached views; returns (state, batch)."""
+    batch = batch_from_numpy(cache.get_batch(cache.indices), device)
+    pipe = _gate_pipeline(cfg, device)
+    state = pipe.init()
+    aux = pipe.prepare_batch(batch)
+    for _ in range(steps):
+        losses = pipe.train_step(state, batch, aux)
+    if not all(math.isfinite(float(v)) for v in losses.values()):
+        raise RuntimeError(f"quality gate: non-finite losses {losses}")
+    return state, batch
+
+
+@torch.no_grad()
+def masked_psnr(state, batch):
+    """tests/test_quality_gates.py::_masked_psnr."""
+    hw = tuple(batch.rgb.shape[1:3])
+    uv = next((u for u in batch.uv if u.shape[1] == hw[0]), batch.uv[0])
+    pred = resize_bilinear(gatys_post(sample_texture(state.texture, [uv])[0]),
+                           hw)
+    rgb = gatys_post(batch.rgb)
+    m = batch.mask
+    mse = float((((pred - rgb) ** 2) * m).sum() / (m.sum() * 3))
+    return -10 * math.log10(mse + 1e-12)
+
+
+def self_reproduction_gate(root, device="cuda"):
+    """tests/test_quality_gates.py::test_self_reproduction_psnr_gate: the
+    rendered views go from under 16 dB (the gray start) to over 24 dB, a
+    gain of more than 9 dB. Returns (initial, final) PSNR."""
+    cache = quality_scene_cache(root, demo_scene.demo_texture(size=512, seed=0),
+                                view_hw=(120, 160), heights=(48, 96), resize=64)
+    cfg = reconstruction_cfg(128)
+    batch = batch_from_numpy(cache.get_batch(cache.indices), device)
+    init_psnr = masked_psnr(_gate_pipeline(cfg, device).init(), batch)
+    state, batch = reconstruct(cache, cfg, 75, device)
+    final_psnr = masked_psnr(state, batch)
+    log(f"[gate] self-reproduction PSNR {init_psnr:.3f} -> {final_psnr:.3f} dB")
+    if not (init_psnr < 16.0 and final_psnr > 24.0
+            and final_psnr > init_psnr + 9.0):
+        raise RuntimeError(f"self-reproduction gate missed: {init_psnr:.3f} "
+                           f"-> {final_psnr:.3f} dB")
+    return init_psnr, final_psnr
+
+
+def circle_arm(root, arm, device="cuda"):
+    """tests/test_quality_gates.py::_circle_arm."""
+    if arm == "full":
+        tex = demo_scene.circle_texture(size=1024, radius_px=30, spacing_px=140)
+        hook = None
+    else:
+        tex = np.full((64, 64, 3), 0.82, np.float32)
+
+        def hook(i, img, depth):
+            return demo_scene.paint_screen_circles(img, radius_px=14,
+                                                   spacing_px=64)
+
+    cache = quality_scene_cache(root, tex, view_hw=(256, 341),
+                                heights=(64, 128), resize=128, frame_hook=hook)
+    state, _ = reconstruct(cache, reconstruction_cfg(256), 60, device)
+    styled = os.path.join(root, "styled")
+    render_styled_frames(state.texture, cache, styled, level=-1)
+    return measure_circles_for_scene(cache, styled, device=device)
+
+
+def circle_gate(root, device="cuda"):
+    """tests/test_quality_gates.py::test_circle_uniformity_full_vs_only2d:
+    its seven assertions. Returns (full, only2d)."""
+    root = Path(root)
+    full = circle_arm(str(root / "full"), "full", device)
+    only2d = circle_arm(str(root / "only2d"), "only2d", device)
+    keys = ("n_circles", "corr_depth_3D", "corr_depth_2D")
+    log(f"[gate] circles full: { {k: full.get(k) for k in keys} }, only-2D: "
+        f"{ {k: only2d.get(k) for k in keys} }")
+    checks = {
+        "full n_circles >= 40": full["n_circles"] >= 40,
+        "only2d n_circles >= 60": only2d["n_circles"] >= 60,
+        "full corr_depth_3D < -0.1": full["corr_depth_3D"] < -0.1,
+        "only2d corr_depth_3D > 0.35": only2d["corr_depth_3D"] > 0.35,
+        "3D separation > 0.7":
+            only2d["corr_depth_3D"] - full["corr_depth_3D"] > 0.7,
+        "full corr_depth_2D < -0.4": full["corr_depth_2D"] < -0.4,
+        "only2d corr_depth_2D > -0.1": only2d["corr_depth_2D"] > -0.1,
+    }
+    missed = [k for k, ok in checks.items() if not ok]
+    if missed:
+        raise RuntimeError(f"circle-uniformity gate missed: {missed}")
+    return full, only2d
+
+
+def demo_room_phase(kernel_rows, synthetic_uv):
+    """Phase 7: the demo room built and baked by the port, the torch bake
+    against float64 and native, the full-method step on the room, and the
+    two quality gates."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="stylemesh_demo_room_") as tmp:
+        root = Path(tmp)
+        scene = build_room(root / "room")
+        t0 = time.perf_counter()
+        bake_backends(root / "room", scene)
+        log(f"[demo] step 2 (bake backends): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        demo_step(root / "room", kernel_rows, synthetic_uv)
+        log(f"[demo] step 3 (demo-room step): {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        self_reproduction_gate(root / "psnr")
+        circle_gate(root / "circles")
+        log(f"[demo] step 4 (quality gates): {time.perf_counter() - t0:.1f} s")
+    log(f"[demo] phase 7: {time.perf_counter() - t_phase:.1f} s")
+
+
 def live_tile_px(m, tile):
     """The pixels, over the views, of the ``tile``-pixel tiles of ``m
     [V, K, P]`` in which some mask is nonzero (the last tile may be short)."""
@@ -1763,6 +2243,7 @@ def main(argv):
     reference_check_bf16()
     launches.update(run_loop_phases(pipe, state, batch, aux, smi))
     rows = kernel_phase(pipe, state, batch, aux, launches)
+    demo_room_phase(rows, list(batch.uv))
     for r in rows:
         other = (f"library {r['library_ms']:.4f} ({r['library_ms_min']:.4f}-"
                  f"{r['library_ms_max']:.4f})" if r["library_ms"] is not None

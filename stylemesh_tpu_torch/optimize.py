@@ -581,9 +581,10 @@ RENDER_CHUNK = 8  # views per render launch
 
 
 @torch.no_grad()
-def render_styled_frames(texture, scene_cache: SceneCache, out_dir):
+def render_styled_frames(texture, scene_cache: SceneCache, out_dir,
+                         level=-1):
     """Render every cached view by sampling the trained texture at its baked
-    UV map of the finest pyramid level, masked, as
+    UV map of pyramid level ``level`` (default the finest), masked, as
     ``<out_dir>/<dataset idx>.png``; returns the paths. The post-train
     render: the reference runs a native mipmap renderer here. Renders on
     the texture's device, one :func:`sample_texture` call per chunk of
@@ -593,7 +594,7 @@ def render_styled_frames(texture, scene_cache: SceneCache, out_dir):
     os.makedirs(out_dir, exist_ok=True)
     device = texture.layers[0].device
     b = scene_cache._batch_all
-    uv = b.uv[-1]
+    uv = b.uv[level]
     n = len(scene_cache.indices)
     paths = []
     for c0 in range(0, n, RENDER_CHUNK):

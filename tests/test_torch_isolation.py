@@ -266,3 +266,36 @@ def test_post_chain_entry_points_stay_on_the_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mask_texture.compute_texture_mask([], [], (4, 4))
     assert not (tmp_path / "s").exists()
+
+
+def test_preprocess_entry_points_stay_on_the_card(monkeypatch, tmp_path):
+    """The preprocessing and capture modules are among the files the import
+    scan covers; the torch rasterizer and the torch bake default to CUDA and
+    raise without it before writing anything; an unknown backend raises
+    instead of falling back to another rasterizer; the native library is
+    built under build/native."""
+    from stylemesh_tpu_torch import preprocess
+    from stylemesh_tpu_torch.geometry import native, rasterize
+
+    names = {p.relative_to(ROOT / "stylemesh_tpu_torch").as_posix()
+             for p in (ROOT / "stylemesh_tpu_torch").rglob("*.py")}
+    assert {"geometry/mesh_io.py", "geometry/trajectories.py",
+            "geometry/native.py", "geometry/rasterize.py",
+            "geometry/unwrap.py", "geometry/segmentation.py",
+            "preprocess.py", "capture.py", "create_uvs.py",
+            "data/demo_scene.py", "data/matterport_house.py", "data/sens.py",
+            "data/filters.py"} <= names
+    assert native.BUILD_DIR == ROOT / "build" / "native"
+    quad = (np.zeros((3, 3), np.float32), np.array([[0, 1, 2]], np.int32),
+            np.zeros((3, 2), np.float32), np.zeros((3, 3), np.float32),
+            np.eye(4, dtype=np.float32), np.eye(3, dtype=np.float32), (4, 4))
+    with pytest.raises(ValueError, match="unknown rasterizer backend"):
+        preprocess.bake_view(None, quad[4], quad[5], quad[6], backend="jax")
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rasterize.rasterize_mesh(*quad)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        preprocess.bake_scene(str(tmp_path / "m.ply"), str(tmp_path),
+                              np.eye(3), (4, 4), str(tmp_path / "out"),
+                              backend="torch")
+    assert not (tmp_path / "out").exists()

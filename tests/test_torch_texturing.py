@@ -67,6 +67,26 @@ def test_render_styled_frames_matches_jax(tmp_path, monkeypatch):
     assert masked >= 10 * 6  # the UV maps' empty corner stays black
 
 
+def test_render_styled_frames_level_matches_jax(tmp_path):
+    """``level=0`` renders at the coarsest UV level, as the JAX package's
+    ``level`` argument does."""
+    write_scene(tmp_path, n=3)
+    jcache, tcache = caches(tmp_path)
+    layers = _layers(seed=1)
+    jpaths = joptimize.render_styled_frames(
+        JTexture.from_arrays([jnp.asarray(l) for l in layers]), jcache,
+        str(tmp_path / "jax"), level=0)
+    tpaths = toptimize.render_styled_frames(
+        texture_from_jax(layers, device="cpu"), tcache, str(tmp_path / "port"),
+        level=0)
+    assert len(tpaths) == len(jpaths) == 3
+    for t, j in zip(tpaths, jpaths):
+        got = np.asarray(Image.open(t), np.int16)
+        want = np.asarray(Image.open(j), np.int16)
+        assert got.shape == want.shape == (16, 21, 3)
+        assert np.abs(got - want).max() <= 1
+
+
 def _frames(path, names, hw=(32, 48)):
     """Solid frames, frame ``i`` of gray level ``20 * (i + 1)``."""
     path.mkdir()
