@@ -36,7 +36,8 @@ phase fails. Phases:
    ``styled.mp4`` of 16 frames, the eval JSON's six accuracies finite with
    ``lpips_calibrated`` false, the ``post_*`` phases in ``wallclock.json``
    and an event file must exist, and the post chain must launch float32 K1
-   (2 render launches, 96 warps) and nothing else, apart from the train
+   (2 render launches) and K1's per-view form (12 warps: one a pairing,
+   eval chunk and image kind) and nothing else, apart from the train
    steps. The same post chain then runs on the CPU (plain versions) from
    the exported texture: its frames within 1/255 of the card's, its eval
    of the card's frames within 1e-4 (MSE) and 1e-3 (LPIPS) relative;
@@ -84,9 +85,12 @@ phase fails. Phases:
    plain versions, timed (K2 with its zero fill; the banded forms for rank
    0's bands of D = 2); K1 at the post chain's shapes: the render (8 views
    of the 784-px UV level over the 4 layers, one launch) and the eval's
-   warps (8 launches of one 3-channel 256x341 image each, grids with
-   +-inf, NaN, huge and border entries), each against its plain version
-   and timed per call;
+   warps (K1's per-view form, one launch for 8 3-channel 256x341 images,
+   each at its own grid, with +-inf, NaN, huge and border entries; also
+   equal bit for bit to 8 launches of the shared-layer form, one a view),
+   each against its plain version and timed per call; the warp call's
+   device time also with the calls queued back to back behind a spin
+   kernel, beside one ``F.grid_sample``'s;
 7. the demo room (after phase 3): the port's ``build_demo_scene`` (24 views
    of 480x640, the native bake at 480x640 and heights 256..960, the frame
    renders and the bake timed apart); views 0-3 re-baked by
@@ -227,7 +231,7 @@ KERNELS = {  # launches: (wrapper, attribute holding its launch count);
         launches=(gs.gather_levels, "launches"), unit="call", rel_tol=1e-5),
     "K1_gather_warp": dict(
         source=SAMPLE_SRC, replaces="stylemesh_tpu/ops/splat_pallas.py:486",
-        launches=(gs.gather_levels, "launches"), unit="call", rel_tol=1e-5),
+        launches=(gs.gather_each, "launches"), unit="call", rel_tol=1e-5),
 }
 # the kernels each driven path must launch
 BENCH_KERNELS = ("K1_gather", "K2_splat", "K3_gram_fwd", "K4_gram_bwd",
@@ -687,11 +691,15 @@ def cli_run(tag, root, style, index_repeat, required, forbidden=(), extra=(),
         # besides the post chain, each epoch's texture image
         # (``texture_image``, one launch) runs K1 in float32
         f32 = sum(n.get("gather", 0) for n in post_result["launches"].values())
+        each = post_result["launches"]["post_eval"]["gather_each"]
         epochs = int(argv[argv.index("--max_epochs") + 1])
         if (counts["K1_gather"] != f32 + epochs
+                or counts["K1_gather_warp"] != each
                 or rank_line["train_launches"]["gather"]):
             raise RuntimeError(f"[{tag}] float32 K1 launched {counts['K1_gather']}"
-                               f" times, the post chain {f32}")
+                               f" times, the post chain {f32}; its per-view "
+                               f"form {counts['K1_gather_warp']}, the eval "
+                               f"{each}")
     return dict(counts=counts, steps=result["steps"], log_dir=log_dir,
                 state=state, train=rank_line, argv=argv, post=post_result)
 
@@ -705,9 +713,9 @@ def check_post(tag, log_dir, out, views=SCENE_VIEWS, tb=False):
     and ``lpips_calibrated`` false, the ``post_*`` phases in
     ``wallclock.json``, with ``tb`` an event file, and the sampling kernels'
     launches of its one post-chain line (``out``): float32 K1 only, one
-    launch per render chunk of 8 views and two per view and pairing in the
-    eval (colour and mask warps). Returns the phases' seconds and the
-    launches."""
+    launch per render chunk of 8 views, and in the eval two launches of its
+    per-view form per pairing and chunk of EVAL_CHUNK views (colour and
+    mask warps). Returns the phases' seconds and the launches."""
     import cv2
 
     styled = sorted(os.listdir(os.path.join(log_dir, "styled")))
@@ -739,7 +747,7 @@ def check_post(tag, log_dir, out, views=SCENE_VIEWS, tb=False):
                            f"{out.count('reprojection eval:')} evals")
     launches = json.loads(lines[0])
     want = {"post_render": {"gather": -(-views // RENDER_CHUNK)},
-            "post_eval": {"gather": 2 * 3 * views}}
+            "post_eval": {"gather_each": 2 * 3 * -(-views // EVAL_CHUNK)}}
     if launches != want:
         raise RuntimeError(f"[{tag}] post-chain launches {launches}, "
                            f"expected {want}")
@@ -884,9 +892,10 @@ def run_loop_phases(pipe, state, batch, aux, smi):
                         / train["train_steps"])
                     for k, key in (("K1_gather_bf16", "gather_bf16"),
                                    ("K2_splat_bf16", "splat_bf16"))}
-        for k, phase in (("K1_gather_post_render", "post_render"),
-                         ("K1_gather_warp", "post_eval")):
-            launches[k] = (run["post"]["launches"][phase]["gather"], None)
+        for k, phase, key in (
+                ("K1_gather_post_render", "post_render", "gather"),
+                ("K1_gather_warp", "post_eval", "gather_each")):
+            launches[k] = (run["post"]["launches"][phase][key], None)
         os.environ.update(K9_ENV)
         try:
             run = cli_run("k9", root, style, 1, ("K9_conv3x3_mxu",),
@@ -1575,13 +1584,13 @@ def kernel_phase(pipe, state, batch, aux, launches):
     sampling_step(layers, list(batch.uv), cots, add)
     # the post chain's K1 launches in phase 4: its calls (the render's
     # chunks; per pairing and eval chunk, a colour and a mask warp) times
-    # the launches measured in one call
+    # the launches measured in one call, one for each
     calls = {"K1_gather_post_render": -(-SCENE_VIEWS // RENDER_CHUNK),
              "K1_gather_warp": 3 * 2 * -(-SCENE_VIEWS // EVAL_CHUNK)}
     for name, per_call in post_chain_kernels(state.texture, batch.uv[-1],
                                              add).items():
         n = launches[name][0]
-        if n != calls[name] * per_call:
+        if per_call != 1 or n != calls[name] * per_call:
             raise RuntimeError(f"{name}: {n} launches in the post chain, "
                                f"{calls[name]} calls of {per_call}")
         launches[name] = (n, per_call)
@@ -1623,11 +1632,14 @@ def post_chain_kernels(texture, top_level, add):
     it, at RENDER_CHUNK views of the finest UV level, the bench batch's
     views repeated) and one warp of the eval (``project._warp``, as
     ``reproject`` calls it, of EVAL_CHUNK views' 3-channel images, each at
-    its own grid, with 30% of the grid entries from WARP_SPECIALS).
-    Returns {kernel: K1 launches in one call}, read from K1's counter
-    around one call of each. Yardsticks: ``F.grid_sample`` of every layer
-    at the render grid; one ``F.grid_sample`` of the images at their grids.
-    Bounds: grids, outputs and touched texels."""
+    its own grid, with 30% of the grid entries from WARP_SPECIALS: K1's
+    per-view form, also held bit for bit against one launch of the
+    shared-layer form per view, which the warps made before the per-view
+    form, timed beside it). Returns {kernel: launches in one call}, read
+    from the kernel's counter around one call of each. Yardsticks:
+    ``F.grid_sample`` of every layer at the render grid; one
+    ``F.grid_sample`` of the images at their grids. Bounds: grids, outputs
+    and touched texels."""
     opts = dict(mode="bilinear", padding_mode="border", align_corners=True)
     layers = [l.detach() for l in texture.layers]
     grid = torch.cat([top_level] * -(-RENDER_CHUNK // top_level.shape[0]))
@@ -1640,10 +1652,10 @@ def post_chain_kernels(texture, top_level, add):
     def render():
         return sample_texture(texture, [grid])[0]
 
-    def launches_of(fn):
-        n0 = gs.gather_levels.launches
+    def launches_of(fn, wrapper=gs.gather_levels):
+        n0 = wrapper.launches
         fn()
-        return gs.gather_levels.launches - n0
+        return wrapper.launches - n0
 
     per_call = {"K1_gather_post_render": launches_of(render)}
     err = check("K1_gather_post_render", render(),
@@ -1672,19 +1684,56 @@ def post_chain_kernels(texture, top_level, add):
         return project._warp(images, grids)
 
     def warps_plain():
-        return torch.stack([gs.gather_levels_plain([x], [g])[0]
+        return gs.gather_each_plain(images, grids)
+
+    def warps_library():
+        return F.grid_sample(images.permute(0, 3, 1, 2), grids, **opts)
+
+    def warps_shared():
+        # the shared-layer form, one launch a view
+        return torch.stack([gs.gather_levels([x], [g])[0]
                             for x, g in zip(images, grids)])
 
-    per_call["K1_gather_warp"] = launches_of(warps)
+    per_call["K1_gather_warp"] = launches_of(warps, gs.gather_each)
     out = warps()
     if not torch.isfinite(out).all():
         raise RuntimeError("K1 gave a non-finite warp")
     err = check("K1_gather_warp", out, warps_plain(), where)
-    add("K1_gather_warp", where, err, warps, warps_plain,
-        lambda: F.grid_sample(images.permute(0, 3, 1, 2), grids, **opts),
+    same_bits("K1_gather_warp vs the shared-layer form a view", out,
+              warps_shared())
+    add("K1_gather_warp", where, err, warps, warps_plain, warps_library,
         sum(g.numel() // 2 * (8 + 12) + 12 * touched_texels(g, [x])
             for x, g in zip(images, grids)))
+    ms, lo, hi = cuda_times(warps_shared)
+    log(f"[kernel] K1_gather_warp as {EVAL_CHUNK} launches of the "
+        f"shared-layer form: {ms:.4f} ms ({lo:.4f}-{hi:.4f})")
+    log(f"[kernel] K1_gather_warp device time a call, queued back to back: "
+        f"{device_ms_per_call(warps):.4f} ms; one F.grid_sample of the "
+        f"images {device_ms_per_call(warps_library):.4f} ms")
     return per_call
+
+
+SPIN_CYCLES = 50_000_000  # ~25 ms of the card's clock: longer than queuing
+
+
+def device_ms_per_call(fn, reps=REPS):
+    """The device time of one call of ``fn`` without the host's gaps: REPS
+    calls queued behind a spin kernel (``torch.cuda._sleep``), so that the
+    card runs them back to back, between two CUDA events, over the count.
+    Raises when the spin ended before the host had queued every call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    if start.query():
+        raise RuntimeError("the spin ended before the calls were queued")
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 # ---------------------------------------------------------------- phase 7

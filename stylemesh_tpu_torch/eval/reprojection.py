@@ -16,8 +16,8 @@ from the seed, so they equal the JAX package's.
 
 The warps and LPIPS run on ``device`` (the card unless the caller asks for
 the CPU): per pairing and chunk of ``EVAL_CHUNK`` views one
-:func:`reproject` (one K1 launch per view for the colours and one for the
-mask) and one LPIPS call per side.
+:func:`reproject` (one K1 launch for the chunk's colours and one for its
+masks) and one LPIPS call per side.
 """
 
 import json

@@ -8,16 +8,22 @@ view into another through depth and poses, and mask occlusions by
 Channel-last: images ``[B, H, W, C]``, depths ``[B, H, W, 1]``. The depth
 lookups are one nearest-neighbour gather over all the views, where the JAX
 package loops over them. The colour and mask warps go through
-:func:`~stylemesh_tpu_torch.ops.grid_sample.grid_sample`, K1 on the card,
-one launch per view and image: a K1 launch samples one set of layers at
-all its grids, and each view warps its own image. K1 takes ``[H, W, 3]``
-layers, so the one-channel mask is warped as three equal channels and one
-is kept; bilinear sampling is per channel, so that is the same function.
+:func:`~stylemesh_tpu_torch.ops.grid_sample.gather_each`, K1's per-view
+form on the card: each view warps its own image at its own grid, one
+launch for up to ``MAX_LEVELS`` views (the eval's chunk of ``EVAL_CHUNK``
+views is one launch for the colours and one for the masks). K1 takes
+``[H, W, 3]`` images, so the one-channel mask is warped as three equal
+channels and one is kept; bilinear sampling is per channel, so that is the
+same function.
 """
 
 import torch
 
-from stylemesh_tpu_torch.ops.grid_sample import grid_sample, nearest_indices
+from stylemesh_tpu_torch.ops.grid_sample import (
+    MAX_LEVELS,
+    gather_each,
+    nearest_indices,
+)
 
 
 def _pixel_grid(h, w, dtype, device):
@@ -50,18 +56,12 @@ def unproject(cam2world, intrinsic, depth):
                         cam2world)
 
 
-def _aligned(t):
-    """``t``, or a copy of it where its start is not 16-byte aligned (K1
-    takes aligned tensors; one view of a batch is aligned only when its
-    size is a multiple of 16 bytes)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _warp(images, grids):
     """Each view's image bilinearly sampled at its own grid: ``images[i]``
-    ``[H, W, 3]`` at ``grids[i]``."""
-    return torch.stack([grid_sample(_aligned(img), _aligned(g))
-                        for img, g in zip(images, grids)])
+    ``[H, W, 3]`` at ``grids[i]``; one K1 launch per ``MAX_LEVELS`` views."""
+    parts = [gather_each(images[c0:c0 + MAX_LEVELS], grids[c0:c0 + MAX_LEVELS])
+             for c0 in range(0, images.shape[0], MAX_LEVELS)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def reproject(cam2world_src, cam2world_tar, intrinsic, depth_src, depth_tar,

@@ -31,6 +31,8 @@ _SIGNATURES = {
     # unbanded), layers, bf16
     "stylemesh_gather": [_P] * 3 + [_I] + [_P] * 5 + [_I, _I, _P],
     "stylemesh_splat": [_P] * 3 + [_I] + [_P] * 5 + [_I, _I, _P],
+    # level table, views, image table (ptrs, hs, ws): one image per level
+    "stylemesh_gather_each": [_P] * 3 + [_I] + [_P] * 3 + [_P],
     "stylemesh_gram_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "stylemesh_gram_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "stylemesh_conv3x3": [_P, _P, _P, _P] + [_I] * 9 + [_P],

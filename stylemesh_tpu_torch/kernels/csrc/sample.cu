@@ -80,6 +80,15 @@
 // function: the background's texel (0, 0) belongs to band 0. With
 // BANDED = false the in-band tests are constants and the kernels are the
 // unbanded K1/K2.
+//
+// Per-view form (a third template parameter of the gather, EACH; the C entry
+// stylemesh_gather_each): the eval's warps (geometry/project.py::_warp)
+// sample each view's own [H, W, 3] image at that view's grid, with no sum
+// over images. With EACH, level k of the table reads layer k alone, so one
+// launch warps a chunk of up to SM_MAX_LEVELS views, where the shared-layer
+// form took a launch per view. The arithmetic is the one above; with
+// EACH = false the loop over the layers is the unchanged shared-layer form.
+// Float32 and unbanded only: the eval runs nothing else.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -89,6 +98,8 @@
 #define SM_MAX_LAYERS 8
 #define SM_MAX_LEVELS 8
 #define SM_THREADS 256
+static_assert(SM_MAX_LAYERS >= SM_MAX_LEVELS,
+              "the per-view gather reads layer k at level k");
 
 struct Layers {
   float* ptr[SM_MAX_LAYERS];
@@ -235,7 +246,7 @@ __device__ __forceinline__ void corner_texel(const float* t, bool in, int i,
   }
 }
 
-template <bool BF16, bool BANDED>
+template <bool BF16, bool BANDED, bool EACH>
 __global__ void __launch_bounds__(SM_THREADS) gather_kernel(Levels lv,
                                                             Layers layers) {
   const Pixel p = pixel_of(lv);
@@ -243,7 +254,9 @@ __global__ void __launch_bounds__(SM_THREADS) gather_kernel(Levels lv,
   const float2 g = lv.grid[p.level][p.i];
   const bool round = BF16 && !(g.x == -1.0f && g.y == -1.0f);
   float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
-  for (int l = 0; l < layers.n; ++l) {
+  // EACH: this level's own layer; else the sum over every layer
+  const int l_end = EACH ? p.level + 1 : layers.n;
+  for (int l = EACH ? p.level : 0; l < l_end; ++l) {
     Corners c = corners(g.x, g.y, BANDED ? layers.h_global[l] : layers.h[l],
                         layers.w[l]);
     Band b = band_of<BANDED>(layers, l, c);
@@ -433,11 +446,11 @@ template <bool BANDED>
 static int launch_gather(const Levels& lv, long long blocks,
                          const Layers& layers, int bf16, cudaStream_t st) {
   if (bf16)
-    gather_kernel<true, BANDED><<<(unsigned)blocks, SM_THREADS, 0, st>>>(
-        lv, layers);
+    gather_kernel<true, BANDED, false>
+        <<<(unsigned)blocks, SM_THREADS, 0, st>>>(lv, layers);
   else
-    gather_kernel<false, BANDED><<<(unsigned)blocks, SM_THREADS, 0, st>>>(
-        lv, layers);
+    gather_kernel<false, BANDED, false>
+        <<<(unsigned)blocks, SM_THREADS, 0, st>>>(lv, layers);
   return (int)cudaGetLastError();
 }
 
@@ -473,6 +486,23 @@ extern "C" int stylemesh_gather(void* const* grids, void* const* outs,
   cudaStream_t st = (cudaStream_t)stream;
   return row0s ? launch_gather<true>(lv, blocks, layers, bf16, st)
                : launch_gather<false>(lv, blocks, layers, bf16, st);
+}
+
+// K1's per-view form: for each k < n, outs[k] [npxs[k], 3] = the bilinear
+// sample of image k (images[k], [hs[k], ws[k], 3] float32) at grids[k]
+// [npxs[k], 2]; one launch for all n (1..SM_MAX_LEVELS) views.
+extern "C" int stylemesh_gather_each(void* const* grids, void* const* outs,
+                                     const int* npxs, int n,
+                                     void* const* images, const int* hs,
+                                     const int* ws, void* stream) {
+  Levels lv;
+  long long blocks = make_levels(&lv, grids, outs, npxs, n);
+  if (blocks < 0) return (int)cudaErrorInvalidValue;
+  if (blocks == 0) return 0;
+  Layers layers = make_layers(images, hs, ws, n, nullptr, nullptr);
+  gather_kernel<false, false, true><<<(unsigned)blocks, SM_THREADS, 0,
+                                      (cudaStream_t)stream>>>(lv, layers);
+  return (int)cudaGetLastError();
 }
 
 // K2 over a level table: adds every level's splat of its cotangent cots[k]

@@ -120,6 +120,21 @@ def convert_torch_state_dict(state_dict, dtype=torch.float32, device=None):
     return params
 
 
+def save_vgg_params(params, path):
+    """Write ``params`` as the JAX package's ``save_vgg_params`` does: an
+    ``.npz`` of ``<conv>.kernel`` (HWIO float32) and ``<conv>.bias``, in
+    the order of ``params``; both packages' :func:`load_vgg_params` read
+    it."""
+    flat = {}
+    for name, p in params.items():
+        w = p["weight"].detach().to(device="cpu", dtype=torch.float32)
+        flat[f"{name}.kernel"] = np.ascontiguousarray(
+            w.permute(2, 3, 1, 0).numpy())  # OIHW -> HWIO
+        flat[f"{name}.bias"] = p["bias"].detach().to(
+            device="cpu", dtype=torch.float32).numpy()
+    np.savez(path, **flat)
+
+
 def load_vgg_params(path, dtype=torch.float32, device=None):
     """Params from the ``.npz`` of the JAX package's ``save_vgg_params``
     (``<conv>.kernel`` HWIO, ``<conv>.bias``)."""

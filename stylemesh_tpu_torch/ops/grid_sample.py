@@ -11,7 +11,9 @@ directions as hand-written kernels on the card: K1 (:func:`gather_levels`,
 one launch for all levels and layers) and K2 (:func:`splat_levels`, one
 zero fill per layer and one launch that splats every level's cotangent
 into it). :func:`sample_layers`, :func:`gather_layers` and
-:func:`splat_layers` are their one-level case. The plain versions sit
+:func:`splat_layers` are their one-level case. :func:`gather_each` is K1's
+per-view form: each grid samples its own image, one launch for up to
+``MAX_LEVELS`` of them (the eval's warps). The plain versions sit
 beside them and serve tensors that lie on the CPU; a CUDA tensor launches
 the kernel or raises.
 
@@ -285,6 +287,13 @@ def gather_levels_plain(layers, grids, compute="f32"):
     return [gather(layers, grid) for grid in grids]
 
 
+def gather_each_plain(images, grids):
+    """Plain version of K1's per-view form: ``images[k]`` sampled at
+    ``grids[k]``, stacked."""
+    return torch.stack([_gather_plain(image, grid)
+                        for image, grid in zip(images, grids)])
+
+
 def splat_levels_plain(cots, grids, shapes, compute="f32"):
     """Plain version of K2 over a level table: the per-level splats of
     ``cots[k]`` at ``grids[k]``, summed into one gradient per layer in level
@@ -446,6 +455,75 @@ def gather_levels(layers, grids, compute="f32"):
 
 gather_levels.launches = 0
 gather_levels.bf16_launches = 0
+
+
+def _pair_aligned_rows(t):
+    """``t`` ``[K, ...]`` float32 as ``[K, m]`` rows whose starts are 8-byte
+    aligned, as K1 reads and writes float pairs: a view of ``t`` when ``m``
+    is even, else rows of ``m`` inside an uninitialised buffer of rows of
+    ``m + 1`` (the caller copies in or out)."""
+    k = t.shape[0]
+    flat = t.reshape(k, -1)
+    m = flat.shape[1]
+    if m % 2 == 0:
+        return flat
+    return torch.empty((k, m + 1), dtype=t.dtype, device=t.device)[:, :m]
+
+
+def _row_pointers(rows):
+    """The start of every row of ``rows``, as a C array of pointers."""
+    k, step = rows.shape[0], rows.stride(0) * rows.element_size()
+    base = rows.data_ptr()
+    return (ctypes.c_void_p * k)(*[base + i * step for i in range(k)])
+
+
+def gather_each(images, grids):
+    """K1's per-view form: ``images`` ``[K, H, W, 3]`` float32 and ``grids``
+    ``[K, ..., 2]`` -> ``[K, ..., 3]``, where view ``k`` is ``images[k]``
+    bilinearly sampled at ``grids[k]``, with no sum over the images; at most
+    ``MAX_LEVELS`` views.
+
+    CPU tensors take :func:`gather_each_plain`; CUDA tensors launch the
+    kernel (one launch for all views) or raise. The kernel takes each view
+    as a level of its level table and its image as that level's layer.
+    Where a view's image or output holds an odd number of floats, the
+    views go through a buffer of padded rows (a copy). Counts its launches
+    in ``.launches``.
+    """
+    k = images.shape[0]
+    if images.dim() != 4 or images.shape[-1] != 3 or 0 in images.shape[1:3]:
+        raise ValueError(f"images must be [K, H, W, 3], got {tuple(images.shape)}")
+    if grids.shape[0] != k or grids.shape[-1] != 2:
+        raise ValueError(f"grids {tuple(grids.shape)} for images "
+                         f"{tuple(images.shape)}")
+    if not 1 <= k <= MAX_LEVELS:
+        raise ValueError(f"1..{MAX_LEVELS} views, got {k}")
+    if grids.device.type == "cpu":
+        return gather_each_plain(images, grids)
+    kernels.require_cuda(images, grids, dtype=torch.float32)
+    npx = grids.numel() // (2 * k)
+    if npx >= 2 ** 31:
+        raise ValueError(f"more than 2^31 pixels in a grid {tuple(grids.shape)}")
+    out = torch.empty(grids.shape[:-1] + (3,), dtype=torch.float32,
+                      device=grids.device)
+    if npx == 0:
+        return out
+    src = _pair_aligned_rows(images)
+    if src.data_ptr() != images.data_ptr():
+        src.copy_(images.reshape(k, -1))
+    dst = _pair_aligned_rows(out)
+    kernels.launch("stylemesh_gather_each", grids.device,
+                   _row_pointers(grids.reshape(k, -1)), _row_pointers(dst),
+                   (ctypes.c_int * k)(*[npx] * k), k, _row_pointers(src),
+                   (ctypes.c_int * k)(*[images.shape[1]] * k),
+                   (ctypes.c_int * k)(*[images.shape[2]] * k))
+    gather_each.launches += 1
+    if dst.data_ptr() != out.data_ptr():
+        out.reshape(k, -1).copy_(dst)
+    return out
+
+
+gather_each.launches = 0
 
 
 def splat_levels(cots, grids, shapes, compute="f32"):
@@ -623,6 +701,7 @@ def launch_counts():
     """The launch counts of the sampling kernels, by kernel and mode."""
     return {"gather": gather_levels.launches,
             "gather_bf16": gather_levels.bf16_launches,
+            "gather_each": gather_each.launches,
             "splat": splat_levels.launches,
             "splat_bf16": splat_levels.bf16_launches,
             "gather_banded": gather_levels_banded.banded_launches,

@@ -1,8 +1,10 @@
 """The port stands alone and never quietly leaves the card.
 
-- An ``ast`` scan of every file of ``stylemesh_tpu_torch/`` and of
-  ``chip_smoke.py`` finds no import of jax, optax, flax or stylemesh_tpu
-  (``sys.modules`` cannot show this: the test process imports jax).
+- An ``ast`` scan of every file of ``stylemesh_tpu_torch/`` (its
+  ``tools/`` included) and of ``chip_smoke.py`` finds no import of jax,
+  optax, flax or stylemesh_tpu (``sys.modules`` cannot show this: the test
+  process imports jax; ``tests/test_torch_tools.py`` runs the tools where
+  ``import jax`` fails).
 - Entry points default to CUDA and raise when it is absent; the plain
   versions serve CPU tensors only, and a tensor on any other device goes to
   the kernel path, which checks its inputs and raises instead of falling back.
@@ -46,6 +48,9 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "stylemesh_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    # the command-line tools, which a user runs where there is no JAX
+    assert {"convert_vgg.py", "convert_lpips.py", "make_demo_scene.py"} <= {
+        p.name for p in files if p.parent.name == "tools"}
     for path in files:
         bad = FORBIDDEN.intersection(_imported_roots(path))
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"

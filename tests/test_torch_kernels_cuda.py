@@ -193,9 +193,10 @@ def test_gather_at_nonfinite_grids(cuda, compute):
 
 
 def test_reproject_on_card_matches_cpu(cuda):
-    """``geometry/project.py::reproject`` on the card (K1 for the colour and
-    the three-channel mask warps, one launch each per view, views whose
-    slices are not 16-byte aligned) against the same call on the CPU: the
+    """``geometry/project.py::reproject`` on the card (K1's per-view form
+    for the colour and the three-channel mask warps, one launch each for
+    the 4 views, views whose slices are not 16-byte aligned; no launch of
+    the shared-layer form) against the same call on the CPU: the
     valid masks agree but for pixels at a threshold (float32 sums in
     another order), the warped colours to 1e-5."""
     from stylemesh_tpu_torch.geometry.project import reproject
@@ -218,9 +219,11 @@ def test_reproject_on_card_matches_cpu(cuda):
     src, tar = [0, 1, 2, 3], [1, 0, 3, 1]
     args = [poses[src], poses[tar], intr[src], depth[src], depth[tar],
             color[tar], (depth[tar] > 0).float()]
-    before = gs.gather_levels.launches
+    before = gs.launch_counts()
     warped, valid = reproject(*[a.to(cuda) for a in args])
-    assert gs.gather_levels.launches - before == 2 * n
+    after = gs.launch_counts()
+    assert after.pop("gather_each") - before.pop("gather_each") == 2
+    assert after == before
     want_warped, want_valid = reproject(*args)
     assert 0.1 < want_valid.float().mean() < 0.9
     assert (valid.cpu() != want_valid).float().mean().item() < 1e-2
@@ -378,6 +381,99 @@ def test_levels_write_only_their_outputs(cuda, banded):
     _close(grads, want, 1e-4)
     for (_, view), w in zip(out_bufs, outs_want):
         _close(view, w, 1e-5)
+
+
+def _warp_grids(gen, cuda, shape):
+    """Grids of ``shape`` with 30% of the entries ±inf, NaN, huge or exactly
+    on the border, as the eval's warps give them."""
+    specials = torch.tensor([float("inf"), -float("inf"), float("nan"), 1e30,
+                             -1e30, 1.0, -1.0], device=cuda)
+    grid = torch.rand(shape, generator=gen, device=cuda) * 3.0 - 1.5
+    pick = torch.rand(shape, generator=gen, device=cuda) < 0.3
+    idx = torch.randint(0, len(specials), shape, generator=gen, device=cuda)
+    return torch.where(pick, specials[idx], grid).contiguous()
+
+
+def test_gather_each_writes_only_its_outputs(cuda):
+    """The per-view form's C entry over 8 views of ragged image sizes (both
+    texel parities) and ragged pixel counts (view 2 of zero pixels), its
+    outputs inside larger buffers: the guards stay untouched, and each
+    output is its view's plain sample (1e-5)."""
+    gen = torch.Generator(device=cuda).manual_seed(30)
+    images = [torch.randn((5 + 7 * k, 9 + 5 * k, 3), generator=gen,
+                          device=cuda) * 50 for k in range(8)]
+    grids = [_warp_grids(gen, cuda, (1, 0 if k == 2 else 11 + 3 * k, 13 + k,
+                                     2)) for k in range(8)]
+    bufs = [_guarded(cuda, g.shape[:-1] + (3,)) for g in grids]
+    kernels.launch("stylemesh_gather_each", images[0].device,
+                   *gs._level_table(grids, [v for _, v in bufs]), 8,
+                   *gs._layer_table(images))
+    for (buf, view), x, g in zip(bufs, images, grids, strict=True):
+        _fills_intact(buf, view)
+        _close(view, gs.gather_each_plain(x[None], g[None])[0], 1e-5)
+
+
+# (views, image H x W, grid H x W): odd and even float counts per view
+@pytest.mark.parametrize("n,hw,grid_hw", [(1, (5, 7), (3, 5)),
+                                          (2, (16, 24), (9, 13)),
+                                          (3, (23, 31), (23, 31)),
+                                          (4, (40, 30), (12, 10)),
+                                          (5, (7, 9), (33, 17)),
+                                          (6, (64, 96), (20, 30)),
+                                          (7, (31, 17), (5, 5)),
+                                          (8, (256, 341), (256, 341))])
+def test_gather_each_against_shared_form(cuda, n, hw, grid_hw):
+    """K1's per-view form over n views in one launch: within 1e-5 of its
+    plain version and equal bit for bit to the shared-layer form launched
+    once per view on that view's image (the warps' former route)."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    images = torch.randn((n, *hw, 3), generator=gen, device=cuda) * 50
+    grids = _warp_grids(gen, cuda, (n, *grid_hw, 2))
+    before = gs.launch_counts()
+    out = gs.gather_each(images, grids)
+    after = gs.launch_counts()
+    assert after.pop("gather_each") == before.pop("gather_each") + 1
+    assert after == before
+    assert out.shape == grids.shape[:-1] + (3,) and out.is_contiguous()
+    assert torch.isfinite(out).all()
+    _close(out, gs.gather_each_plain(images, grids), 1e-5)
+    for k in range(n):
+        shared = gs.gather_levels([images[k].clone()], [grids[k].clone()])[0]
+        assert torch.equal(out[k], shared)
+
+
+def test_shared_form_sums_per_layer_samples_in_order(cuda):
+    """The shared-layer form over 1..8 layers at one grid is bit for bit the
+    float32 sum in layer order of the per-view form's samples of each
+    layer at that grid: both forms run one sampling arithmetic, and the
+    shared form's sum is unchanged."""
+    gen = torch.Generator(device=cuda).manual_seed(40)
+    layers = torch.randn((8, 37, 53, 3), generator=gen, device=cuda) * 50
+    grid = _warp_grids(gen, cuda, (2, 14, 19, 2))
+    for n in range(1, 9):
+        shared = gs.gather_levels([l.clone() for l in layers[:n]], [grid])[0]
+        per = gs.gather_each(layers[:n], grid.flatten(0, 2)[None].expand(
+            n, -1, -1).contiguous())
+        want = per[0]
+        for p in per[1:]:
+            want = want + p
+        assert torch.equal(shared, want.view(grid.shape[:-1] + (3,)))
+
+
+def test_gather_each_refuses_bad_inputs(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(50)
+    images = torch.randn((9, 6, 8, 3), generator=gen, device=cuda)
+    grids = _warp_grids(gen, cuda, (9, 4, 4, 2))
+    with pytest.raises(ValueError, match="views"):
+        gs.gather_each(images, grids)
+    with pytest.raises(ValueError, match="grids"):
+        gs.gather_each(images[:2], grids[:3])
+    with pytest.raises(TypeError):
+        gs.gather_each(images[:1].double(), grids[:1])
+    with pytest.raises(ValueError, match="images"):
+        gs.gather_each(images[:1, ..., :1].contiguous(), grids[:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        gs.gather_each(images[:2].transpose(1, 2), grids[:2])
 
 
 # C = 192 and 320 take 64-wide column groups, as C = 64 does

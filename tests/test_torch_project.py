@@ -7,7 +7,9 @@ and cameras that pan and turn enough that pixels project out of bounds and
 behind the box (occluded). Tolerances: ``unproject`` 1e-5 relative;
 ``reproject``'s valid masks equal, warped colours (in [0, 1]) within 1e-4
 absolute: XLA may fold ``0.5 * (W - 1)`` in its sampler into one constant,
-so a sample coordinate can differ by one float32 ulp (ROADMAP §3).
+so a sample coordinate can differ by one float32 ulp (ROADMAP §3). K1's
+per-view form's plain version (``gather_each_plain``) equals the per-view
+``grid_sample`` exactly.
 """
 
 import jax.numpy as jnp
@@ -65,8 +67,11 @@ def _pairs(poses, intr, depth, color, mask, src, tar):
         intr[src], depth[src], depth[tar], color[tar], mask[tar]]
 
 
+# 9 views: more than one K1 launch of the per-view form (MAX_LEVELS = 8)
 @pytest.mark.parametrize("src,tar", [([0, 1, 2, 3], [1, 0, 3, 1]),
-                                     ([3, 2], [0, 3])])
+                                     ([3, 2], [0, 3]),
+                                     ([0, 1, 2, 3, 0, 1, 2, 3, 1],
+                                      [1, 0, 3, 1, 2, 3, 0, 2, 3])])
 def test_reproject_matches_jax(src, tar):
     args = _pairs(*scene(), src, tar)
     warped, valid = project.reproject(*[torch.from_numpy(a) for a in args])
@@ -112,29 +117,74 @@ def test_reproject_nan_projection_is_invalid():
 
 
 def test_warps_take_k1_layers(monkeypatch):
-    """Every texture that the warps sample is ``[H, W, 3]`` and 16-byte
-    aligned, as K1 takes them on the card (the one-channel mask is warped
-    as three equal channels), and the mask warp equals a one-channel
-    warp."""
-    seen = []
-    real = project.grid_sample
+    """The warps make one call of K1's per-view form per image kind
+    (colours, masks): images ``[V, H, W, 3]`` and grids ``[V, H, W, 2]``,
+    contiguous and 16-byte aligned, as K1 takes them on the card (the
+    one-channel mask is warped as three equal channels), and the mask warp
+    equals a one-channel warp. Each view's rows of an odd float count (H W
+    is odd here) are padded to start 8-byte aligned."""
+    calls = []
+    real = project.gather_each
 
-    def spy(texture, grid):
-        seen.append((tuple(texture.shape), texture.data_ptr() % 16,
-                     grid.data_ptr() % 16, texture.is_contiguous()))
-        return real(texture, grid)
+    def spy(images, grids):
+        calls.append((tuple(images.shape), tuple(grids.shape),
+                      images.data_ptr() % 16, grids.data_ptr() % 16,
+                      images.is_contiguous(), grids.is_contiguous()))
+        return real(images, grids)
 
-    monkeypatch.setattr(project, "grid_sample", spy)
+    monkeypatch.setattr(project, "gather_each", spy)
     args = [torch.from_numpy(a) for a in _pairs(*scene(), [1, 2, 3], [0, 1, 2])]
     warped, valid = project.reproject(*args)
-    assert len(seen) == 6  # one colour and one mask warp per view
-    assert all(s == ((H, W, 3), 0, 0, True) for s in seen)
+    assert calls == [((3, H, W, 3), (3, H, W, 2), 0, 0, True, True)] * 2
     grid = torch.from_numpy(np.random.default_rng(3).uniform(
-        -1.2, 1.2, (H, W, 2)).astype(np.float32))
-    m = args[-1][0]
-    three = real(m.expand(-1, -1, 3).contiguous(), grid)
-    assert torch.equal(three[..., :1], gs.grid_sample(m, grid))
+        -1.2, 1.2, (1, H, W, 2)).astype(np.float32))
+    m = args[-1][:1]
+    three = real(m.expand(-1, -1, -1, 3).contiguous(), grid)[0]
+    assert torch.equal(three[..., :1], gs.grid_sample(m[0], grid[0]))
     assert torch.equal(three[..., 0], three[..., 2])
+    rows = gs._pair_aligned_rows(torch.zeros((3, H, W, 3)))
+    assert rows.shape == (3, H * W * 3) and rows.stride(0) == H * W * 3 + 1
+    even = torch.zeros((3, H, W + 1, 3))
+    assert gs._pair_aligned_rows(even).data_ptr() == even.data_ptr()
+
+
+def _each_inputs(n, seed, hw=(5, 9), grid_hw=(7, 11)):
+    """``n`` images ``[n, H, W, 3]`` and grids ``[n, *grid_hw, 2]``, 30% of
+    the grid entries ±inf, NaN, huge or exactly on the border."""
+    rng = np.random.default_rng(seed)
+    specials = np.array([np.inf, -np.inf, np.nan, 1e30, -1e30, 1.0, -1.0])
+    images = rng.normal(0, 50, (n, *hw, 3))
+    grids = rng.uniform(-1.5, 1.5, (n, *grid_hw, 2))
+    pick = rng.random(grids.shape) < 0.3
+    grids[pick] = specials[rng.integers(0, len(specials), pick.sum())]
+    return (torch.from_numpy(images.astype(np.float32)),
+            torch.from_numpy(grids.astype(np.float32)))
+
+
+@pytest.mark.parametrize("n", [1, 5, 8])
+def test_gather_each_plain_equals_per_view_grid_sample(n):
+    """K1's per-view form on the CPU (its plain version) is the warps'
+    former per-view ``grid_sample`` bit for bit, and launches nothing."""
+    images, grids = _each_inputs(n, n, hw=(5 + n, 9), grid_hw=(7, 11 + n))
+    before = gs.launch_counts()
+    got = gs.gather_each(images, grids)
+    assert gs.launch_counts() == before
+    assert got.shape == grids.shape[:-1] + (3,)
+    assert torch.equal(gs.gather_each_plain(images, grids), got)
+    for out, x, g in zip(got, images, grids, strict=True):
+        want = gs.grid_sample(x, g)
+        assert torch.isfinite(want).all()
+        assert torch.equal(out, want)
+
+
+def test_gather_each_refuses_bad_tables():
+    images, grids = _each_inputs(9, 0)
+    with pytest.raises(ValueError, match="views"):
+        gs.gather_each(images, grids)
+    with pytest.raises(ValueError, match="grids"):
+        gs.gather_each(images[:2], grids[:3])
+    with pytest.raises(ValueError, match="images"):
+        gs.gather_each(images[:2, ..., :1], grids[:2])
 
 
 def test_nonfinite_grids_sample_like_the_kernel():

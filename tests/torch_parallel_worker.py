@@ -6,8 +6,21 @@ starts the ranks with :func:`spawn`; each rank joins a gloo process group
 through a ``file://`` store, runs the cases its test file names, and writes
 what it computed to ``<dir>/rank<r>.pt``. This module imports no JAX, so a
 rank starts in a few seconds.
+
+Every rank computes on one thread, and so does the test process's
+single-device reference (:func:`one_thread`). On the CPU, ``torch.sqrt``
+of a float32 tensor is MKL's vector math, split over the intra-op threads
+when it holds more than 2048 elements (a band of 3072: two chunks of
+1536). The first such call of a process, split over two or more threads,
+has returned the calling thread's chunk at about 2^-12 relative error in
+some runs; the same inputs came within one ulp in the others. Adam's first
+step divides by that square root, so the texels of that chunk moved up to
+1.5e-4 away from the reference (the atlas step on 4 ranks: up to 124 of a
+rank's 3072 layer-0 entries beyond 1e-4, all among its first 1536, with
+the gradients equal bit for bit). On one thread no call is split.
 """
 
+import contextlib
 import dataclasses
 import multiprocessing
 import os
@@ -56,8 +69,20 @@ def spawn(world, directory, cases):
     return results
 
 
+@contextlib.contextmanager
+def one_thread():
+    """Run the block with one intra-op thread (see the module docstring)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _rank_main(rank, world, directory, cases):
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
+    torch.set_num_interop_threads(1)
     out = {}
     try:
         mesh = make_mesh(world, rank, "cpu", init_method="file://"
