@@ -23,6 +23,7 @@ from stylemesh_tpu_torch.data.depth_level import calculate_depth_level
 from stylemesh_tpu_torch.data.scenes import SceneSpec
 from stylemesh_tpu_torch.data.schema import ViewBatch
 from stylemesh_tpu_torch.ops.color import _IMAGENET_MEAN_BGR
+from stylemesh_tpu_torch.utils.profiling import span
 
 
 def gatys_pre_np(rgb01):
@@ -191,9 +192,11 @@ class SceneCache:
     def get_batch(self, indices) -> ViewBatch:
         """Batch of dataset indices (positions resolved via the cache), as
         numpy arrays."""
-        pos = np.asarray([self._pos_of[i] for i in indices], dtype=np.int64)
-        b = self._batch_all
-        return ViewBatch(*[
-            None if f is None else
-            tuple(x[pos] for x in f) if isinstance(f, tuple) else f[pos]
-            for f in b])
+        with span("get_batch"):
+            pos = np.asarray([self._pos_of[i] for i in indices],
+                             dtype=np.int64)
+            b = self._batch_all
+            return ViewBatch(*[
+                None if f is None else
+                tuple(x[pos] for x in f) if isinstance(f, tuple) else f[pos]
+                for f in b])

@@ -10,6 +10,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from stylemesh_tpu_torch.utils.profiling import count, span
+
 
 class ViewBatch(NamedTuple):
     """A batch of V posed views of one scene.
@@ -49,16 +51,21 @@ class ViewBatch(NamedTuple):
 
 def to_device(batch: ViewBatch, device) -> ViewBatch:
     """Every field as a contiguous tensor on ``device`` (tensors or any
-    array-like, such as numpy arrays, in)."""
+    array-like, such as numpy arrays, in). Counts the bytes it copies from
+    host memory to another device under ``h2d_bytes``."""
+    to_host = torch.device(device).type == "cpu"
 
     def move(x):
         if x is None:
             return None
         if not torch.is_tensor(x):
             x = torch.from_numpy(np.array(x))
+        if x.device.type == "cpu" and not to_host:
+            count("h2d_bytes", x.nbytes)
         return x.to(device).contiguous()
 
-    return ViewBatch(*[
-        tuple(move(x) for x in f) if isinstance(f, tuple) else move(f)
-        for f in batch
-    ])
+    with span("to_device"):
+        return ViewBatch(*[
+            tuple(move(x) for x in f) if isinstance(f, tuple) else move(f)
+            for f in batch
+        ])

@@ -41,6 +41,7 @@ from stylemesh_tpu_torch.models.texture import (
 from stylemesh_tpu_torch.models.vgg import VGG_LAYER_CHANNELS
 from stylemesh_tpu_torch.ops.erosion import erode
 from stylemesh_tpu_torch.ops.resize import resize_bilinear, resize_nearest
+from stylemesh_tpu_torch.utils.profiling import span
 
 
 def _grad_scale(x, w):
@@ -265,30 +266,33 @@ class TexturePipeline:
         """Every texture-independent part of the step for this batch:
         per-level gradient weights, loss masks, content-target encodings,
         level factors. Reuse it across the batch's repeat steps."""
-        cfg = self.config
-        level_shapes = [tuple(u.shape[1:3]) for u in batch.uv]
-        weights = None
-        if cfg.use_angle_weight or cfg.use_depth_scaling:
-            interp = (depth_interpolation_weights(batch, level_shapes)
-                      if cfg.use_depth_scaling else None)
-            per_level = []
-            for i, hw in enumerate(level_shapes):
-                w = None
-                if cfg.use_angle_weight:
-                    w = resize_bilinear(batch.angle_guidance.float(), hw)
-                if interp is not None:
-                    w = interp[i] if w is None else w * interp[i]
-                per_level.append(w)
-            weights = tuple(per_level)
-        if cfg.use_depth_scaling:
-            pyramid_masks = tuple(depth_pyramid_masks(batch, level_shapes))
-        else:
-            pyramid_masks = tuple(last_level_only_masks(batch, level_shapes))
-        loss_aux = self.loss.precompute_aux(
-            self.vgg_params, level_shapes, batch.rgb, pyramid_masks,
-            batch.angle_degrees)
-        return BatchAux(grad_weights=weights, pyramid_masks=pyramid_masks,
-                        loss_aux=loss_aux)
+        with span("prepare_batch"):
+            cfg = self.config
+            level_shapes = [tuple(u.shape[1:3]) for u in batch.uv]
+            weights = None
+            if cfg.use_angle_weight or cfg.use_depth_scaling:
+                interp = (depth_interpolation_weights(batch, level_shapes)
+                          if cfg.use_depth_scaling else None)
+                per_level = []
+                for i, hw in enumerate(level_shapes):
+                    w = None
+                    if cfg.use_angle_weight:
+                        w = resize_bilinear(batch.angle_guidance.float(), hw)
+                    if interp is not None:
+                        w = interp[i] if w is None else w * interp[i]
+                    per_level.append(w)
+                weights = tuple(per_level)
+            if cfg.use_depth_scaling:
+                pyramid_masks = tuple(depth_pyramid_masks(batch,
+                                                          level_shapes))
+            else:
+                pyramid_masks = tuple(last_level_only_masks(batch,
+                                                            level_shapes))
+            loss_aux = self.loss.precompute_aux(
+                self.vgg_params, level_shapes, batch.rgb, pyramid_masks,
+                batch.angle_degrees)
+            return BatchAux(grad_weights=weights, pyramid_masks=pyramid_masks,
+                            loss_aux=loss_aux)
 
     def loss_fn(self, texture: Texture, batch: ViewBatch,
                 aux: Optional[BatchAux] = None,
@@ -358,10 +362,14 @@ class TexturePipeline:
         """One optimization step; updates ``state`` in place and returns the
         loss terms (detached 0-d tensors, not synchronized)."""
         layers = list(state.texture.layers)
-        total, losses, cache = self.loss_fn(state.texture, batch, aux,
-                                            state.gram_cache)
-        grads = torch.autograd.grad(total, layers)
-        self.apply_update(state, grads, cache)
+        with span("train_step", step=state.step):
+            with span("forward"):
+                total, losses, cache = self.loss_fn(state.texture, batch, aux,
+                                                    state.gram_cache)
+            with span("backward"):
+                grads = torch.autograd.grad(total, layers)
+            with span("update"):
+                self.apply_update(state, grads, cache)
         return {k: v.detach() for k, v in losses.items()}
 
     def apply_update(self, state: TrainState, grads, gram_cache=None):
