@@ -354,7 +354,8 @@ def main_path():
     aux = pipe.prepare_batch(batch)
     torch.cuda.synchronize()
     prepare_ms = (time.perf_counter() - t0) * 1e3
-    losses = pipe.train_step(state, batch, aux)  # warm-up
+    for _ in range(2):  # warm-up: the eager step, then the graphs' capture
+        losses = pipe.train_step(state, batch, aux)
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
@@ -390,13 +391,15 @@ def main_path():
 
 def profile_step(pipe, state, batch, aux, step_ms):
     """Device time of one step by kernel and by PyTorch op (torch.profiler),
-    and the device busy share of the unprofiled step time."""
+    and the device busy share of the unprofiled step time. The step is
+    ``eager_step``, the same kernels as the replayed graphs, launched by
+    the ops the profile names."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipe.train_step(state, batch, aux)
+        pipe.eager_step(state, batch, aux)
         torch.cuda.synchronize()
     events = prof.key_averages()
     on_device = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -840,8 +843,10 @@ def conv1_1_only(prof):
 
 
 def k9_step(pipe, state, batch, aux):
-    """The bench step under the K9 settings: profiled once (conv routes),
-    then timed over STEPS steps. Returns K9's launches per step."""
+    """The bench step under the K9 settings: profiled once (conv routes;
+    the eager step, whose ops the profile names), then timed over STEPS
+    steps (the first captures the K9 route's graphs). Returns K9's
+    launches per step."""
     from torch.profiler import ProfilerActivity, profile
 
     reset_counts()
@@ -849,7 +854,7 @@ def k9_step(pipe, state, batch, aux):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
-        pipe.train_step(state, batch, aux)
+        pipe.eager_step(state, batch, aux)
         torch.cuda.synchronize()
     conv1_1_only(prof)
     t0 = time.perf_counter()
@@ -1972,7 +1977,8 @@ def demo_step(scene_root, kernel_rows, synthetic_uv):
                            style_image(512, 683))
     state = pipe.init()
     aux = pipe.prepare_batch(batch)
-    losses = pipe.train_step(state, batch, aux)
+    for _ in range(2):  # warm-up: the eager step, then the graphs' capture
+        losses = pipe.train_step(state, batch, aux)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()

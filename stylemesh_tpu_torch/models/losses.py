@@ -261,7 +261,10 @@ class ContentAndStyleLoss:
         for i in live:
             p = pred_pyramid[i]
             if self.remat and p.shape[1] * p.shape[2] >= self.remat_min_px:
-                encs = checkpoint(encode, p, use_reentrant=False)
+                # the encode draws no random numbers: no generator state to
+                # stash (reading it is refused inside a CUDA graph capture)
+                encs = checkpoint(encode, p, use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
                 encs = encode(p)
             grams[i], failed_grams[i] = {}, {}

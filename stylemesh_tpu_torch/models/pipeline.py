@@ -7,7 +7,13 @@
   exactly ``x`` and whose gradient is ``w``.
 - Adam (0.9, 0.999, eps 1e-8) with a staircase StepLR, written out as optax
   computes it, followed by the clamp of the texture to the Gatys range. The
-  texture and the Adam moments are updated in place.
+  texture, the Adam moments and the Gram cache are updated in place. The
+  step's rate and bias corrections are written to a device tensor before
+  each update, which reads them there.
+- On a card, :meth:`TexturePipeline.train_step` replays the step as three
+  CUDA graphs (``models/step_graph.py``) from the second step of each step
+  signature on; :meth:`TexturePipeline.eager_step` is the step launched op
+  by op, on the CPU always.
 - ``skip_levels`` are neither rendered nor encoded and add no loss term;
   ``stop_grad_levels`` are rendered and scored but their prediction is
   detached (the run loop picks both from the scene, ``optimize.py``).
@@ -38,10 +44,13 @@ from stylemesh_tpu_torch.models.texture import (
     sample_texture,
     texture_regularizer,
 )
+from stylemesh_tpu_torch.models.step_graph import StepGraphs
 from stylemesh_tpu_torch.models.vgg import VGG_LAYER_CHANNELS
 from stylemesh_tpu_torch.ops.erosion import erode
 from stylemesh_tpu_torch.ops.resize import resize_bilinear, resize_nearest
-from stylemesh_tpu_torch.utils.profiling import span
+from stylemesh_tpu_torch.utils.profiling import count, span
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
 def _grad_scale(x, w):
@@ -185,7 +194,8 @@ class PipelineConfig:
 class TrainState:
     """The texture, the Adam moments (one per layer), the step count and,
     under ``gram_mode='average'``, the Gram cache.
-    :meth:`TexturePipeline.train_step` updates it in place."""
+    :meth:`TexturePipeline.train_step` updates it in place: its tensors stay
+    the same objects from step to step."""
 
     texture: Texture
     mu: List[torch.Tensor]
@@ -234,6 +244,9 @@ class TexturePipeline:
                 "schedules in EPOCHS).", stacklevel=2)
             steps_per_epoch = 1
         self._decay_every = config.decay_step_size * steps_per_epoch
+        # the rate and the two bias corrections the update reads
+        self._adam_scalars = torch.zeros(3, device=self.device).unbind()
+        self._graphs = StepGraphs() if self.device.type == "cuda" else None
 
     # ------------------------------------------------------------- state
 
@@ -360,7 +373,19 @@ class TexturePipeline:
     def train_step(self, state: TrainState, batch: ViewBatch,
                    aux: Optional[BatchAux] = None) -> Dict[str, torch.Tensor]:
         """One optimization step; updates ``state`` in place and returns the
-        loss terms (detached 0-d tensors, not synchronized)."""
+        loss terms (detached 0-d tensors, not synchronized). On a card the
+        step's CUDA graphs (``models/step_graph.py``), else
+        :meth:`eager_step`."""
+        if self._graphs is None:
+            return self.eager_step(state, batch, aux)
+        return self._graphs.step(self, state, batch, aux)
+
+    def eager_step(self, state: TrainState, batch: ViewBatch,
+                   aux: Optional[BatchAux] = None) -> Dict[str, torch.Tensor]:
+        """:meth:`train_step` launched op by op; counted under
+        ``eager_steps`` on a card."""
+        if self.device.type == "cuda":
+            count("eager_steps", 1)
         layers = list(state.texture.layers)
         with span("train_step", step=state.step):
             with span("forward"):
@@ -373,28 +398,46 @@ class TexturePipeline:
         return {k: v.detach() for k, v in losses.items()}
 
     def apply_update(self, state: TrainState, grads, gram_cache=None):
-        """Adam on the texture with ``grads``, the clamp, the step count and
-        the walked Gram cache (its push log dropped), all in place."""
+        """Adam on the texture with ``grads``, the clamp, the walked Gram
+        cache copied into the state's own (its push log dropped), all in
+        place, and the step count. Adam's rate and bias corrections are
+        written here (:meth:`write_adam_scalars`); under a CUDA graph
+        capture, which would freeze them, before each replay instead."""
+        if not (self.device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            self.write_adam_scalars(state.step)
         self._adam_update(state, grads)
         clamp_texture(state.texture)
-        state.step += 1
         if gram_cache is not None:
-            state.gram_cache = gram_cache._replace(push_log=None)
+            own = state.gram_cache
+            with torch.no_grad():
+                for k, g in gram_cache.grams.items():
+                    own.grams[k].copy_(g)
+                own.count.copy_(gram_cache.count)
+        state.step += 1
+
+    def write_adam_scalars(self, step: int):
+        """The scheduled rate and Adam's bias corrections at optimizer count
+        ``step + 1``, filled into the device tensor the update reads: fills
+        ordered on the stream before the update."""
+        lr, bc1, bc2 = self._adam_scalars
+        lr.fill_(self.learning_rate(step))
+        bc1.fill_(1.0 - ADAM_B1 ** (step + 1))
+        bc2.fill_(1.0 - ADAM_B2 ** (step + 1))
 
     @torch.no_grad()
     def _adam_update(self, state: TrainState, grads):
-        """optax.adam(b1=0.9, b2=0.999, eps=1e-8) with the scheduled rate."""
-        b1, b2, eps = 0.9, 0.999, 1e-8
-        lr = self.learning_rate(state.step)
-        count = state.step + 1
-        bc1 = 1.0 - b1 ** count
-        bc2 = 1.0 - b2 ** count
+        """optax.adam(b1=0.9, b2=0.999, eps=1e-8) with the scheduled rate,
+        the rate and bias corrections read on the device. On the CPU, the
+        same roundings as ``addcdiv_(mu / bc1, denom, value=-lr)`` with
+        Python scalars (whose CPU kernel multiplies before it divides)."""
+        lr, bc1, bc2 = self._adam_scalars
         for p, g, mu, nu in zip(state.texture.layers, grads, state.mu,
                                 state.nu):
-            mu.mul_(b1).add_(g, alpha=1.0 - b1)
-            nu.mul_(b2).addcmul_(g, g, value=1.0 - b2)
-            denom = (nu / bc2).sqrt_().add_(eps)
-            p.addcdiv_(mu / bc1, denom, value=-lr)
+            mu.mul_(ADAM_B1).add_(g, alpha=1.0 - ADAM_B1)
+            nu.mul_(ADAM_B2).addcmul_(g, g, value=1.0 - ADAM_B2)
+            denom = (nu / bc2).sqrt_().add_(ADAM_EPS)
+            p.addcdiv_((mu / bc1).mul_(lr), denom, value=-1.0)
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: ViewBatch,

@@ -50,6 +50,9 @@ from stylemesh_tpu_torch import resolve_device
 from stylemesh_tpu_torch.ops import conv_kernels, head_kernels
 from stylemesh_tpu_torch.ops.conv_im2col import conv3x3_im2col
 
+# the environment variables that choose the trunk's route (see above)
+ROUTE_ENV = ("STYLEMESH_CONV_FLIPVJP", "STYLEMESH_FAST_CONV")
+
 # (name, in_channels, out_channels) of the 16 convs in trunk order.
 VGG_CONVS = [
     ("conv1_1", 3, 64), ("conv1_2", 64, 64),

@@ -14,7 +14,10 @@ constants are replicated on every rank.
   texture gradients never cross ranks;
 - the regularizer sums each band's squares, all-reduces the sums and
   divides by the full layer sizes;
-- Adam and the clamp run on the bands.
+- Adam and the clamp run on the bands;
+- the step is :meth:`TexturePipeline.eager_step` on a card too: the
+  forward's all-reduces are collectives, which the single-device step's
+  CUDA graphs do not capture.
 
 The port has no splat plans, so every layer is banded (the JAX package
 all-gathers the layers its planner cannot band). A layer height that D
@@ -94,6 +97,9 @@ class AtlasShardedPipeline(TexturePipeline):
             return None
         return dataclasses.replace(state, texture=Texture(layers), mu=mu,
                                    nu=nu)
+
+    def train_step(self, state: TrainState, batch, aux=None):
+        return self.eager_step(state, batch, aux)
 
     # ----------------------------------------------- per-band loss pieces
 

@@ -4,7 +4,9 @@
   spans and counters. The program opens spans at its layer boundaries
   (``get_batch``, ``to_device``, ``prepare_batch``, ``train_step`` with
   ``forward``, ``backward`` and ``update``) and counts at them
-  (``h2d_bytes``); only the caller of :func:`recording` turns them on. Off,
+  (``h2d_bytes``; in the train step on a card ``step_graph_captures``,
+  ``step_graph_replays`` and ``eager_steps``, ``models/step_graph.py``);
+  only the caller of :func:`recording` turns them on. Off,
   a span is one shared null context and a count returns at once: nothing
   is stored and nothing synchronizes.
 - :class:`StepProfiler`: host wall-clock by phase for the run loop. On a

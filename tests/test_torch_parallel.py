@@ -206,6 +206,18 @@ def test_atlas_step_matches_single_device(spawned, references, d):
         np.testing.assert_array_equal(parts[0]["full"][l], band)
 
 
+@pytest.mark.parametrize("d", [2, 4])
+def test_atlas_step_is_eager_on_every_rank(spawned, d):
+    """The atlas step never captures or replays the step's CUDA graphs
+    (its forward's all-reduces are collectives): each rank's recorded step
+    holds no graph counter and the eager step's spans."""
+    _, _, ranks = spawned
+    for r in ranks[:d]:
+        assert r[f"atlas{d}"]["counters"] == {}
+        assert r[f"atlas{d}"]["spans"] == ["train_step", "forward",
+                                           "backward", "update"]
+
+
 def test_view_parallel_step_matches_single_device(spawned, references):
     _, _, ranks = spawned
     (jgrads, jlosses), (tgrads, thist, tlayers) = references

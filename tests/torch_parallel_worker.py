@@ -36,6 +36,7 @@ from stylemesh_tpu_torch.parallel.atlas import AtlasShardedPipeline
 from stylemesh_tpu_torch.parallel.mesh import make_mesh, shutdown
 from stylemesh_tpu_torch.parallel.multistyle import MultiStylePipeline
 from stylemesh_tpu_torch.parallel.train import ShardedTexturePipeline
+from stylemesh_tpu_torch.utils import profiling
 
 TIMEOUT_S = 240
 
@@ -119,15 +120,18 @@ def _grads(pipe, state, batch, aux):
 
 
 def _atlas(mesh, inputs, tag, out):
-    """Band gradients, one train step's losses and the bands after it."""
+    """Band gradients, one train step's losses and the bands after it, and
+    the program's counters and spans of that step."""
     cfg, vgg, style, batch = _setup(inputs)
     pipe = AtlasShardedPipeline(cfg, vgg, style, mesh)
     state = pipe.shard_state(_state(inputs["layers"]))
     aux = pipe.prepare_batch(batch)
     grads, _ = _grads(pipe, state, batch, aux)
-    losses = pipe.train_step(state, batch, aux)
+    with profiling.recording() as rec:
+        losses = pipe.train_step(state, batch, aux)
     full = pipe.gather_state(state)
     out[tag] = dict(
+        counters=rec.counters, spans=[s.name for s in rec.spans],
         grads=grads, losses={k: float(v) for k, v in losses.items()},
         bands=[l.detach().numpy() for l in state.texture.layers],
         full=None if full is None else [l.detach().numpy()
