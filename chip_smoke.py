@@ -10,13 +10,14 @@ phase fails. Phases:
 
 1. main path: the full-method bench workload (4096² x 4 Laplacian atlas,
    V = 4 views, content 256x341, UV levels 256..784 px high, multi style
-   pyramid, bf16 VGG trunk on the conv kernels K5-K8, float32 K1/K2, Adam)
-   through ``TexturePipeline.prepare_batch`` and ``train_step``; every loss
-   must be finite, K1-K8's launch counts over the timed steps above zero
+   pyramid, bf16 VGG trunk on the conv kernels K5-K8 and conv1_1's stem
+   kernels, float32 K1/K2, Adam) through ``TexturePipeline.prepare_batch``
+   and ``train_step``; every loss must be finite, the launch counts of
+   K1-K8 and the stem kernels over the timed steps above zero
    and K1's and K2's one a step (one launch over all pyramid levels each),
    and the profile of a step must show no cuDNN convolution and no float32
-   Gram (no ``bmm``, no SIMT sgemm but conv1_1's im2col product): every
-   style layer's Gram goes through K3/K4; a profile of ``loss_fn`` and
+   GEMM (no ``bmm``, no SIMT sgemm): every style layer's Gram goes through
+   K3/K4 and conv1_1 through its stem kernels; a profile of ``loss_fn`` and
    ``torch.autograd.grad`` alone (no Adam) with the ops' input shapes must
    show one K1 and one K2 launch, at most one fill of each texture layer
    (K2's zeroed gradient), and no float32 add of texture-layer-shaped
@@ -43,9 +44,9 @@ phase fails. Phases:
    of the card's frames within 1e-4 (MSE) and 1e-3 (LPIPS) relative;
 5. K9: the same CLI call with ``STYLEMESH_CONV_FLIPVJP=0
    STYLEMESH_FAST_CONV=1`` (the unfused trunk), one step per batch; K9 must
-   be launched and K5-K8 not, and the profile of a bench step under the same
-   settings must show no cuDNN convolution but conv1_1's forward and input
-   gradient;
+   be launched and K5-K8 and the stem kernels not, and the profile of a
+   bench step under the same settings must show no cuDNN convolution but
+   conv1_1's forward and input gradient;
 6. multi-device, on the same scene, each CLI call also run on one rank (in
    this process) as its reference; the 2-rank calls go through
    ``python -m torch.distributed.run --standalone --nproc_per_node 2``, both
@@ -74,7 +75,12 @@ phase fails. Phases:
    bound counting the features only in pixel tiles with a live mask, their
    library call one cuBLAS ``bmm`` over the masked features),
    with its bound on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16)
-   and, for the convs, its achieved TFLOP/s; at every K5 and K9 shape, K5
+   and, for the convs, its achieved TFLOP/s; conv1_1's stem kernels
+   (forward with bias and relu, and the input gradient of a random
+   cotangent, masked inside the kernel) at each level against the plain
+   im2col product: every element within one bf16 ulp (of the larger value,
+   or of 2^-9 of the largest where an element is smaller), the largest
+   difference in bf16 ulps logged; at every K5 and K9 shape, K5
    without bias and relu must equal K9 bit for bit, and at every block-tail
    shape K6 must equal maxpool2 of K5's relu output, K7's maps K5's output
    and K6's, and K8 K5 with the flipped kernel on the routed cotangent, bit
@@ -105,13 +111,13 @@ phase fails. Phases:
    (196,608 faces), torch against native with those bounds, both timed;
    the full-method step of phase 1's configuration on the room (V = 4
    views spread over the orbit, UV levels 256..784, 1 warm-up and 5 timed
-   steps): finite losses, K1-K8 launched, K1 and K2 once a step, the
-   step's profile as in phase 1; K1 and K2 at step level on the room's
-   UV maps against phase 3's synthetic batch; and the two quality gates
-   of tests/test_quality_gates.py at its sizes, steps and thresholds
-   (float32): self-reproduction PSNR (under 16 dB at the start, over 24
-   dB and 9 dB more at the end) and the circle-uniformity separation of
-   the full arm and the only-2D arm (its seven assertions).
+   steps): finite losses, K1-K8 and the stem kernels launched, K1 and K2
+   once a step, the step's profile as in phase 1; K1 and K2 at step level
+   on the room's UV maps against phase 3's synthetic batch; and the two
+   quality gates of tests/test_quality_gates.py at its sizes, steps and
+   thresholds (float32): self-reproduction PSNR (under 16 dB at the start,
+   over 24 dB and 9 dB more at the end) and the circle-uniformity
+   separation of the full arm and the only-2D arm (its seven assertions).
 
 The last two lines of standard output are the ``{"kernels": [...]}`` JSON
 line and the ``{"ok": true, "device": ...}`` JSON line.
@@ -149,7 +155,8 @@ from stylemesh_tpu_torch.models.pipeline import PipelineConfig, TexturePipeline
 from stylemesh_tpu_torch.models import vgg
 from stylemesh_tpu_torch.models.texture import sample_texture
 from stylemesh_tpu_torch.models.vgg import init_vgg_params, vgg_features
-from stylemesh_tpu_torch.ops import conv_kernels, gram_kernels, head_kernels
+from stylemesh_tpu_torch.ops import (conv_im2col, conv_kernels, gram_kernels,
+                                     head_kernels)
 from stylemesh_tpu_torch.ops import grid_sample as gs
 from stylemesh_tpu_torch.ops.color import gatys_post
 from stylemesh_tpu_torch.ops.resize import resize_bilinear
@@ -165,6 +172,7 @@ REPO = Path(__file__).resolve().parent
 SAMPLE_SRC = "stylemesh_tpu_torch/kernels/csrc/sample.cu"
 GEMM_SRC = "stylemesh_tpu_torch/kernels/csrc/conv_gemm.cu"
 BWD_SRC = "stylemesh_tpu_torch/kernels/csrc/conv_pool_bwd.cu"
+STEM_SRC = "stylemesh_tpu_torch/kernels/csrc/conv_stem.cu"
 KERNELS = {  # launches: (wrapper, attribute holding its launch count);
     # unit: what the row's launches_per_unit counts per (default a step)
     "K1_gather": dict(source="stylemesh_tpu_torch/kernels/csrc/sample.cu",
@@ -232,11 +240,20 @@ KERNELS = {  # launches: (wrapper, attribute holding its launch count);
     "K1_gather_warp": dict(
         source=SAMPLE_SRC, replaces="stylemesh_tpu/ops/splat_pallas.py:486",
         launches=(gs.gather_each, "launches"), unit="call", rel_tol=1e-5),
+    # conv1_1, whose TPU path is an XLA im2col product (no pallas_call)
+    "stem_fwd": dict(source=STEM_SRC,
+                     replaces="stylemesh_tpu/ops/conv_im2col.py:37",
+                     launches=(conv_im2col.stem_forward, "launches"),
+                     rel_tol=2 ** -7),
+    "stem_bwd": dict(source=STEM_SRC,
+                     replaces="stylemesh_tpu/ops/conv_im2col.py:67",
+                     launches=(conv_im2col.stem_backward, "launches"),
+                     rel_tol=2 ** -7),
 }
 # the kernels each driven path must launch
 BENCH_KERNELS = ("K1_gather", "K2_splat", "K3_gram_fwd", "K4_gram_bwd",
                  "K5_conv3x3", "K6_conv_relu_pool", "K7_conv_relu_pool_dual",
-                 "K8_conv_relu_pool_bwd")
+                 "K8_conv_relu_pool_bwd", "stem_fwd", "stem_bwd")
 TRUNK_KERNELS = BENCH_KERNELS[4:]
 RUN_KERNELS = ("K1_gather_bf16", "K2_splat_bf16") + BENCH_KERNELS[2:]
 K9_ENV = {"STYLEMESH_CONV_FLIPVJP": "0", "STYLEMESH_FAST_CONV": "1"}
@@ -256,6 +273,11 @@ K9_ENV = {"STYLEMESH_CONV_FLIPVJP": "0", "STYLEMESH_FAST_CONV": "1"}
 #    of the elements may lie farther than 1e-2 from the plain version.
 # K9 is K5 without bias and relu: 1e-2 (and K5 with bias=None, relu=False
 #    must equal it bit for bit: one C entry).
+# stem_fwd / stem_bwd (conv1_1) round float32 sums taken in another order
+#    to bf16 once: one bf16 ulp of each element (2^-7 of the largest), and
+#    by check_ulps one ulp of the element itself, or of 2^-9 of the
+#    largest where the element is smaller (a sum near zero moves by more
+#    than its own bf16 spacing when its float32 order changes).
 # Between the kernels, bit for bit (one mainloop at K5's N tile): K6 is
 #    maxpool2 of K5's relu output, K7's pre-pool map is that output and its
 #    pooled map K6's, K8 is K5 with the flipped kernel on the routed
@@ -486,9 +508,9 @@ def profile_loss_grad(pipe, state, batch, aux):
 
 def no_float32_grams(prof):
     """Raise if the profiled bf16 step ran a ``bmm`` (the plain float32
-    masked Gram's product; K3/K4 are no PyTorch op) or a float32 GEMM on
-    the CUDA cores (SIMT sgemm, cuBLAS's ``f32f32`` ffma kernels) from any
-    op but ``mm`` (conv1_1's im2col product, float32 by design)."""
+    masked Gram's product; K3/K4 are no PyTorch op) or any float32 GEMM on
+    the CUDA cores (SIMT sgemm, cuBLAS's ``f32f32`` ffma kernels; conv1_1's
+    stem kernels are no PyTorch op either)."""
     bmm = sum(1 for e in prof.events() if e.name == "aten::bmm")
     sgemm = {}
     attributed = sum(len(e.kernels) for e in prof.events())
@@ -501,8 +523,9 @@ def no_float32_grams(prof):
                 sgemm[e.name] = sgemm.get(e.name, 0) + 1
     log(f"[profile] aten::bmm calls: {bmm}; float32 CUDA-core GEMM launches "
         f"by op: {sgemm} (of {attributed} kernels attributed to ops)")
-    if bmm or set(sgemm) - {"aten::mm"}:
-        raise RuntimeError("the bf16 step ran a float32 Gram off K3/K4")
+    if bmm or sgemm:
+        raise RuntimeError("the bf16 step ran a float32 GEMM: a Gram off "
+                           "K3/K4 or conv1_1 off its stem kernels")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1319,8 +1342,8 @@ def trunk_kernels(where, pipe, pred, add):
         cout = w9.shape[1]
         flops = 2.0 * 9 * cin * cout * v * hh * ww
         at = f"{where} {conv} {tuple(h.shape)}->{cout}"
-        if h.shape[-1] < conv_kernels.CIN_STEP:  # conv1_1: im2col, no kernel
-            h = vgg.conv3x3_im2col(h, w9, b, relu=True)
+        if h.shape[-1] < conv_kernels.CIN_STEP:  # conv1_1: the stem kernels
+            h = stem_kernels(at, h, w9, b, w_lib, b_lib, flops, i, add)
             continue
         x_bytes, w_bytes = h.numel() * 2, w9.numel() * 2
         if (i + 1 <= last and vgg._TRUNK[i + 1][1] is None
@@ -1393,6 +1416,72 @@ def trunk_kernels(where, pipe, pred, add):
         h = y
 
 
+def bf16_ulp(v):
+    """The spacing of bf16 numbers at ``|v|`` (float32; 2^(e - 7) for |v|
+    in [2^e, 2^(e + 1)))."""
+    e = torch.floor(torch.log2(v.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def check_ulps(name, got, want, where):
+    """Raise unless every element of ``got`` lies within one bf16 ulp of
+    ``want``'s: the ulp of the larger of the two, or of 2^-9 of the largest
+    plain value where the element is smaller. Logs and returns the largest
+    difference in bf16 ulps of the element itself (no floor), and logs how
+    many elements lie beyond one such ulp and their largest value."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    ulp = bf16_ulp(torch.maximum(g.abs(), w.abs()))
+    floor = bf16_ulp(w.abs().max()) * 2.0 ** -9
+    ulps = (d / ulp).max().item()
+    beyond = d > ulp
+    n_beyond = int(beyond.sum().item())
+    at_most = (torch.maximum(g.abs(), w.abs())[beyond].max().item()
+               if n_beyond else 0.0)
+    floored = (d / torch.maximum(ulp, floor)).max().item()
+    log(f"[kernel] {name} {where}: largest difference {ulps:.4g} bf16 ulps "
+        f"of the element; {n_beyond} of {d.numel()} elements beyond one ulp, "
+        f"all of |value| <= {at_most:.4g} (floor ulp {floor.item():.4g}: "
+        f"{floored:.4g})")
+    if not floored <= 1.0:
+        raise RuntimeError(f"{name} lies beyond one bf16 ulp of its plain "
+                           f"version")
+    return ulps
+
+
+def stem_kernels(at, x, w9, b, w_lib, b_lib, flops, seed, add):
+    """conv1_1's stem kernels at one level, as the step runs them: the
+    forward (bias, relu) and the input gradient of a random cotangent
+    (masked by y > 0 in the kernel), each against its plain version (the
+    im2col product, the input gradient's on the kernel's y, so that both
+    apply one relu mask) and timed beside it and beside cuDNN's conv of the
+    same function. Returns the kernel's y."""
+    nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731
+    y = conv_im2col.stem_forward(x, w9, b)
+    want = conv_im2col.stem_forward_plain(x, w9, b)
+    add("stem_fwd", at + " forward",
+        check("stem_fwd", y, want, at) + (check_ulps("stem_fwd", y, want, at),),
+        lambda: conv_im2col.stem_forward(x, w9, b),
+        lambda: conv_im2col.stem_forward_plain(x, w9, b),
+        lambda: F.relu(F.conv2d(nchw(x), w_lib, b_lib, padding=1)),
+        x.numel() * 2 + w9.numel() * 2 + b.numel() * 4 + y.numel() * 2, flops)
+    g = cotangent(y, seed=seed)
+    dx = conv_im2col.stem_backward(g, y, w9)
+    want = conv_im2col.stem_backward_plain(g, y, w9)
+    lib_leaf = nchw(x).detach().requires_grad_()
+    lib_out = F.relu(F.conv2d(lib_leaf, w_lib, b_lib, padding=1))
+    add("stem_bwd", at + " input gradient",
+        check("stem_bwd", dx, want, at) + (check_ulps("stem_bwd", dx, want,
+                                                      at),),
+        lambda: conv_im2col.stem_backward(g, y, w9),
+        lambda: conv_im2col.stem_backward_plain(g, y, w9),
+        lambda: torch.autograd.grad(lib_out, [lib_leaf], nchw(g),
+                                    retain_graph=True),
+        g.numel() * 2 + y.numel() * 2 + w9.numel() * 2 + dx.numel() * 2,
+        flops)
+    return y
+
+
 def k5_backward(at, g, w9t, wt_lib, flops, add):
     """K5 as an input gradient: the masked cotangent, the flipped kernel, no
     bias, relu off."""
@@ -1457,7 +1546,7 @@ def kernel_phase(pipe, state, batch, aux, launches):
     rows = {name: dict(ms=0.0, ms_min=0.0, ms_max=0.0, plain_ms=0.0,
                        library_ms=0.0, library_ms_min=0.0, library_ms_max=0.0,
                        f32_mode_ms=0.0, bound_ms=0.0, by_bytes=0.0, by_ops=0.0,
-                       err=0.0, tol=0.0, flops=0.0)
+                       err=0.0, tol=0.0, flops=0.0, ulps=None)
             for name in KERNELS}
 
     def add(name, where, err_tol, fn, plain_fn, library_fn, nbytes, flops=0.0,
@@ -1468,12 +1557,15 @@ def kernel_phase(pipe, state, batch, aux, launches):
         kernel's median. Its bound is the larger of its bytes over HBM
         bandwidth and its flops over the bf16 peak. A bf16 mode has no
         library call computing its function (``library_fn`` None); it is
-        timed beside its f32 mode instead."""
+        timed beside its f32 mode instead. A third entry of ``err_tol`` is
+        the largest difference in bf16 ulps (:func:`check_ulps`)."""
         ms, lo, hi = cuda_times(fn)
         plain_ms = cuda_ms(plain_fn)
         r = rows[name]
         r["err"] = max(r["err"], err_tol[0])
         r["tol"] = max(r["tol"], err_tol[1])
+        if len(err_tol) > 2:
+            r["ulps"] = max(r["ulps"] or 0.0, err_tol[2])
         r["ms"] += ms
         r["ms_min"] += lo
         r["ms_max"] += hi
@@ -1617,6 +1709,8 @@ def kernel_phase(pipe, state, batch, aux, launches):
                        library_ms_max=r["library_ms_max"])
         if r["flops"]:
             row["tflop_per_s"] = r["flops"] / r["ms"] / 1e9
+        if r["ulps"] is not None:
+            row["max_ulps"] = r["ulps"]
         if r["library_ms"] is None and name.endswith("_bf16"):
             row["f32_mode_ms"] = r["f32_mode_ms"]
         out.append(row)
@@ -2235,12 +2329,16 @@ SASS_KERNELS = {  # kernel -> its instantiations' tags in the mangled name
 }
 
 
+STEM_SASS = ("stem_conv_gemm_fwd_kernel", "stem_conv_gemm_bwd_kernel")
+
+
 def conv_core_sass():
     """Raise unless every instantiation of the wgmma kernels (K5/K9, K6/K7,
     K8, K3, K4) in the built library holds warpgroup MMA instructions (HGMMA
-    in its SASS) and no kernel of ``gram.cu`` holds a WMMA ``HMMA``; print
-    their count and shapes per kernel, and the Gram kernels' registers and
-    local memory."""
+    in its SASS), no kernel of ``gram.cu`` holds a WMMA ``HMMA`` and the
+    stem kernels hold their ``mma.sync`` (HMMA); print their count and
+    shapes per kernel, and the Gram and stem kernels' registers and local
+    memory."""
     lib = kernels.BUILD_DIR / f"{kernels.NAME}.so"
     sass = subprocess.run(["cuobjdump", "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
@@ -2259,11 +2357,19 @@ def conv_core_sass():
             if "gram_" in head and re.search(r"\bHMMA\.", body)]
     if hmma:
         raise RuntimeError(f"mma.sync (HMMA) left in the Gram kernels: {hmma}")
+    for name in STEM_SASS:
+        bodies = [body for head, body in functions if name in head]
+        found = [m.group(1) for body in bodies
+                 for m in re.finditer(r"(HMMA\.\w+\.F32\.BF16)", body)]
+        log(f"[build] {name} SASS: {len(found)} HMMA instructions "
+            f"({', '.join(sorted(set(found)))})")
+        if not found:
+            raise RuntimeError(f"{name}: no mma.sync (HMMA) in its SASS")
     usage = subprocess.run(["cuobjdump", "-res-usage", str(lib)],
                            capture_output=True, text=True, check=True).stdout
     for fn, regs, local in re.findall(
             r"Function ([^\s:]+):\s*REG:(\d+)[^\n]*?LOCAL:(\d+)", usage):
-        if "gram_" in fn:
+        if "gram_" in fn or "stem_" in fn:
             log(f"[build] {fn}: {regs} registers, {local} bytes of local "
                 f"memory (spills)")
 
@@ -2306,6 +2412,8 @@ def main(argv):
                  else "library none")
         rate = (f", {r['tflop_per_s']:.1f} TFLOP/s" if "tflop_per_s" in r
                 else "")
+        if "max_ulps" in r:
+            rate += f", largest difference {r['max_ulps']:.4g} bf16 ulps"
         unit, per = r["unit"], r["launches_per_unit"]
         log(f"[kernel] {r['name']}: {r['ms']:.4f} ms/{unit} ({r['ms_min']:.4f}-"
             f"{r['ms_max']:.4f}; bound {r['bound_ms']:.4f} "

@@ -38,6 +38,9 @@ _SIGNATURES = {
     "stylemesh_conv3x3": [_P, _P, _P, _P] + [_I] * 9 + [_P],
     "stylemesh_conv_relu_pool": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
     "stylemesh_conv_relu_pool_bwd": [_P] * 6 + [_I] * 5 + [_P],
+    # conv1_1: (x, w9, bias, y) and (g, y, w9, dx); V, H, W, relu
+    "stylemesh_stem_fwd": [_P] * 4 + [_I] * 4 + [_P],
+    "stylemesh_stem_bwd": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _library = None

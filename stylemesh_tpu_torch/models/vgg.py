@@ -8,8 +8,8 @@ frozen: the parameters are plain tensors that never require a gradient.
 Two routes, as in the JAX package:
 
 - bf16 compute at ``precision='default'`` (the bench step): the JAX
-  package's accelerator branch on the hand-written kernels. conv1_1 is an
-  im2col product (``ops/conv_im2col.py``); the other convs are K5
+  package's accelerator branch on the hand-written kernels. conv1_1 is the
+  stem's pair of kernels (``ops/conv_im2col.py``); the other convs are K5
   (``ops/conv_kernels.py``), whose input gradient is K5 again with the
   flipped kernel; the block tails conv1_2 + p1 and conv2_2 + p2 are fused
   into K6 / K7 when the conv's own activation is not requested, with K8 as

@@ -26,6 +26,7 @@ from stylemesh_tpu.ops.conv_im2col import conv3x3_im2col as j_im2col
 from stylemesh_tpu.ops.conv_pallas import conv3x3_frozen, conv3x3_mxu, conv3x3_v2
 from stylemesh_tpu_torch.models import vgg as tvgg
 from stylemesh_tpu_torch.ops import conv_kernels
+from stylemesh_tpu_torch.ops import conv_im2col
 from stylemesh_tpu_torch.ops.conv_im2col import conv3x3_im2col
 
 
@@ -231,3 +232,96 @@ def test_pool_box_of_the_bench_maps():
     assert conv_kernels.pool_box(784, 1045, 256) == (8, 32)
     assert conv_kernels.pool_box(392, 522, 256) == (16, 16)
     assert conv_kernels.pool_box(256, 341, 256) == (32, 8)
+
+
+def _stem_inputs():
+    """conv1_1's inputs on the CPU: x [2, 9, 11, 3] at the Gatys pixel
+    scale, its w9 [27, 64] and float32 bias."""
+    _, x, k, b = _inputs(21, 2, 9, 11, 3, 64)
+    w9, _ = _port_layout(k)
+    return _bf16(x * 50.0), w9, torch.from_numpy(b)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+def test_stem_cpu_takes_the_plain_im2col(relu):
+    """CPU tensors go through ``_Im2colConv``, bit for bit forward and
+    backward, and launch no stem kernel."""
+    x, w9, b = _stem_inputs()
+    launches = (conv_im2col.stem_forward.launches,
+                conv_im2col.stem_backward.launches)
+    ct = _bf16(np.random.default_rng(5).normal(0, 1, (2, 9, 11, 64))
+               .astype(np.float32))
+    xa = x.clone().requires_grad_()
+    out = conv3x3_im2col(xa, w9, b, relu=relu)
+    (got,) = torch.autograd.grad(out, [xa], ct)
+    xb = x.clone().requires_grad_()
+    ref = conv_im2col._Im2colConv.apply(xb, w9, b, relu)
+    (want,) = torch.autograd.grad(ref, [xb], ct)
+    assert type(out.grad_fn).__name__ == "_Im2colConvBackward"
+    assert torch.equal(out, ref) and torch.equal(got, want)
+    assert out.dtype == got.dtype == torch.bfloat16
+    assert launches == (conv_im2col.stem_forward.launches,
+                        conv_im2col.stem_backward.launches)
+
+
+def _bad_stem_forward(case):
+    """Arguments of ``stem_forward`` with one fault, and the error it
+    raises."""
+    x, w9, b = _stem_inputs()
+    return {
+        "x_rank": ((x[0], w9, b), ValueError, "V, H, W, 3"),
+        "x_channels": ((torch.zeros((2, 9, 11, 4), dtype=torch.bfloat16),
+                        w9, b), ValueError, "V, H, W, 3"),
+        "x_dtype": ((x.float(), w9, b), TypeError, "bfloat16"),
+        "w9_shape": ((x, torch.zeros((27, 128), dtype=torch.bfloat16), b),
+                     ValueError, "27, 64"),
+        "w9_dtype": ((x, w9.float(), b), TypeError, "bfloat16"),
+        "bias_shape": ((x, w9, b[:32]), ValueError, "64,"),
+        "bias_dtype": ((x, w9, b.to(torch.bfloat16)), TypeError, "float32"),
+        "cpu": ((x, w9, b), ValueError, "CUDA"),
+        "cpu_no_bias": ((x, w9, None), ValueError, "CUDA"),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["x_rank", "x_channels", "x_dtype",
+                                  "w9_shape", "w9_dtype", "bias_shape",
+                                  "bias_dtype", "cpu", "cpu_no_bias"])
+def test_stem_forward_refuses_bad_inputs(case):
+    """``stem_forward`` checks shapes and channel counts (ValueError), then
+    dtypes (TypeError), then that every tensor lies on one card
+    (``kernels.require_cuda``): valid CPU tensors are refused too."""
+    args, exc, match = _bad_stem_forward(case)
+    before = conv_im2col.stem_forward.launches
+    with pytest.raises(exc, match=match):
+        conv_im2col.stem_forward(*args)
+    assert conv_im2col.stem_forward.launches == before
+
+
+def _bad_stem_backward(case):
+    """Arguments of ``stem_backward`` with one fault, and the error it
+    raises."""
+    _, w9, _ = _stem_inputs()
+    g = torch.zeros((2, 9, 11, 64), dtype=torch.bfloat16)
+    return {
+        "g_channels": ((g[..., :32], g, w9), ValueError, "V, H, W, 64"),
+        "y_channels": ((g, g[..., :3], w9), ValueError, "V, H, W, 64"),
+        "g_dtype": ((g.float(), g, w9), TypeError, "bfloat16"),
+        "y_dtype": ((g, g.float(), w9), TypeError, "bfloat16"),
+        "shapes_differ": ((g, g[:, :8], w9), ValueError, "vs y"),
+        "w9_shape": ((g, g, w9[:9]), ValueError, "27, 64"),
+        "cpu": ((g, g, w9), ValueError, "CUDA"),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["g_channels", "y_channels", "g_dtype",
+                                  "y_dtype", "shapes_differ", "w9_shape",
+                                  "cpu"])
+def test_stem_backward_refuses_bad_inputs(case):
+    """``stem_backward`` checks g and y (bf16 [V, H, W, 64] of one shape)
+    and w9 as ``stem_forward`` does, then the device."""
+    args, exc, match = _bad_stem_backward(case)
+    before = conv_im2col.stem_backward.launches
+    with pytest.raises(exc, match=match):
+        conv_im2col.stem_backward(*args)
+    assert conv_im2col.stem_backward.launches == before
+

@@ -19,14 +19,20 @@ kernels themselves, bit for bit (one wgmma core, one mainloop, K5's N
 tile): K9 is K5 without bias and relu (one entry); K6 is maxpool2 of K5's
 relu output, K7's pre-pool map is K5's relu output and its pooled map
 K6's; K8 is K5 with the flipped kernel on ``pool_route`` of K5's relu
-output.
+output. conv1_1's stem kernels against their plain versions (the im2col
+product on the card; the input gradient's on the kernel's own y, so that
+both apply one relu mask): one bf16 ulp of each element, or of 2^-9 of the
+largest value where an element is smaller (float32 sums in another order
+move a value near zero by more than its own bf16 spacing); bit for bit
+where every sum is exact.
 """
 
 import pytest
 import torch
 
 from stylemesh_tpu_torch import kernels
-from stylemesh_tpu_torch.ops import conv_kernels, gram_kernels, head_kernels
+from stylemesh_tpu_torch.ops import conv_im2col, conv_kernels, gram_kernels
+from stylemesh_tpu_torch.ops import head_kernels
 from stylemesh_tpu_torch.ops import grid_sample as gs
 
 pytestmark = pytest.mark.cuda
@@ -805,3 +811,174 @@ def test_conv3x3_refuses_bad_tiles(cuda):
             kernels.launch("stylemesh_conv3x3", x.device, x.data_ptr(),
                            w9.data_ptr(), b.data_ptr(), y.data_ptr(), 1, 8, 8,
                            64, 128, 1, box_h, box_w, bn)
+
+
+# conv1_1's stem: H and W of 1, 2, 7 and 33, widths off the kernels' 64-
+# and 32-column tiles, V of 1 and 4, and the bench step's four levels
+STEM_SHAPES = [(1, 1, 1), (4, 2, 2), (1, 7, 7), (4, 33, 33), (1, 1, 33),
+               (4, 33, 1), (1, 2, 65), (4, 9, 97), (1, 17, 130)]
+STEM_BENCH_SHAPES = [(4, 256, 341), (4, 432, 576), (4, 608, 810),
+                     (4, 784, 1045)]
+
+
+def _bf16_ulp(v):
+    """The spacing of bf16 numbers at ``|v|`` (float32; 2^(e - 7) for |v|
+    in [2^e, 2^(e + 1)))."""
+    e = torch.floor(torch.log2(v.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _within_one_ulp(got, want):
+    """Each element within one bf16 ulp of the plain version's, the ulp of
+    the larger of the two or of 2^-9 of the largest plain value."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    g, w = got.float(), want.float()
+    floor = _bf16_ulp(w.abs().max()) * 2.0 ** -9
+    ulp = torch.maximum(_bf16_ulp(torch.maximum(g.abs(), w.abs())), floor)
+    worst = ((g - w).abs() / ulp).max().item()
+    assert worst <= 1.0, worst
+
+
+def _stem_inputs(cuda, v, h, w, seed=0):
+    """x at the Gatys pixel scale, conv1_1's He-scaled w9 and bias."""
+    gen = torch.Generator(device=cuda).manual_seed(seed + v + h + w)
+    x = (torch.randn((v, h, w, 3), generator=gen, device=cuda) * 50)
+    weight = torch.randn((64, 3, 3, 3), generator=gen, device=cuda)
+    b = torch.randn((64,), generator=gen, device=cuda) * 0.05
+    g = torch.randn((v, h, w, 64), generator=gen, device=cuda)
+    return (x.to(torch.bfloat16), conv_kernels.w9_from_oihw(
+        weight * (2.0 / 27) ** 0.5), b, g.to(torch.bfloat16))
+
+
+def _stem_plain(x, w9, b, g, y, relu=True):
+    """The plain versions' y, and input gradient on the given ``y``."""
+    return (conv_im2col.stem_forward_plain(x, w9, b, relu),
+            conv_im2col.stem_backward_plain(g, y, w9, relu))
+
+
+def _stem_kernels(x, w9, b, g, relu=True):
+    """conv3x3_im2col's y and input gradient: one launch each way, the
+    gradient that of the input-gradient kernel on y."""
+    fwd, bwd = (conv_im2col.stem_forward.launches,
+                conv_im2col.stem_backward.launches)
+    xl = x.clone().requires_grad_()
+    y = conv_im2col.conv3x3_im2col(xl, w9, b, relu)
+    (dx,) = torch.autograd.grad(y, [xl], g)
+    assert conv_im2col.stem_forward.launches == fwd + 1
+    assert conv_im2col.stem_backward.launches == bwd + 1
+    y = y.detach()
+    assert torch.equal(dx, conv_im2col.stem_backward(g, y, w9, relu))
+    return y, dx
+
+
+@pytest.mark.parametrize("shape", STEM_SHAPES + STEM_BENCH_SHAPES)
+def test_stem_against_plain(cuda, shape):
+    """The forward (bias, relu) and the masked input gradient within one
+    bf16 ulp of the plain version."""
+    x, w9, b, g = _stem_inputs(cuda, *shape)
+    y, dx = _stem_kernels(x, w9, b, g)
+    want_y, want_dx = _stem_plain(x, w9, b, g, y)
+    _within_one_ulp(y, want_y)
+    _within_one_ulp(dx, want_dx)
+
+
+@pytest.mark.parametrize("shape", STEM_SHAPES[::2])
+def test_stem_without_bias_or_relu(cuda, shape):
+    """No bias and relu off: the forward is the bare conv, the input
+    gradient takes every cotangent unmasked."""
+    x, w9, _, g = _stem_inputs(cuda, *shape, seed=1)
+    y, dx = _stem_kernels(x, w9, None, g, relu=False)
+    want_y, want_dx = _stem_plain(x, w9, None, g, y, relu=False)
+    assert (y < 0).any()
+    _within_one_ulp(y, want_y)
+    _within_one_ulp(dx, want_dx)
+
+
+@pytest.mark.parametrize("shape", [(1, 7, 7), (4, 33, 97)])
+def test_stem_all_masked(cuda, shape):
+    """A pre-activation negative everywhere: y is all zero, the mask takes
+    every cotangent away, dx is zero; both equal to the plain version."""
+    x, w9, b, g = _stem_inputs(cuda, *shape, seed=2)
+    b = torch.full_like(b, -1e4)
+    y, dx = _stem_kernels(x, w9, b, g)
+    want_y, want_dx = _stem_plain(x, w9, b, g, y)
+    assert not y.any() and not dx.any()
+    assert torch.equal(y, want_y) and torch.equal(dx, want_dx)
+
+
+@pytest.mark.parametrize("shape", [(1, 7, 7), (4, 33, 97), (2, 40, 130)])
+def test_stem_exact_sums(cuda, shape):
+    """x in {0, 1}, the weights in {0, 1/2}, the bias a multiple of 1/2 and
+    g in {-1, 1, 2}: every sum is exact in float32 in any order, many
+    pre-activations are exactly zero (relu's edge, masked), so the kernels
+    equal the plain version bit for bit."""
+    v, h, w = shape
+    gen = torch.Generator(device=cuda).manual_seed(h * w)
+    x = (torch.rand((v, h, w, 3), generator=gen, device=cuda) < 0.4)
+    weight = (torch.rand((64, 3, 3, 3), generator=gen, device=cuda) < 0.3)
+    b = torch.randint(-6, 2, (64,), generator=gen, device=cuda).float() / 2
+    g = torch.tensor([-1.0, 1.0, 2.0], device=cuda)[torch.randint(
+        0, 3, (v, h, w, 64), generator=gen, device=cuda)]
+    x, g = x.to(torch.bfloat16), g.to(torch.bfloat16)
+    w9 = conv_kernels.w9_from_oihw(weight.float() / 2)
+    y, dx = _stem_kernels(x, w9, b, g)
+    want_y, want_dx = _stem_plain(x, w9, b, g, y)
+    pre = conv_im2col.stem_forward_plain(x, w9, b, False)
+    assert (pre == 0).float().mean().item() > 0.02
+    assert torch.equal(y, want_y) and torch.equal(dx, want_dx)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (1, 7, 65), (4, 9, 33)])
+def test_stem_writes_only_its_outputs(cuda, shape):
+    """NaN canaries around y and dx: every element written, nothing
+    outside (ragged tiles store no pixel past the map)."""
+    x, w9, b, g = _stem_inputs(cuda, *shape, seed=3)
+    ybuf, y = _canary(cuda, shape + (64,))
+    kernels.launch("stylemesh_stem_fwd", x.device, x.data_ptr(),
+                   w9.data_ptr(), b.data_ptr(), y.data_ptr(), *shape, 1)
+    _guards_intact(ybuf, y)
+    assert torch.equal(y, conv_im2col.stem_forward(x, w9, b))
+    dbuf, dx = _canary(cuda, shape + (3,))
+    kernels.launch("stylemesh_stem_bwd", x.device, g.data_ptr(), y.data_ptr(),
+                   w9.data_ptr(), dx.data_ptr(), *shape, 1)
+    _guards_intact(dbuf, dx)
+    assert torch.equal(dx, conv_im2col.stem_backward(g, y, w9))
+
+
+def test_stem_graph_replay_equals_eager(cuda):
+    """Both kernels captured in a CUDA graph and replayed give the eager
+    launches' outputs bit for bit (no host synchronize, no allocation
+    outside PyTorch's allocator)."""
+    x, w9, b, g = _stem_inputs(cuda, 4, 256, 341, seed=4)
+    want_y = conv_im2col.stem_forward(x, w9, b)
+    want_dx = conv_im2col.stem_backward(g, want_y, w9)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        conv_im2col.stem_backward(g, conv_im2col.stem_forward(x, w9, b), w9)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = conv_im2col.stem_forward(x, w9, b)
+        dx = conv_im2col.stem_backward(g, y, w9)
+    y.zero_()
+    dx.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, want_y) and torch.equal(dx, want_dx)
+
+
+def test_stem_refuses_bad_inputs_on_the_card(cuda):
+    """Inputs the kernels do not take raise before a launch: a strided x,
+    one misaligned, tensors on two devices (here: a CPU bias)."""
+    x, w9, b, g = _stem_inputs(cuda, 1, 8, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_im2col.stem_forward(x.transpose(1, 2), w9, b)
+    flat = torch.zeros(8 * 8 * 3 + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        conv_im2col.stem_forward(flat[1:].view(1, 8, 8, 3), w9, b)
+    with pytest.raises(ValueError, match="CUDA"):
+        conv_im2col.stem_forward(x, w9, b.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_im2col.stem_backward(g.transpose(1, 2), g, w9)
+

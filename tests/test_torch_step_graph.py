@@ -52,6 +52,7 @@ from stylemesh_tpu_torch.models.pipeline import (
 from stylemesh_tpu_torch.models.texture import Texture
 from stylemesh_tpu_torch.models.vgg import init_vgg_params
 from stylemesh_tpu_torch.ops import (
+    conv_im2col,
     conv_kernels,
     gram_kernels,
     grid_sample,
@@ -213,7 +214,9 @@ def test_every_kernel_wrapper_launch_counter_is_found():
             (conv_kernels.conv3x3_mxu, "launches"),
             (head_kernels.conv_relu_pool, "launches"),
             (head_kernels.conv_relu_pool, "dual_launches"),
-            (head_kernels.conv_relu_pool_bwd, "launches")}
+            (head_kernels.conv_relu_pool_bwd, "launches"),
+            (conv_im2col.stem_forward, "launches"),
+            (conv_im2col.stem_backward, "launches")}
     assert want <= found
     # every counter of launch_counts() is among them
     assert len([1 for fn, attr in found if fn in (
