@@ -1317,19 +1317,22 @@ def cotangent(like, mask=None, seed=0):
 
 def trunk_kernels(where, pipe, pred, add):
     """K5-K8 at one pyramid level: the trunk walked as ``vgg_features``
-    walks it for the loss's layers, each kernel launch of the step's forward
-    and backward repeated on its inputs (random cotangents, masked as the
-    backward masks them) and held against its plain version."""
+    walks it for the loss's layers (``vgg._routes``), each kernel launch of
+    the step's forward and backward repeated on its inputs (random
+    cotangents, masked as the backward masks them) and held against its
+    plain version. Where a conv's input gradient finishes its input's
+    cotangent (``vgg._finishes``), the finishing variant is checked: K5
+    with the input's relu mask and, where the input is a loss tap, the
+    tap's cotangent; K8 with the tap's cotangent."""
     nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731
     keys = pipe.loss.layers
     last = max(i for i, (name, _) in enumerate(vgg._TRUNK) if name in keys)
     h = pred.to(torch.bfloat16).contiguous()
-    skip_pool = False
+    routes = vgg._routes(tuple(h.shape), keys, last, "max")
     for i, (name, conv) in enumerate(vgg._TRUNK[:last + 1]):
+        if routes[i] == "pool":
+            h = vgg._pool_nhwc(h, "max")
         if conv is None:
-            if not skip_pool:
-                h = vgg._pool_nhwc(h, "max")
-            skip_pool = False
             continue
         p = pipe.vgg_params[conv]
         w9, w9t, b = vgg.kernel_layout(p)
@@ -1342,13 +1345,15 @@ def trunk_kernels(where, pipe, pred, add):
         cout = w9.shape[1]
         flops = 2.0 * 9 * cin * cout * v * hh * ww
         at = f"{where} {conv} {tuple(h.shape)}->{cout}"
-        if h.shape[-1] < conv_kernels.CIN_STEP:  # conv1_1: the stem kernels
+        if routes[i] == "stem":  # conv1_1: the stem kernels
             h = stem_kernels(at, h, w9, b, w_lib, b_lib, flops, i, add)
             continue
+        # the input's relu mask, and its tap's cotangent where it is a tap
+        m = h if vgg._finishes(routes, i) else None
+        t = (cotangent(h, seed=100 + i)
+             if m is not None and vgg._TRUNK[i - 1][0] in keys else None)
         x_bytes, w_bytes = h.numel() * 2, w9.numel() * 2
-        if (i + 1 <= last and vgg._TRUNK[i + 1][1] is None
-                and vgg._fused_pool_wanted(h, cout, "max", name in keys)):
-            skip_pool = True
+        if routes[i] == "tail":
             library = lambda x=h: F.max_pool2d(F.relu(F.conv2d(  # noqa: E731
                 nchw(x), w_lib, b_lib, padding=1)), 2)
             y = conv_kernels.conv3x3(h, w9, b, relu=True)  # K5's relu output
@@ -1364,25 +1369,28 @@ def trunk_kernels(where, pipe, pred, add):
                     library, x_bytes + w_bytes + 4 * cout
                     + pooled.numel() * 2, flops)
                 g = cotangent(pooled, seed=i)
-                dx = head_kernels.conv_relu_pool_bwd(h, w9, w9t, b, g)
+                dx = head_kernels.conv_relu_pool_bwd(h, w9, w9t, b, g, t)
                 err = check("K8_conv_relu_pool_bwd", dx,
-                            head_kernels.conv_relu_pool_bwd_plain(h, w9, w9t, b, g),
-                            at)
-                same_bits(f"K8 vs K5 on the routed cotangent at {at}", dx,
-                          conv_kernels.conv3x3(head_kernels.pool_route(y, g), w9t))
-                del dx
+                            head_kernels.conv_relu_pool_bwd_plain(
+                                h, w9, w9t, b, g, t), at)
+                k5_routed = conv_kernels.conv3x3(head_kernels.pool_route(y, g), w9t)
+                same_bits(f"K8 vs K5 on the routed cotangent"
+                          f"{'' if t is None else ', + t'} at {at}", dx,
+                          k5_routed if t is None else k5_routed + t)
+                del dx, k5_routed
                 x_leaf = nchw(h).detach().requires_grad_()
                 lib_out = F.max_pool2d(F.relu(F.conv2d(
                     x_leaf, w_lib, b_lib, padding=1)), 2)
-                add("K8_conv_relu_pool_bwd", at, err,
+                add("K8_conv_relu_pool_bwd",
+                    at + ("" if t is None else " with t"), err,
                     lambda x=h: head_kernels.conv_relu_pool_bwd(
-                        x, w9, w9t, b, g),
+                        x, w9, w9t, b, g, t),
                     lambda x=h: head_kernels.conv_relu_pool_bwd_plain(
-                        x, w9, w9t, b, g),
+                        x, w9, w9t, b, g, t),
                     lambda: torch.autograd.grad(
                         lib_out, x_leaf, nchw(g), retain_graph=True),
-                    2 * x_bytes + 2 * w_bytes + 4 * cout + g.numel() * 2,
-                    2 * flops)
+                    2 * x_bytes + 2 * w_bytes + 4 * cout + g.numel() * 2
+                    + (0 if t is None else x_bytes), 2 * flops)
                 del x_leaf, lib_out
                 h = pooled
             else:
@@ -1401,7 +1409,7 @@ def trunk_kernels(where, pipe, pred, add):
                     + (pooled.numel() + pre.numel()) * 2, flops)
                 # its backward: pool routing from pre, then K5 (flipped)
                 dr = head_kernels.pool_route(pre, cotangent(pooled, seed=i))
-                k5_backward(at, dr, w9t, wt_lib, flops, add)
+                k5_backward(at, dr, w9t, wt_lib, flops, add, m, t)
                 h = pooled
             del y
             continue
@@ -1412,7 +1420,8 @@ def trunk_kernels(where, pipe, pred, add):
             lambda x=h: conv_kernels.conv3x3_plain(x, w9, b, True),
             lambda x=h: F.relu(F.conv2d(nchw(x), w_lib, b_lib, padding=1)),
             x_bytes + w_bytes + 4 * cout + y.numel() * 2, flops)
-        k5_backward(at, cotangent(y, y > 0, seed=i), w9t, wt_lib, flops, add)
+        k5_backward(at, cotangent(y, y > 0, seed=i), w9t, wt_lib, flops, add,
+                    m, t)
         h = y
 
 
@@ -1482,17 +1491,43 @@ def stem_kernels(at, x, w9, b, w_lib, b_lib, flops, seed, add):
     return y
 
 
-def k5_backward(at, g, w9t, wt_lib, flops, add):
+def k5_backward(at, g, w9t, wt_lib, flops, add, m=None, t=None):
     """K5 as an input gradient: the masked cotangent, the flipped kernel, no
-    bias, relu off."""
-    dx = conv_kernels.conv3x3(g, w9t)
-    err = check("K5_conv3x3", dx, conv_kernels.conv3x3_plain(g, w9t), at)
-    same_as_k9(at + " input gradient", g, w9t, dx)
-    add("K5_conv3x3", at + " input gradient", err,
-        lambda: conv_kernels.conv3x3(g, w9t),
-        lambda: conv_kernels.conv3x3_plain(g, w9t),
-        lambda: F.conv2d(g.permute(0, 3, 1, 2), wt_lib, padding=1),
-        g.numel() * 2 + w9t.numel() * 2 + dx.numel() * 2, flops)
+    bias, relu off. With ``m``, the variant that finishes the cotangent of
+    its input ``m``, a relu output (its mask, and the tap's cotangent ``t``
+    if given), against its plain version and, bit for bit, against the
+    passes it replaces: K5, the bf16 sum with ``t``, the mask."""
+    if m is None:
+        dx = conv_kernels.conv3x3(g, w9t)
+        err = check("K5_conv3x3", dx, conv_kernels.conv3x3_plain(g, w9t), at)
+        same_as_k9(at + " input gradient", g, w9t, dx)
+        add("K5_conv3x3", at + " input gradient", err,
+            lambda: conv_kernels.conv3x3(g, w9t),
+            lambda: conv_kernels.conv3x3_plain(g, w9t),
+            lambda: F.conv2d(g.permute(0, 3, 1, 2), wt_lib, padding=1),
+            g.numel() * 2 + w9t.numel() * 2 + dx.numel() * 2, flops)
+        return
+    dx = conv_kernels.conv3x3_masked(g, w9t, m, t)
+    err = check("K5_conv3x3", dx,
+                conv_kernels.conv3x3_masked_plain(g, w9t, m, t), at)
+    k5 = conv_kernels.conv3x3(g, w9t)
+    same_bits(f"K5's finishing input gradient vs its passes at {at}", dx,
+              conv_kernels.relu_mask(k5 if t is None else k5 + t, m))
+    del k5
+    m_nchw = m.permute(0, 3, 1, 2)
+    t_nchw = None if t is None else t.permute(0, 3, 1, 2)
+
+    def library():
+        y = F.conv2d(g.permute(0, 3, 1, 2), wt_lib, padding=1)
+        return conv_kernels.relu_mask(y if t is None else y + t_nchw, m_nchw)
+
+    add("K5_conv3x3", at + (" input gradient, masked" if t is None
+                            else " input gradient, masked, with t"), err,
+        lambda: conv_kernels.conv3x3_masked(g, w9t, m, t),
+        lambda: conv_kernels.conv3x3_masked_plain(g, w9t, m, t),
+        library,
+        g.numel() * 2 + w9t.numel() * 2 + dx.numel() * 2 + m.numel() * 2
+        + (0 if t is None else t.numel() * 2), flops)
 
 
 def k9_kernels(where, pipe, pred, add):
@@ -2320,10 +2355,14 @@ def multi_card():
 
 
 SASS_KERNELS = {  # kernel -> its instantiations' tags in the mangled name
-    "conv3x3_gemm_kernel": ("ILi1ELi256E", "ILi2ELi128E", "ILi2ELi64E"),
+    # K5 / K9, and K5's input gradients that finish their input's cotangent
+    # (the mask; the mask and the tap's cotangent)
+    "conv3x3_gemm_kernel": tuple(
+        f"I{tile}{epi}E" for tile in ("Li1ELi256E", "Li2ELi128E", "Li2ELi64E")
+        for epi in ("Lb0ELb0E", "Lb1ELb0E", "Lb1ELb1E")),
     "conv_relu_pool_kernel": ("ILi2ELi64ELb0E", "ILi2ELi128ELb0E",
                               "ILi2ELi64ELb1E", "ILi2ELi128ELb1E"),
-    "conv_relu_pool_bwd_kernel": ("",),
+    "conv_relu_pool_bwd_kernel": ("ILb0E", "ILb1E"),
     "gram_fwd_kernel": ("ILi1E", "ILi2E"),
     "gram_bwd_kernel": ("ILi1ELi1E", "ILi2ELi1E", "ILi1ELi2E", "ILi2ELi2E"),
 }

@@ -36,8 +36,11 @@ _SIGNATURES = {
     "stylemesh_gram_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "stylemesh_gram_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "stylemesh_conv3x3": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    # (x, w9, m, t, y): t may be NULL
+    "stylemesh_conv3x3_masked": [_P] * 5 + [_I] * 8 + [_P],
     "stylemesh_conv_relu_pool": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
-    "stylemesh_conv_relu_pool_bwd": [_P] * 6 + [_I] * 5 + [_P],
+    # (x, w9, w9t, bias, g, t, dx): t may be NULL
+    "stylemesh_conv_relu_pool_bwd": [_P] * 7 + [_I] * 5 + [_P],
     # conv1_1: (x, w9, bias, y) and (g, y, w9, dx); V, H, W, relu
     "stylemesh_stem_fwd": [_P] * 4 + [_I] * 4 + [_P],
     "stylemesh_stem_bwd": [_P] * 4 + [_I] * 4 + [_P],

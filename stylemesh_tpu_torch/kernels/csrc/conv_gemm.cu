@@ -6,7 +6,9 @@
 //   K5  ops/conv_pallas.py::_conv3x3_v2_raw (_conv_kernel_v2), reached through
 //       conv3x3_v2: y = bf16(act(conv3x3(x, w) + b)), act = relu or identity;
 //       also every trunk input gradient (flipped io-swapped kernel, b = 0,
-//       relu off);
+//       relu off), which may finish the cotangent of its own input, a relu
+//       output m, with the loss tap's cotangent t of m:
+//       dx = m > 0 ? bf16(float(bf16(conv)) + float(t)) : +0 (t optional);
 //   K9  ops/conv_pallas.py::conv3x3_mxu: y = bf16(conv3x3(x, w)), and its
 //       conv3x3_frozen VJP. K9 is this entry with bias NULL and relu off, so
 //       it equals K5 without bias and relu bit for bit;
@@ -50,6 +52,16 @@
 //   go to a swizzled shared buffer (two per warpgroup, in turn) that one
 //   thread stores by TMA, clipped at the map's edge, while the warpgroup
 //   goes on.
+// - The input gradient that finishes its input's cotangent (kMask, kAddT)
+//   reads m and t in that block's box, from 8 KB slots of one to three
+//   ring stages that the producer queues behind the tile's last K step: they
+//   arrive while the last K steps run, each element is read once, and the
+//   mainloop keeps its stages. That replaces a relu mask pass (y > 0, then
+//   where) and autograd's sum of two cotangents, each a pass over the map.
+//   At 168 registers a thread its consumers spilled (on an H100 the
+//   128-channel tail's gradient then took 1.9x K5's time), so the variant
+//   moves registers from the producer warpgroup to the consumers
+//   (setmaxnreg: 40 and 232).
 // - The pool (K6, K7) reads that buffer: with a box at most 32 pixels wide
 //   (the wrapper's pool_box), an m64 block is whole row pairs of the box,
 //   so every 2x2 window lies in one block of one warpgroup. Each thread
@@ -69,8 +81,9 @@ constexpr int kEpiBuf = 64 * 64 * 2;  // one m64 block x 64 channels: 8 KB
 constexpr int kEpiBytes = 2 * 2 * kEpiBuf;  // two buffers per consumer warpgroup
 
 // What the epilogue writes: the conv map y (K5, K7) and the pooled map (K6,
-// K7).
-constexpr int kStoreY = 1, kPool = 2;
+// K7); kMask: y finishes the cotangent of a relu output m (zero where
+// m <= 0), kAddT: after adding the tap's cotangent t (K5's input gradients).
+constexpr int kStoreY = 1, kPool = 2, kMask = 4, kAddT = 8;
 
 // A tile: MB m64 blocks per consumer warpgroup (128 MB output pixels) times
 // BN output channels.
@@ -80,6 +93,29 @@ struct Tile {
   static constexpr int kStage = kATile + BN / 64 * kBBox;
   static constexpr int kStages = kRing / kStage;
   static constexpr int kSmem = kStages * kStage + kEpiBytes + 16 * kStages + 1024;
+};
+
+// The epilogue operands of a tile (kMask): for pass q (m64 block i, channel
+// slice p: q = i * BN / 64 + p) of consumer warpgroup g, m's and, with kAddT,
+// t's box of 64 pixels x 64 channels at the coordinates of the pass's store,
+// in 8 KB slots of kStages ring stages after the tile's last K step.
+template <int MB, int BN, int EPI>
+struct EpiLoads {
+  static constexpr int kTensors = (EPI & kAddT) ? 2 : 1;
+  static constexpr int kPasses = MB * (BN / 64);  // per warpgroup
+  static constexpr int kSlots = Tile<MB, BN>::kStage / kEpiBuf;  // per stage
+  static constexpr int kBoxes = (EPI & kMask) ? 2 * kPasses * kTensors : 0;
+  static constexpr int kStages = (kBoxes + kSlots - 1) / kSlots;
+  static_assert(kStages <= Tile<MB, BN>::kStages, "the ring holds a tile's operands");
+  // the slot of tensor e (0: m, 1: t) of pass q of warpgroup g
+  static __device__ __forceinline__ int slot(int q, int g, int e) {
+    return (2 * q + g) * kTensors + e;
+  }
+  // the last pass that reads stage s: each warpgroup releases it after it
+  static __device__ __forceinline__ int last_pass(int s) {
+    const int last = ((s + 1) * kSlots < kBoxes ? (s + 1) * kSlots : kBoxes) - 1;
+    return last / kTensors / 2;
+  }
 };
 
 // The output tile `tile` of a launch: the box of pixels at (y0, x0) of image
@@ -111,6 +147,23 @@ __device__ __forceinline__ uint32_t max_bf16x2(uint32_t a, uint32_t b) {
   return d;
 }
 
+// Two bf16 values y of K5's input gradient finished as the cotangent of a
+// relu output: m > 0 ? bf16(y + t) : +0 with the sum in float32, the
+// rounding of autograd's bf16 sum and then of torch.where.
+template <bool ADD_T>
+__device__ __forceinline__ uint32_t finish_bf16x2(uint32_t y, uint32_t m, uint32_t t) {
+  float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&y));
+  if (ADD_T) {
+    const float2 tv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t));
+    f.x += tv.x;
+    f.y += tv.y;
+  }
+  const float2 mv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&m));
+  const __nv_bfloat162 r =
+      __floats2bfloat162_rn(mv.x > 0.0f ? f.x : 0.0f, mv.y > 0.0f ? f.y : 0.0f);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
 // A persistent block walks the tiles blockIdx.x, blockIdx.x + gridDim.x, ...
 // Warpgroup 0 produces (one thread issues the TMA loads of every K step of
 // every tile, as far ahead as the ring allows), warpgroups 1 and 2 consume.
@@ -118,8 +171,10 @@ template <int MB, int BN, int EPI>
 __device__ __forceinline__ void conv_tiles(
     const CUtensorMap* xmap, const CUtensorMap* wmap, const CUtensorMap* ymap,
     const float* __restrict__ bias, bf16* __restrict__ pooled, int H, int W,
-    int cin, int cout, int box_h, int box_w, int relu, int tiles) {
+    int cin, int cout, int box_h, int box_w, int relu, int tiles,
+    const CUtensorMap* mmap, const CUtensorMap* tmap) {
   using T = Tile<MB, BN>;
+  using E = EpiLoads<MB, BN, EPI>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;  // swizzle atoms: 1 KB aligned
@@ -134,16 +189,42 @@ __device__ __forceinline__ void conv_tiles(
 
   if (wg == 0) {
     // ---------------------------------------------------------- producer
+    if constexpr (E::kBoxes > 0)  // the consumers' epilogue needs more
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x == 0) {
       int it = 0;  // K steps issued by this block, over all its tiles
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
         const TileCoords c = tile_coords<BN>(tile, H, W, cout, box_h, box_w);
+        // the epilogue operands' box b: (tensor map, coordinates of the
+        // pass's store)
+        auto operand = [&](int box, int (&co)[4]) {
+          const int g = box / E::kTensors % 2, q = box / E::kTensors / 2;
+          const int r = (g * MB + q / (BN / 64)) * 64;
+          co[0] = c.n0 + 64 * (q % (BN / 64));
+          co[1] = c.x0 + r % box_w;
+          co[2] = c.y0 + r / box_w;
+          co[3] = c.v;
+          return box % E::kTensors ? tmap : mmap;
+        };
         produce_conv<BN>(ring, it, xmap, wmap, cin, c.x0, c.y0, c.v, c.n0,
                          T::kATile, T::kATile);
+        for (int s = 0; s < E::kStages; ++s, ++it) {
+          const int first = s * E::kSlots;
+          const int n = E::kBoxes - first < E::kSlots ? E::kBoxes - first : E::kSlots;
+          const uint32_t dst = ring.acquire(it, n * kEpiBuf);
+          for (int b = 0; b < n; ++b) {
+            int co[4];
+            const CUtensorMap* map = operand(first + b, co);
+            tma_load_4d(dst + b * kEpiBuf, map, ring.full_bar(it), co[0], co[1],
+                        co[2], co[3]);
+          }
+        }
       }
     }
   } else {
     // --------------------------------------------------------- consumers
+    if constexpr (E::kBoxes > 0)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     const int g = wg - 1;  // rows [64 MB g, 64 MB (g + 1)) of each tile
     const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
     const int r0 = warp * 16 + lane / 4, cq = 2 * (lane % 4);
@@ -156,6 +237,8 @@ __device__ __forceinline__ void conv_tiles(
       const TileCoords c = tile_coords<BN>(tile, H, W, cout, box_h, box_w);
       consume_conv<MB, BN>(ring, it, acc, 9 * (cin / kBK), g * MB * kABlock,
                            T::kATile, t);
+      const int e0 = it;  // the tile's first epilogue-operand stage
+      it += E::kStages;
 
       // Epilogue, one m64 block times 64 channels at a time, while the
       // producer fills the ring for the next tile: thread (warp w, lane l)
@@ -190,8 +273,42 @@ __device__ __forceinline__ void conv_tiles(
                 __floats2bfloat162_rn(v0, v1);
           }
         }
+        if constexpr ((EPI & kMask) != 0) {
+          // finish the cotangent in the buffer, 16 bytes of a pixel at a
+          // time, once its bf16 values are all there (the accumulators of
+          // the later passes stay in registers meanwhile)
+          const int pass = i * (BN / 64) + p;
+          const int sm = E::slot(pass, g, 0), st = E::slot(pass, g, E::kTensors - 1);
+          mbar_wait(ring.full_bar(e0 + sm / E::kSlots), ring.parity(e0 + sm / E::kSlots));
+          mbar_wait(ring.full_bar(e0 + st / E::kSlots), ring.parity(e0 + st / E::kSlots));
+          const unsigned char* mp =
+              smem + (ring.stage(e0 + sm / E::kSlots) + sm % E::kSlots * kEpiBuf - base);
+          const unsigned char* tp =
+              smem + (ring.stage(e0 + st / E::kSlots) + st % E::kSlots * kEpiBuf - base);
+          bar_sync(1 + g, 128);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const uint32_t off = swz(t / 8 + 16 * k, t % 8);
+            uint4 y = *reinterpret_cast<const uint4*>(bp + off);
+            const uint4 m = *reinterpret_cast<const uint4*>(mp + off);
+            const uint4 tv = (EPI & kAddT) ? *reinterpret_cast<const uint4*>(tp + off)
+                                           : make_uint4(0, 0, 0, 0);
+            y.x = finish_bf16x2<(EPI & kAddT) != 0>(y.x, m.x, tv.x);
+            y.y = finish_bf16x2<(EPI & kAddT) != 0>(y.y, m.y, tv.y);
+            y.z = finish_bf16x2<(EPI & kAddT) != 0>(y.z, m.z, tv.z);
+            y.w = finish_bf16x2<(EPI & kAddT) != 0>(y.w, m.w, tv.w);
+            *reinterpret_cast<uint4*>(bp + off) = y;
+          }
+        }
         asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
         bar_sync(1 + g, 128);
+        if constexpr ((EPI & kMask) != 0) {
+          // every thread of the warpgroup has read the stages this pass ends
+#pragma unroll
+          for (int s = 0; s < E::kStages; ++s)
+            if (t == 0 && E::last_pass(s) == i * (BN / 64) + p)
+              mbar_arrive(ring.empty_bar(e0 + s));
+        }
         const int r = (g * MB + i) * 64;  // first tile row of the block
         if ((EPI & kStoreY) && t == 0) {
           tma_store_4d(ymap, buf, c.n0 + 64 * p, c.x0 + r % box_w, c.y0 + r / box_w,
@@ -227,14 +344,20 @@ __device__ __forceinline__ void conv_tiles(
   }
 }
 
-template <int MB, int BN>
+// K5 / K9; MASK (K5's input gradients): y finishes the cotangent of the relu
+// output m (mmap), ADD_T: with the tap's cotangent t (tmap) added. The
+// maps come last, so the other instantiations keep their code.
+template <int MB, int BN, bool MASK, bool ADD_T>
 __global__ void __launch_bounds__(kThreads, 1) conv3x3_gemm_kernel(
     const __grid_constant__ CUtensorMap xmap,
     const __grid_constant__ CUtensorMap wmap,
     const __grid_constant__ CUtensorMap ymap, const float* __restrict__ bias,
-    int H, int W, int cin, int cout, int box_h, int box_w, int relu, int tiles) {
-  conv_tiles<MB, BN, kStoreY>(&xmap, &wmap, &ymap, bias, nullptr, H, W, cin,
-                              cout, box_h, box_w, relu, tiles);
+    int H, int W, int cin, int cout, int box_h, int box_w, int relu, int tiles,
+    const __grid_constant__ CUtensorMap mmap,
+    const __grid_constant__ CUtensorMap tmap) {
+  conv_tiles<MB, BN, kStoreY | (MASK ? kMask : 0) | (ADD_T ? kAddT : 0)>(
+      &xmap, &wmap, &ymap, bias, nullptr, H, W, cin, cout, box_h, box_w, relu,
+      tiles, &mmap, &tmap);
 }
 
 // K6 (DUAL false: the pooled map only) and K7 (DUAL: y too); relu on.
@@ -246,53 +369,88 @@ __global__ void __launch_bounds__(kThreads, 1) conv_relu_pool_kernel(
     bf16* __restrict__ pooled, int H, int W, int cin, int cout, int box_h,
     int box_w, int tiles) {
   conv_tiles<MB, BN, DUAL ? kStoreY | kPool : kPool>(
-      &xmap, &wmap, &ymap, bias, pooled, H, W, cin, cout, box_h, box_w, 1, tiles);
+      &xmap, &wmap, &ymap, bias, pooled, H, W, cin, cout, box_h, box_w, 1, tiles,
+      nullptr, nullptr);
 }
 
 // The launch of tile <MB, BN>: the tensor maps, then `kernel` on a
-// persistent grid. y may be NULL (K6). Returns the status of the C entry.
+// persistent grid. y may be NULL (K6); m and t are NULL but for K5's input
+// gradients that finish their input's cotangent, and take y's boxes.
+// Returns the status of the C entry.
 template <int MB, int BN, class Launch>
-int launch(const void* x, const void* w9, void* y, int V, int H, int W, int cin,
-           int cout, int box_h, int box_w, const void* kernel, Launch run) {
+int launch(const void* x, const void* w9, void* y, const void* m, const void* t,
+           int V, int H, int W, int cin, int cout, int box_h, int box_w,
+           const void* kernel, Launch run) {
   // a runtime call first: it makes the device's context current on this
   // thread (autograd's backward runs on a thread of its own) before
   // libcuda encodes the tensor maps
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<MB, BN>::kSmem);
   if (err != cudaSuccess) return (int)err;
-  CUtensorMap xmap, wmap, ymap = {};
+  CUtensorMap xmap, wmap, ymap = {}, mmap = {}, tmap = {};
   int res = encode_nhwc(&xmap, x, V, H, W, cin, box_w, box_h);
   if (res != 0) return -res;
   res = encode_w9(&wmap, w9, cin, cout);
   if (res != 0) return -res;
-  if (y != nullptr) {
-    // y by m64 blocks: 64 pixels of the box (whole rows of a box narrower
-    // than 64, else 64 columns of one row) times 64 channels
-    const int sub_w = box_w < 64 ? box_w : 64;
-    res = encode_nhwc(&ymap, y, V, H, W, cout, sub_w, 64 / sub_w);
+  // y, m and t by m64 blocks: 64 pixels of the box (whole rows of a box
+  // narrower than 64, else 64 columns of one row) times 64 channels
+  const int sub_w = box_w < 64 ? box_w : 64;
+  CUtensorMap* maps[3] = {&ymap, &mmap, &tmap};
+  const void* ptrs[3] = {y, m, t};
+  for (int k = 0; k < 3; ++k) {
+    if (ptrs[k] == nullptr) continue;
+    res = encode_nhwc(maps[k], ptrs[k], V, H, W, cout, sub_w, 64 / sub_w);
     if (res != 0) return -res;
   }
   const long long tiles = (long long)V * ((H + box_h - 1) / box_h) *
                           ((W + box_w - 1) / box_w) * (cout / BN);
   if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const int blocks = (int)(tiles < sm_count() ? tiles : sm_count());
-  run(blocks, Tile<MB, BN>::kSmem, xmap, wmap, ymap, (int)tiles);
+  run(blocks, Tile<MB, BN>::kSmem, xmap, wmap, ymap, mmap, tmap, (int)tiles);
   return (int)cudaGetLastError();
 }
 
-template <int MB, int BN>
-int launch_conv(const void* x, const void* w9, const void* bias, void* y, int V,
-                int H, int W, int cin, int cout, int relu, int box_h, int box_w,
-                cudaStream_t st) {
+template <int MB, int BN, bool MASK, bool ADD_T>
+int launch_conv(const void* x, const void* w9, const void* bias, const void* m,
+                const void* t, void* y, int V, int H, int W, int cin, int cout,
+                int relu, int box_h, int box_w, cudaStream_t st) {
   return launch<MB, BN>(
-      x, w9, y, V, H, W, cin, cout, box_h, box_w,
-      (const void*)conv3x3_gemm_kernel<MB, BN>,
+      x, w9, y, m, t, V, H, W, cin, cout, box_h, box_w,
+      (const void*)conv3x3_gemm_kernel<MB, BN, MASK, ADD_T>,
       [&](int blocks, int smem, const CUtensorMap& xmap, const CUtensorMap& wmap,
-          const CUtensorMap& ymap, int tiles) {
-        conv3x3_gemm_kernel<MB, BN><<<blocks, kThreads, smem, st>>>(
+          const CUtensorMap& ymap, const CUtensorMap& mmap,
+          const CUtensorMap& tmap, int tiles) {
+        conv3x3_gemm_kernel<MB, BN, MASK, ADD_T><<<blocks, kThreads, smem, st>>>(
             xmap, wmap, ymap, (const float*)bias, H, W, cin, cout, box_h, box_w,
-            relu, tiles);
+            relu, tiles, mmap, tmap);
       });
+}
+
+// K5's tile for block_n (checked by the C entries).
+template <bool MASK, bool ADD_T>
+int launch_conv_tile(const void* x, const void* w9, const void* bias,
+                     const void* m, const void* t, void* y, int V, int H, int W,
+                     int cin, int cout, int relu, int box_h, int box_w,
+                     int block_n, cudaStream_t st) {
+  if (block_n == 256)
+    return launch_conv<1, 256, MASK, ADD_T>(x, w9, bias, m, t, y, V, H, W, cin,
+                                            cout, relu, box_h, box_w, st);
+  if (block_n == 128)
+    return launch_conv<2, 128, MASK, ADD_T>(x, w9, bias, m, t, y, V, H, W, cin,
+                                            cout, relu, box_h, box_w, st);
+  return launch_conv<2, 64, MASK, ADD_T>(x, w9, bias, m, t, y, V, H, W, cin,
+                                         cout, relu, box_h, box_w, st);
+}
+
+// Whether K5 takes the tile: 128 pixels x 256 channels, or 256 pixels x 64
+// or 128 channels; box_w a multiple of 8; Cin a multiple of 64, Cout of
+// block_n.
+bool conv_tile_ok(int cin, int cout, int box_h, int box_w, int block_n) {
+  const int pixels = box_h * box_w;
+  return cin > 0 && cin % kBK == 0 && box_w % 8 == 0 && cout > 0 &&
+         ((pixels == 128 && block_n == 256) ||
+          (pixels == 256 && (block_n == 64 || block_n == 128))) &&
+         cout % block_n == 0;
 }
 
 template <int MB, int BN, bool DUAL>
@@ -300,10 +458,11 @@ int launch_pool(const void* x, const void* w9, const void* bias, void* y,
                 void* pooled, int V, int H, int W, int cin, int cout, int box_h,
                 int box_w, cudaStream_t st) {
   return launch<MB, BN>(
-      x, w9, DUAL ? y : nullptr, V, H, W, cin, cout, box_h, box_w,
-      (const void*)conv_relu_pool_kernel<MB, BN, DUAL>,
+      x, w9, DUAL ? y : nullptr, nullptr, nullptr, V, H, W, cin, cout, box_h,
+      box_w, (const void*)conv_relu_pool_kernel<MB, BN, DUAL>,
       [&](int blocks, int smem, const CUtensorMap& xmap, const CUtensorMap& wmap,
-          const CUtensorMap& ymap, int tiles) {
+          const CUtensorMap& ymap, const CUtensorMap&, const CUtensorMap&,
+          int tiles) {
         conv_relu_pool_kernel<MB, BN, DUAL><<<blocks, kThreads, smem, st>>>(
             xmap, wmap, ymap, (const float*)bias, (bf16*)pooled, H, W, cin, cout,
             box_h, box_w, tiles);
@@ -322,22 +481,33 @@ extern "C" int stylemesh_conv3x3(const void* x, const void* w9, const void* bias
                                  void* y, int V, int H, int W, int cin, int cout,
                                  int relu, int box_h, int box_w, int block_n,
                                  void* stream) {
-  const int pixels = box_h * box_w;
-  if (cin <= 0 || cin % kBK != 0 || box_w % 8 != 0 || cout <= 0 ||
-      !((pixels == 128 && block_n == 256) ||
-        (pixels == 256 && (block_n == 64 || block_n == 128))) ||
-      cout % block_n != 0)
+  if (!conv_tile_ok(cin, cout, box_h, box_w, block_n))
+    return (int)cudaErrorInvalidValue;
+  if (V == 0 || H == 0 || W == 0) return 0;
+  return launch_conv_tile<false, false>(x, w9, bias, nullptr, nullptr, y, V, H, W,
+                                        cin, cout, relu, box_h, box_w, block_n,
+                                        (cudaStream_t)stream);
+}
+
+// K5's input gradient that finishes the cotangent of its input, the relu
+// output m [V, H, W, Cout]: y = m > 0 ? bf16(float(bf16(conv3x3(x, w9))) +
+// float(t)) : +0, with t [V, H, W, Cout] the loss tap's cotangent of m, or
+// NULL (then y = m > 0 ? bf16(conv3x3(x, w9)) : +0). No bias, no relu; the
+// tiles and the status as stylemesh_conv3x3.
+extern "C" int stylemesh_conv3x3_masked(const void* x, const void* w9,
+                                        const void* m, const void* t, void* y,
+                                        int V, int H, int W, int cin, int cout,
+                                        int box_h, int box_w, int block_n,
+                                        void* stream) {
+  if (m == nullptr || !conv_tile_ok(cin, cout, box_h, box_w, block_n))
     return (int)cudaErrorInvalidValue;
   if (V == 0 || H == 0 || W == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (block_n == 256)
-    return launch_conv<1, 256>(x, w9, bias, y, V, H, W, cin, cout, relu, box_h,
-                               box_w, st);
-  if (block_n == 128)
-    return launch_conv<2, 128>(x, w9, bias, y, V, H, W, cin, cout, relu, box_h,
-                               box_w, st);
-  return launch_conv<2, 64>(x, w9, bias, y, V, H, W, cin, cout, relu, box_h,
-                            box_w, st);
+  if (t != nullptr)
+    return launch_conv_tile<true, true>(x, w9, nullptr, m, t, y, V, H, W, cin,
+                                        cout, 0, box_h, box_w, block_n, st);
+  return launch_conv_tile<true, false>(x, w9, nullptr, m, nullptr, y, V, H, W, cin,
+                                       cout, 0, box_h, box_w, block_n, st);
 }
 
 // pooled = maxpool2(bf16(relu(conv3x3(x, w9) + bias))) [V, H / 2, W / 2,

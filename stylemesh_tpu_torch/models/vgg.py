@@ -15,7 +15,10 @@ Two routes, as in the JAX package:
   into K6 / K7 when the conv's own activation is not requested, with K8 as
   the 64-channel backward (``ops/head_kernels.py``). p3..p5 stay
   ``F.max_pool2d``. Activations are channel-last ``[V, H, W, C]``
-  throughout. On the CPU the kernels' plain versions run the same structure.
+  throughout. A relu output's cotangent is finished by the input gradient
+  of the conv that consumes it, in the kernel's epilogue (the relu mask and
+  the sum with the loss tap's cotangent; :func:`_kernel_trunk`). On the CPU
+  the kernels' plain versions run the same structure.
 - float32, or ``precision='highest'``: PyTorch's ``F.conv2d`` on NCHW
   tensors in ``channels_last`` memory, as the JAX package keeps its float32
   path on XLA.
@@ -49,6 +52,7 @@ import torch.nn.functional as F
 from stylemesh_tpu_torch import resolve_device
 from stylemesh_tpu_torch.ops import conv_kernels, head_kernels
 from stylemesh_tpu_torch.ops.conv_im2col import conv3x3_im2col
+from stylemesh_tpu_torch.ops.conv_kernels import relu_mask
 
 # the environment variables that choose the trunk's route (see above)
 ROUTE_ENV = ("STYLEMESH_CONV_FLIPVJP", "STYLEMESH_FAST_CONV")
@@ -176,7 +180,7 @@ class _ConvReLU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         y, weight = ctx.saved_tensors
-        g = torch.where(y > 0, g, torch.zeros((), dtype=g.dtype, device=g.device))
+        g = relu_mask(g, y)
         kt = weight.flip(2, 3).transpose(0, 1).to(g.dtype).contiguous(
             memory_format=torch.channels_last)
         with _conv_flags(g, ctx.precision):
@@ -199,20 +203,43 @@ class _ConvReLUV2(torch.autograd.Function):
     """K5 ``relu(conv3x3(x) + b)`` with the JAX package's
     ``_conv3x3_relu_v2`` backward: only ``y`` is saved, the cotangent is
     masked by ``y > 0`` and cast to bf16, and the input gradient is K5 with
-    the flipped kernel, no bias and relu off."""
+    the flipped kernel, no bias and relu off.
+
+    The trunk's flags (:func:`_kernel_trunk`): ``masked``, the cotangent
+    arrives masked (the next conv's input gradient finished it), so ``y``
+    is not saved and no mask runs; ``finish``, ``x`` is a relu output, so
+    ``x`` is saved and the input gradient is
+    :func:`conv_kernels.conv3x3_masked`, which finishes ``x``'s cotangent;
+    ``tap``, ``x`` is returned too, as an alias, so that the loss's
+    cotangent of ``x`` comes to this backward and is summed in that
+    epilogue."""
 
     @staticmethod
-    def forward(ctx, x, w9, w9_flipped, bias):
+    def forward(ctx, x, w9, w9_flipped, bias, masked=False, finish=False,
+                tap=False):
         y = conv_kernels.conv3x3(x, w9, bias, relu=True)
-        ctx.save_for_backward(y, w9_flipped)
-        return y
+        ctx.masked, ctx.finish = masked, finish
+        ctx.save_for_backward(None if masked else y, w9_flipped,
+                              x if finish else None)
+        return (y, x) if tap else y
 
     @staticmethod
-    def backward(ctx, g):
-        y, w9_flipped = ctx.saved_tensors
-        g = torch.where(y > 0, g, torch.zeros((), dtype=g.dtype, device=g.device))
+    def backward(ctx, g, g_tap=None):
+        # an output that got no cotangent gets zeros (autograd's default):
+        # adding zeros to a bf16 K5 value, never -0, leaves its bits
+        y, w9_flipped, x = ctx.saved_tensors
+        if not ctx.masked:
+            g = relu_mask(g, y)
         g = g.to(torch.bfloat16).contiguous()
-        return conv_kernels.conv3x3(g, w9_flipped), None, None, None
+        if ctx.finish:
+            dx = conv_kernels.conv3x3_masked(g, w9_flipped, x, _bf16(g_tap))
+        else:
+            dx = conv_kernels.conv3x3(g, w9_flipped)
+        return dx, None, None, None, None, None, None
+
+
+def _bf16(g):
+    return None if g is None else g.to(torch.bfloat16).contiguous()
 
 
 class _ConvReLUPool(torch.autograd.Function):
@@ -220,38 +247,49 @@ class _ConvReLUPool(torch.autograd.Function):
     package's ``_conv_relu_pool_frozen``. 64 channels: K6 forward, ``x``
     saved, K8 backward. 128 channels: K7 forward, the pre-pool activation
     saved; backward = first-maximum pool routing with the relu mask, then
-    K5 with the flipped kernel."""
+    K5 with the flipped kernel.
+
+    ``finish`` and ``tap`` as for :class:`_ConvReLUV2`: at 128 channels K5
+    finishes ``x``'s cotangent (its mask and the tap's cotangent); at 64, K8
+    adds the tap's cotangent (conv1_1's input gradient applies ``x``'s
+    mask as it loads)."""
 
     @staticmethod
-    def forward(ctx, x, w9, w9_flipped, bias):
+    def forward(ctx, x, w9, w9_flipped, bias, finish=False, tap=False):
         ctx.fused_backward = x.shape[-1] == 64
+        ctx.finish = finish
         if ctx.fused_backward:
             ctx.save_for_backward(x, w9, w9_flipped, bias)
-            return head_kernels.conv_relu_pool(x, w9, bias)
-        pooled, pre = head_kernels.conv_relu_pool(x, w9, bias, with_pre=True)
-        ctx.save_for_backward(pre, w9_flipped)
-        return pooled
+            pooled = head_kernels.conv_relu_pool(x, w9, bias)
+        else:
+            pooled, pre = head_kernels.conv_relu_pool(x, w9, bias, with_pre=True)
+            ctx.save_for_backward(pre, w9_flipped, x if finish else None)
+        return (pooled, x) if tap else pooled
 
     @staticmethod
-    def backward(ctx, g):
-        g = g.to(torch.bfloat16).contiguous()
+    def backward(ctx, g, g_tap=None):
+        g, tap = _bf16(g), _bf16(g_tap)
         if ctx.fused_backward:
             x, w9, w9_flipped, bias = ctx.saved_tensors
-            dx = head_kernels.conv_relu_pool_bwd(x, w9, w9_flipped, bias, g)
+            dx = head_kernels.conv_relu_pool_bwd(x, w9, w9_flipped, bias, g, tap)
         else:
-            pre, w9_flipped = ctx.saved_tensors
-            dx = conv_kernels.conv3x3(head_kernels.pool_route(pre, g),
-                                      w9_flipped)
-        return dx, None, None, None
+            pre, w9_flipped, x = ctx.saved_tensors
+            dr = head_kernels.pool_route(pre, g)
+            if ctx.finish:
+                dx = conv_kernels.conv3x3_masked(dr, w9_flipped, x, tap)
+            else:
+                dx = conv_kernels.conv3x3(dr, w9_flipped)
+        return dx, None, None, None, None, None
 
 
-def _fused_pool_wanted(h, cout, pool, name_wanted):
-    """The JAX package's ``_fused_pool_wanted`` on the kernel route: max
-    pool, Cin == Cout in {64, 128}, the conv's own activation not
-    requested, at least one pool window."""
-    cin = h.shape[-1]
+def _fused_pool_wanted(shape, cout, pool, name_wanted):
+    """The JAX package's ``_fused_pool_wanted`` on the kernel route, for an
+    input of ``shape`` ``[V, H, W, Cin]``: max pool, Cin == Cout in {64,
+    128}, the conv's own activation not requested, at least one pool
+    window."""
+    cin = shape[-1]
     return (pool == "max" and not name_wanted and cin == cout
-            and cin in (64, 128) and h.shape[1] >= 2 and h.shape[2] >= 2)
+            and cin in (64, 128) and shape[1] >= 2 and shape[2] >= 2)
 
 
 def _pool_nhwc(h, pool):
@@ -260,34 +298,75 @@ def _pool_nhwc(h, pool):
     return h.permute(0, 2, 3, 1).contiguous()
 
 
+def _routes(shape, wanted, last_needed, pool):
+    """The kernel route of each trunk op up to ``last_needed`` for an input
+    of ``shape`` ``[V, H, W, 3]``: ``'stem'`` (conv1_1's kernels),
+    ``'conv'`` (K5), ``'tail'`` (the conv fused with the pool after it, K6
+    / K7), ``'skip'`` (that pool) or ``'pool'``."""
+    routes = []
+    v, h, w, cin = shape
+    for i in range(last_needed + 1):
+        name, conv = _TRUNK[i]
+        if conv is None:
+            routes.append("skip" if routes[-1] == "tail" else "pool")
+            h, w = h // 2, w // 2
+            continue
+        cout = VGG_LAYER_CHANNELS[name]
+        if (i < last_needed and _TRUNK[i + 1][1] is None
+                and _fused_pool_wanted((v, h, w, cin), cout, pool, name in wanted)):
+            routes.append("tail")
+        elif cin < conv_kernels.CIN_STEP:
+            routes.append("stem")
+        else:
+            routes.append("conv")
+        cin = cout
+    return routes
+
+
+def _finishes(routes, j):
+    """Whether trunk op ``j`` is a conv whose input is a relu output, whose
+    cotangent its input gradient then finishes."""
+    return (0 < j < len(routes) and routes[j] in ("conv", "tail")
+            and routes[j - 1] in ("stem", "conv"))
+
+
 def _kernel_trunk(params, x, wanted, last_needed, pool):
-    """The bf16 trunk on the hand-written kernels; channel-last throughout."""
+    """The bf16 trunk on the hand-written kernels; channel-last throughout.
+
+    A relu output whose next op is a conv has its cotangent finished by
+    that conv's input gradient: K5 applies the relu mask and adds the loss
+    tap's cotangent in its epilogue, and the producing conv's backward
+    drops its mask; K8 (the 64-channel tail) adds the tap's cotangent, the
+    stem masking as it loads. A wanted activation is then the consumer's
+    second output, an alias of its input, so that autograd brings the tap's
+    cotangent to the consumer and sums nothing. Elsewhere (before a plain
+    pool, at ``last_needed``) the producer's backward masks and autograd
+    sums."""
     outs = {}
     h = x.contiguous()
-    skip_pool = False
-    for i, (name, conv) in enumerate(_TRUNK):
-        if conv is not None:
+    routes = _routes(tuple(h.shape), wanted, last_needed, pool)
+    for i in range(last_needed + 1):
+        name, conv = _TRUNK[i]
+        route = routes[i]
+        if route == "pool":
+            h = _pool_nhwc(h, pool)
+        elif route != "skip":  # skip: the tail before it made the pool
             w9, w9_flipped, bias = kernel_layout(params[conv])
-            next_is_pool = (i + 1 < len(_TRUNK) and _TRUNK[i + 1][1] is None
-                            and i + 1 <= last_needed)
-            if next_is_pool and _fused_pool_wanted(h, w9.shape[1], pool,
-                                                   name in wanted):
-                # the fused output is the pool's, recorded under its name
-                h = _ConvReLUPool.apply(h, w9, w9_flipped, bias)
-                skip_pool = True
-                continue
-            if h.shape[-1] < conv_kernels.CIN_STEP:
+            finish = _finishes(routes, i)
+            tap = finish and _TRUNK[i - 1][0] in wanted
+            if route == "tail":
+                h = _ConvReLUPool.apply(h, w9, w9_flipped, bias, finish, tap)
+            elif route == "stem":
                 h = conv3x3_im2col(h, w9, bias, relu=True)
             else:
-                h = _ConvReLUV2.apply(h, w9, w9_flipped, bias)
-        elif skip_pool:
-            skip_pool = False
-        else:
-            h = _pool_nhwc(h, pool)
-        if name in wanted:
+                # the next conv's input gradient masks y's cotangent: it is
+                # K5 (the 64-channel tail, K8, follows the stem, never this)
+                h = _ConvReLUV2.apply(h, w9, w9_flipped, bias,
+                                      _finishes(routes, i + 1), finish, tap)
+            if tap:  # the input's alias, whose cotangent comes to this op
+                h, outs[_TRUNK[i - 1][0]] = h
+        if name in wanted and not _finishes(routes, i + 1):
             outs[name] = h
-        if i == last_needed:
-            break
     return outs
 
 

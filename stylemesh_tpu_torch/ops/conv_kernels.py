@@ -19,6 +19,13 @@ no relu. That is K5 with ``bias=None, relu=False``, so K9 is that entry of
 count, bit for bit K5's; :class:`_ConvFrozen` gives it the frozen-VGG VJP
 (input gradient = K9 with the flipped kernel, no weight gradient).
 
+:func:`conv3x3_masked` is the input gradient that also finishes the
+cotangent of its own input, a relu output ``m`` of the trunk, in the
+kernel's epilogue: ``where(m > 0, bf16(conv) + t, 0)`` with ``t`` the loss
+tap's cotangent of ``m`` (optional), rounded as the separate passes it
+replaces (K5's rounding, the bf16 add, the mask), so equal to them bit for
+bit.
+
 The kernel (``kernels/csrc/conv_gemm.cu``) is an implicit GEMM bound by the
 H100's tensor cores: two warpgroups issue ``wgmma`` on 128-byte-swizzled
 tiles that one producer thread keeps coming by TMA through a ring of
@@ -160,6 +167,46 @@ def conv3x3(x, w9, bias=None, relu=False):
 
 
 conv3x3.launches = 0
+
+
+def conv3x3_masked_plain(x, w9, mask, tap=None):
+    """Plain version of :func:`conv3x3_masked`, the passes it replaces:
+    K5's plain version, the bf16 sum with ``tap``, the relu mask."""
+    y = conv3x3_plain(x, w9)
+    if tap is not None:
+        y = y + tap
+    return relu_mask(y, mask)
+
+
+def relu_mask(g, y):
+    """A relu's backward from its output: ``g`` where ``y > 0``, else +0."""
+    return torch.where(y > 0, g, torch.zeros((), dtype=g.dtype, device=g.device))
+
+
+def conv3x3_masked(x, w9, mask, tap=None):
+    """K5's input gradient that finishes the cotangent of its input, the
+    relu output ``mask [V, H, W, Cout]``: ``where(mask > 0, bf16(conv3x3(x,
+    w9)) + tap, 0)`` in bf16, ``tap`` (the loss tap's cotangent of ``mask``,
+    the same shape) optional; no bias, no relu. CPU tensors take
+    :func:`conv3x3_masked_plain`; CUDA tensors launch the kernel or raise.
+    Counted in ``conv3x3.launches``."""
+    if x.device.type == "cpu":
+        return conv3x3_masked_plain(x, w9, mask, tap)
+    check_conv(x, w9, None)
+    v, h, w, cin = x.shape
+    cout = w9.shape[1]
+    for t in (mask,) if tap is None else (mask, tap):
+        kernels.require_cuda(x, t, dtype=torch.bfloat16)
+        if tuple(t.shape) != (v, h, w, cout):
+            raise ValueError(f"{tuple(t.shape)} vs the output {(v, h, w, cout)}")
+    y = torch.empty((v, h, w, cout), dtype=torch.bfloat16, device=x.device)
+    box_h, box_w = pixel_box(h, w, tile_pixels(cout))
+    kernels.launch("stylemesh_conv3x3_masked", x.device, x.data_ptr(),
+                   w9.data_ptr(), mask.data_ptr(),
+                   None if tap is None else tap.data_ptr(), y.data_ptr(),
+                   v, h, w, cin, cout, box_h, box_w, block_n(cout))
+    conv3x3.launches += 1
+    return y
 
 
 def conv3x3_mxu_plain(x, w9):

@@ -10,7 +10,8 @@ and K8 (counterpart of ``stylemesh_tpu/ops/head_pallas.py``).
   form in one pass: conv + relu recomputed on the tile with the forward's
   arithmetic, the pooled cotangent routed to the first maximum of each 2x2
   window (raster order) where the activation is > 0, then the transposed
-  conv (``conv_relu_pool_bwd``).
+  conv (``conv_relu_pool_bwd``); optionally with the loss tap's cotangent
+  of the input added in its epilogue, as autograd's bf16 sum would.
 
 Numerics are K5's (``ops/conv_kernels.py``): float32 sums, float32 bias,
 relu, one bf16 rounding, and the pool takes the maximum of the bf16 values.
@@ -83,11 +84,12 @@ def conv_relu_pool_plain(x, w9, bias, with_pre=False):
     return (pooled, pre) if with_pre else pooled
 
 
-def conv_relu_pool_bwd_plain(x, w9, w9_flipped, bias, g):
+def conv_relu_pool_bwd_plain(x, w9, w9_flipped, bias, g, tap=None):
     """Plain version of K8, the composed backward: recompute, route, conv
-    with the flipped kernel."""
+    with the flipped kernel, then the bf16 sum with ``tap``."""
     r = conv3x3_plain(x, w9, bias, relu=True)
-    return conv3x3_plain(pool_route(r, g), w9_flipped)
+    dx = conv3x3_plain(pool_route(r, g), w9_flipped)
+    return dx if tap is None else dx + tap
 
 
 def conv_relu_pool(x, w9, bias, with_pre=False):
@@ -135,13 +137,14 @@ def launch_conv_relu_pool(x, w9, bias, pre, pooled):
                    conv_kernels.block_n(cout))
 
 
-def conv_relu_pool_bwd(x, w9, w9_flipped, bias, g):
+def conv_relu_pool_bwd(x, w9, w9_flipped, bias, g, tap=None):
     """K8: ``dx [V, H, W, 64]`` bf16 of :func:`conv_relu_pool` at 64
     channels for the pooled cotangent ``g [V, H // 2, W // 2, 64]`` (cast to
-    bf16). CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    bf16); with ``tap`` (bf16, x's shape), ``dx + tap`` rounded to bf16.
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     if x.device.type == "cpu":
-        return conv_relu_pool_bwd_plain(x, w9, w9_flipped, bias, g)
+        return conv_relu_pool_bwd_plain(x, w9, w9_flipped, bias, g, tap)
     g = g.to(torch.bfloat16).contiguous()
     check_conv(x, w9, bias)
     check_conv(g, w9_flipped, None)
@@ -151,8 +154,12 @@ def conv_relu_pool_bwd(x, w9, w9_flipped, bias, g):
                          f"{tuple(x.shape)}, w9 {tuple(w9.shape)}")
     if tuple(g.shape) != (v, h // 2, w // 2, c):
         raise ValueError(f"g {tuple(g.shape)} vs x {tuple(x.shape)}")
+    if tap is not None:
+        kernels.require_cuda(x, tap, dtype=torch.bfloat16)
+        if tap.shape != x.shape:
+            raise ValueError(f"tap {tuple(tap.shape)} vs x {tuple(x.shape)}")
     dx = torch.empty_like(x)
-    launch_conv_relu_pool_bwd(x, w9, w9_flipped, bias, g, dx)
+    launch_conv_relu_pool_bwd(x, w9, w9_flipped, bias, g, dx, tap=tap)
     conv_relu_pool_bwd.launches += 1
     return dx
 
@@ -160,10 +167,12 @@ def conv_relu_pool_bwd(x, w9, w9_flipped, bias, g):
 conv_relu_pool_bwd.launches = 0
 
 
-def launch_conv_relu_pool_bwd(x, w9, w9_flipped, bias, g, dx, tile=BWD_TILE):
-    """The K8 launch into ``dx``, on dx tiles of ``tile``. Counts
-    nothing."""
+def launch_conv_relu_pool_bwd(x, w9, w9_flipped, bias, g, dx, tile=BWD_TILE,
+                              tap=None):
+    """The K8 launch into ``dx`` (``tap`` added if given), on dx tiles of
+    ``tile``. Counts nothing."""
     v, h, w, _ = x.shape
     kernels.launch("stylemesh_conv_relu_pool_bwd", x.device, x.data_ptr(),
                    w9.data_ptr(), w9_flipped.data_ptr(), bias.data_ptr(),
-                   g.data_ptr(), dx.data_ptr(), v, h, w, *tile)
+                   g.data_ptr(), None if tap is None else tap.data_ptr(),
+                   dx.data_ptr(), v, h, w, *tile)

@@ -813,6 +813,115 @@ def test_conv3x3_refuses_bad_tiles(cuda):
                            64, 128, 1, box_h, box_w, bn)
 
 
+# ragged maps (one pixel, odd H and W, widths off the pixel boxes) and,
+# with V = 4, maps of more tiles than SMs, so that a persistent block runs
+# the epilogue operands of one tile beside the next tile's K steps
+MASKED_SHAPES = [(1, 1, 1), (2, 3, 2), (1, 17, 33), (2, 20, 37), (3, 9, 65),
+                 (4, 64, 85), (4, 98, 130)]
+
+
+def _relu_output(cuda, shape, seed):
+    """A bf16 relu output: about half +0, the rest positive."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.relu(torch.randn(shape, generator=gen, device=cuda)).to(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", MASKED_SHAPES)
+@pytest.mark.parametrize("cin,cout", [(64, 64), (128, 64), (256, 128),
+                                      (512, 256), (512, 512)])
+def test_conv3x3_masked_is_the_chain(cuda, cin, cout, shape):
+    """K5's input gradient that finishes its input's cotangent (N tiles of
+    64, 128 and 256 channels) equals the passes it replaces bit for bit:
+    K5, then the bf16 sum with the tap's cotangent t, then
+    ``torch.where(m > 0, ., 0)``; without t, K5 then the mask. Counted as
+    a K5 launch."""
+    # g [.., cin] and a kernel [9 cin, cout], as the input gradient of a
+    # conv of cout -> cin channels takes them
+    g, w9t, _, _ = _conv_inputs(cuda, *shape, cin, cout, seed=5)
+    m = _relu_output(cuda, shape + (cout,), seed=cin + cout)
+    gen = torch.Generator(device=cuda).manual_seed(cin * cout)
+    t = torch.randn(shape + (cout,), generator=gen, device=cuda).to(torch.bfloat16)
+    k5 = conv_kernels.conv3x3(g, w9t)
+    zero = torch.zeros((), dtype=torch.bfloat16, device=cuda)
+    before = conv_kernels.conv3x3.launches
+    assert torch.equal(conv_kernels.conv3x3_masked(g, w9t, m),
+                       torch.where(m > 0, k5, zero))
+    assert torch.equal(conv_kernels.conv3x3_masked(g, w9t, m, t),
+                       torch.where(m > 0, k5 + t, zero))
+    assert conv_kernels.conv3x3.launches == before + 2
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 31), (2, 9, 65), (1, 17, 261)])
+@pytest.mark.parametrize("cout", [64, 512])
+def test_conv3x3_masked_writes_only_its_output(cuda, shape, cout):
+    """A canary around the finishing input gradient's output: every
+    element written, nothing outside (the stores are clipped at the map's
+    edge; m and t are read in the same boxes)."""
+    v, h, w = shape
+    g, w9t, _, _ = _conv_inputs(cuda, v, h, w, 128, cout, seed=6)
+    m = _relu_output(cuda, (v, h, w, cout), seed=7)
+    t = torch.randn((v, h, w, cout), device=cuda).to(torch.bfloat16)
+    buf, y = _canary(cuda, (v, h, w, cout))
+    box_h, box_w = conv_kernels.pixel_box(h, w, conv_kernels.tile_pixels(cout))
+    kernels.launch("stylemesh_conv3x3_masked", g.device, g.data_ptr(),
+                   w9t.data_ptr(), m.data_ptr(), t.data_ptr(), y.data_ptr(),
+                   v, h, w, 128, cout, box_h, box_w, conv_kernels.block_n(cout))
+    _guards_intact(buf, y)
+    assert torch.equal(y, conv_kernels.conv3x3_masked(g, w9t, m, t))
+
+
+@pytest.mark.parametrize("shape", POOL_SHAPES + [(4, 33, 57)])
+def test_conv_relu_pool_bwd_adds_tap(cuda, shape):
+    """K8 with the tap's cotangent t equals K8, then the bf16 sum with t,
+    bit for bit."""
+    x, w9, w9t, b = _conv_inputs(cuda, *shape, 64, 64, seed=8)
+    v, h, w = shape
+    gen = torch.Generator(device=cuda).manual_seed(v + h + w)
+    g = torch.randn((v, h // 2, w // 2, 64), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    t = torch.randn(x.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    got = head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g, t)
+    assert torch.equal(got, head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g) + t)
+    buf, dx = _canary(cuda, x.shape)
+    head_kernels.launch_conv_relu_pool_bwd(x, w9, w9t, b, g, dx, tap=t)
+    _guards_intact(buf, dx)
+    assert torch.equal(dx, got)
+
+
+@pytest.mark.parametrize("keys", [["r11", "r21", "r31", "r41", "r51", "r42"],
+                                  ["r12", "r22", "r31", "r42"]])
+def test_trunk_input_gradient_as_per_layer(cuda, keys, monkeypatch):
+    """The bf16 trunk on the card, whose input gradients finish their
+    input's cotangent, against the same trunk with that turned off (every
+    conv masks its own cotangent, autograd sums a tap's with the next
+    conv's): activations and input gradient equal bit for bit."""
+    from stylemesh_tpu_torch.models import vgg
+
+    params = vgg.init_vgg_params(rng=3, he=True, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = ((torch.rand((4, 64, 85, 3), generator=gen, device=cuda) - 0.45)
+         * 255.0).to(torch.bfloat16)
+
+    def run():
+        xin = x.clone().requires_grad_()
+        out = vgg.vgg_features(params, xin, keys, compute_dtype=torch.bfloat16,
+                               precision="default")
+        cts = [torch.randn(out[k].shape, generator=torch.Generator(
+            device=cuda).manual_seed(i), device=cuda).to(torch.bfloat16)
+               for i, k in enumerate(keys)]
+        (grad,) = torch.autograd.grad([out[k] for k in keys], [xin], cts)
+        return out, grad
+
+    out, grad = run()
+    monkeypatch.setattr(vgg, "_finishes", lambda routes, j: False)
+    want_out, want_grad = run()
+    for k in keys:
+        assert torch.equal(out[k], want_out[k]), k
+    assert grad.abs().max().item() > 0
+    assert torch.equal(grad, want_grad)
+
+
 # conv1_1's stem: H and W of 1, 2, 7 and 33, widths off the kernels' 64-
 # and 32-column tiles, V of 1 and 4, and the bench step's four levels
 STEM_SHAPES = [(1, 1, 1), (4, 2, 2), (1, 7, 7), (4, 33, 33), (1, 1, 33),

@@ -313,3 +313,133 @@ def test_unfused_trunk_routes(monkeypatch):
     monkeypatch.setattr(tvgg, "_unfused_trunk", None)  # never reached
     again = tvgg.vgg_features(tp, x, ["r51"], **kw)
     assert torch.equal(default["r51"], again["r51"])
+
+
+class _PerLayerConvReLU(torch.autograd.Function):
+    """The trunk's conv before its input gradients finished their input's
+    cotangent: the relu mask as its own pass, then K5 (a copy)."""
+
+    @staticmethod
+    def forward(ctx, x, w9, w9_flipped, bias):
+        y = tvgg.conv_kernels.conv3x3(x, w9, bias, relu=True)
+        ctx.save_for_backward(y, w9_flipped)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, w9_flipped = ctx.saved_tensors
+        g = torch.where(y > 0, g, torch.zeros((), dtype=g.dtype))
+        g = g.to(torch.bfloat16).contiguous()
+        return tvgg.conv_kernels.conv3x3(g, w9_flipped), None, None, None
+
+
+class _PerLayerConvReLUPool(torch.autograd.Function):
+    """The fused block tail before K5 / K8 took the tap's cotangent (a
+    copy): K8 at 64 channels, pool routing then K5 at 128."""
+
+    @staticmethod
+    def forward(ctx, x, w9, w9_flipped, bias):
+        ctx.fused_backward = x.shape[-1] == 64
+        if ctx.fused_backward:
+            ctx.save_for_backward(x, w9, w9_flipped, bias)
+            return tvgg.head_kernels.conv_relu_pool(x, w9, bias)
+        pooled, pre = tvgg.head_kernels.conv_relu_pool(x, w9, bias, with_pre=True)
+        ctx.save_for_backward(pre, w9_flipped)
+        return pooled
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.to(torch.bfloat16).contiguous()
+        if ctx.fused_backward:
+            x, w9, w9_flipped, bias = ctx.saved_tensors
+            dx = tvgg.head_kernels.conv_relu_pool_bwd(x, w9, w9_flipped, bias, g)
+        else:
+            pre, w9_flipped = ctx.saved_tensors
+            dx = tvgg.conv_kernels.conv3x3(
+                tvgg.head_kernels.pool_route(pre, g), w9_flipped)
+        return dx, None, None, None
+
+
+def _per_layer_trunk(params, x, keys):
+    """The kernel trunk as each layer's backward composed it before: every
+    conv's own relu mask, autograd's sum where a relu output is both a tap
+    and the next conv's input."""
+    wanted = set(keys)
+    last = max(i for i, (name, _) in enumerate(tvgg._TRUNK) if name in wanted)
+    outs, h, skip_pool = {}, x, False
+    for i, (name, conv) in enumerate(tvgg._TRUNK[:last + 1]):
+        if conv is not None:
+            w9, w9t, bias = tvgg.kernel_layout(params[conv])
+            if (i + 1 <= last and tvgg._TRUNK[i + 1][1] is None
+                    and tvgg._fused_pool_wanted(h.shape, w9.shape[1], "max",
+                                                name in wanted)):
+                h = _PerLayerConvReLUPool.apply(h, w9, w9t, bias)
+                skip_pool = True
+                continue
+            if h.shape[-1] < tvgg.conv_kernels.CIN_STEP:
+                h = tvgg.conv3x3_im2col(h, w9, bias, relu=True)
+            else:
+                h = _PerLayerConvReLU.apply(h, w9, w9t, bias)
+        elif skip_pool:
+            skip_pool = False
+        else:
+            h = tvgg._pool_nhwc(h, "max")
+        if name in wanted:
+            outs[name] = h
+    return outs
+
+
+@pytest.mark.parametrize("keys,epilogues,masks", [
+    (DEFAULT_LAYERS, 8, 3),
+    (ALL, 11, 5),
+    (["r12", "r22", "r31", "r42"], 6, 4),
+    (["r11", "r21", "r31", "r43"], 7, 2),
+], ids=["default", "all", "r12_r22", "to_r43"])
+def test_kernel_trunk_finishes_cotangents_as_per_layer(keys, epilogues, masks,
+                                                       monkeypatch):
+    """The kernel trunk's input gradients finish their input's cotangent
+    (the relu mask and the tap's cotangent in K5's or K8's epilogue; their
+    plain versions here): the activations and the input gradient of a
+    random linear function of them equal, bit for bit, the trunk in which
+    each conv masks its own cotangent and autograd sums a tap's with the
+    next conv's. Counted: input gradients that finish their input's
+    cotangent, and relu masks left as their own pass."""
+    _, tp = _params()
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(
+        ((rng.random((2, 32, 40, 3), dtype=np.float32) - 0.45) * 255.0))
+    xb = x.to(torch.bfloat16)
+    want_in = xb.clone().requires_grad_()
+    want = _per_layer_trunk(tp, want_in, keys)
+    cts = [torch.from_numpy(rng.normal(size=tuple(want[k].shape)).astype(
+        np.float32)).to(torch.bfloat16) for k in keys]
+    (want_grad,) = torch.autograd.grad([want[k] for k in keys], [want_in], cts)
+
+    calls = {"epilogues": 0, "masks": 0}
+    masked, k8, mask = (tvgg.conv_kernels.conv3x3_masked,
+                        tvgg.head_kernels.conv_relu_pool_bwd, tvgg.relu_mask)
+
+    def masked_spy(*a, **kw):
+        calls["epilogues"] += 1
+        return masked(*a, **kw)
+
+    def k8_spy(x, w9, w9_flipped, bias, g, tap=None):
+        calls["epilogues"] += tap is not None
+        return k8(x, w9, w9_flipped, bias, g, tap)
+
+    def mask_spy(g, y):
+        calls["masks"] += 1
+        return mask(g, y)
+
+    monkeypatch.setattr(tvgg.conv_kernels, "conv3x3_masked", masked_spy)
+    monkeypatch.setattr(tvgg.head_kernels, "conv_relu_pool_bwd", k8_spy)
+    monkeypatch.setattr(tvgg, "relu_mask", mask_spy)
+    got_in = xb.clone().requires_grad_()
+    got = tvgg.vgg_features(tp, got_in, keys, compute_dtype=torch.bfloat16,
+                            precision="default")
+    (got_grad,) = torch.autograd.grad([got[k] for k in keys], [got_in], cts)
+    for k in keys:
+        assert torch.equal(got[k], want[k]), k
+    assert got_grad.abs().max() > 0
+    assert torch.equal(got_grad, want_grad)
+    assert calls == {"epilogues": epilogues, "masks": masks}
