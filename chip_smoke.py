@@ -219,18 +219,16 @@ KERNELS = {  # launches: (wrapper, attribute holding its launch count);
     # the banded form, reached through grid_sample.py::grid_sample_banded_cf
     "K1_gather_banded": dict(
         source=SAMPLE_SRC, replaces="stylemesh_tpu/ops/grid_sample.py:185",
-        launches=(gs.gather_levels_banded, "banded_launches"), rel_tol=1e-5),
+        launches=(gs.gather_levels, "banded_launches"), rel_tol=1e-5),
     "K1_gather_banded_bf16": dict(
         source=SAMPLE_SRC, replaces="stylemesh_tpu/ops/grid_sample.py:185",
-        launches=(gs.gather_levels_banded, "banded_bf16_launches"),
-        rel_tol=1e-5),
+        launches=(gs.gather_levels, "banded_bf16_launches"), rel_tol=1e-5),
     "K2_splat_banded": dict(
         source=SAMPLE_SRC, replaces="stylemesh_tpu/ops/grid_sample.py:210",
-        launches=(gs.splat_levels_banded, "banded_launches"), rel_tol=1e-4),
+        launches=(gs.splat_levels, "banded_launches"), rel_tol=1e-4),
     "K2_splat_banded_bf16": dict(
         source=SAMPLE_SRC, replaces="stylemesh_tpu/ops/grid_sample.py:210",
-        launches=(gs.splat_levels_banded, "banded_bf16_launches"),
-        rel_tol=1e-4),
+        launches=(gs.splat_levels, "banded_bf16_launches"), rel_tol=1e-4),
     # K1 (f32) on the post chain's paths, per call of the render and of the
     # eval's warp; their launches in the run are read from the CLI's
     # post-chain line, by phase
@@ -1182,7 +1180,7 @@ def touched_texels(grid, layers, row0s=None, heights=None):
     for l, layer in enumerate(layers):
         h = layer.shape[0] if heights is None else heights[l]
         row0 = 0 if row0s is None else row0s[l]
-        iy0, iy1, ix0, ix1, _, _ = gs._corner_indices_weights(
+        iy0, iy1, ix0, ix1, _, _ = gs.corner_indices_weights(
             grid, h, layer.shape[1])
         w = layer.shape[1]
         idx = torch.cat([(iy * w + ix).reshape(-1) for iy, ix in
@@ -1215,21 +1213,21 @@ def banded_checks(where, layers, grid, g, note):
         for b in range(4):
             bands, row0s, heights = bands_of(layers, b, 4)
             bshapes = [tuple(x.shape[:2]) for x in bands]
-            out = gs.gather_layers_banded(bands, grid, row0s, heights, compute)
-            note(k1, check(k1, out, gs.gather_layers_banded_plain(
-                bands, grid, row0s, heights, compute), f"{where} band {b} of 4"))
+            band = (row0s, heights)
+            (out,) = gs.gather_levels(bands, [grid], compute, band)
+            note(k1, check(k1, out, gs.gather_levels_plain(
+                bands, [grid], compute, band)[0], f"{where} band {b} of 4"))
             total = total + out
-            grads = gs.splat_layers_banded(g, grid, bshapes, row0s, heights,
-                                           compute)
-            note(k2, check(k2, grads, gs.splat_layers_banded_plain(
-                g, grid, bshapes, row0s, heights, compute),
+            grads = gs.splat_levels([g], [grid], bshapes, compute, band)
+            note(k2, check(k2, grads, gs.splat_levels_plain(
+                [g], [grid], bshapes, compute, band),
                 f"{where} band {b} of 4"))
             for acc, x in zip(parts, grads):
                 acc.append(x)
-        note(k1, check(k1, total, gs.gather_layers(layers, grid, compute),
+        note(k1, check(k1, total, gs.gather_levels(layers, [grid], compute)[0],
                        f"{where} 4 bands summed vs K1"))
         note(k2, check(k2, [torch.cat(p) for p in parts],
-                       gs.splat_layers(g, grid, shapes, compute),
+                       gs.splat_levels([g], [grid], shapes, compute),
                        f"{where} 4 bands stacked vs K2"))
         del total, parts
 
@@ -1268,6 +1266,7 @@ def sampling_step(layers, grids, cots, add):
 
     bands, row0s, heights = bands_of(layers, 0, 2)
     bshapes = [tuple(x.shape[:2]) for x in bands]
+    band = (row0s, heights)
     runs = (
         ("", "unbanded", shapes,
          lambda c: gs.gather_levels(layers, grids, c),
@@ -1276,13 +1275,10 @@ def sampling_step(layers, grids, cots, add):
          lambda c: gs.splat_levels_plain(cots, grids, shapes, c),
          sum(touched_texels(g, layers) for g in grids)),
         ("_banded", "rank 0 of 2", bshapes,
-         lambda c: gs.gather_levels_banded(bands, grids, row0s, heights, c),
-         lambda c: gs.gather_levels_banded_plain(bands, grids, row0s, heights,
-                                                 c),
-         lambda c: gs.splat_levels_banded(cots, grids, bshapes, row0s, heights,
-                                          c),
-         lambda c: gs.splat_levels_banded_plain(cots, grids, bshapes, row0s,
-                                                heights, c),
+         lambda c: gs.gather_levels(bands, grids, c, band),
+         lambda c: gs.gather_levels_plain(bands, grids, c, band),
+         lambda c: gs.splat_levels(cots, grids, bshapes, c, band),
+         lambda c: gs.splat_levels_plain(cots, grids, bshapes, c, band),
          sum(touched_texels(g, bands, row0s, heights) for g in grids)))
     for suffix, at, tshapes, gather, gather_plain, splat, splat_plain, \
             touched in runs:
@@ -1650,11 +1646,13 @@ def kernel_phase(pipe, state, batch, aux, launches):
         cots.append(g)
         for compute, mode in (("f32", ""), ("bf16", "_bf16")):
             note(f"K1_gather{mode}", check(
-                f"K1_gather{mode}", gs.gather_layers(layers, grid, compute),
+                f"K1_gather{mode}",
+                gs.gather_levels(layers, [grid], compute)[0],
                 gs.gather_levels_plain(layers, [grid], compute)[0],
                 f"level {i}"))
             note(f"K2_splat{mode}", check(
-                f"K2_splat{mode}", gs.splat_layers(g, grid, shapes, compute),
+                f"K2_splat{mode}",
+                gs.splat_levels([g], [grid], shapes, compute),
                 gs.splat_levels_plain([g], [grid], shapes, compute),
                 f"level {i}"))
         banded_checks(f"level {i}", layers, grid, g, note)

@@ -10,12 +10,10 @@ of a step's UV pyramid levels and sums over the layers, with both
 directions as hand-written kernels on the card: K1 (:func:`gather_levels`,
 one launch for all levels and layers) and K2 (:func:`splat_levels`, one
 zero fill per layer and one launch that splats every level's cotangent
-into it). :func:`sample_layers`, :func:`gather_layers` and
-:func:`splat_layers` are their one-level case. :func:`gather_each` is K1's
-per-view form: each grid samples its own image, one launch for up to
-``MAX_LEVELS`` of them (the eval's warps). The plain versions sit
-beside them and serve tensors that lie on the CPU; a CUDA tensor launches
-the kernel or raises.
+into it). :func:`gather_each` is K1's per-view form: each grid samples its
+own image, one launch for up to ``MAX_LEVELS`` of them (the eval's warps).
+The plain versions sit beside them and serve tensors that lie on the CPU;
+a CUDA tensor launches the kernel or raises.
 
 Conventions: texture layers ``[H, W, C]`` channel-last float32; grids
 ``[..., 2]`` with ``(x, y)`` in ``[-1, 1]``, where -1 maps to pixel 0 and
@@ -35,16 +33,18 @@ compute=)`` of the JAX package does for its planned TPU kernels:
   stay exact float32 there as here.
 
 Atlas-sharded training splits every layer into row bands, one per rank.
-:func:`sample_levels_banded` gives one rank's partial renders: the banded
-K1 (:func:`gather_levels_banded`) and K2 (:func:`splat_levels_banded`)
-take the corner indices and weights of the whole layer and keep the
-corners whose texel row lies in the rank's band, in either mode. The JAX
-package reaches the same function through ``grid_sample_banded_cf`` with
-``row0`` and ``include_background=False``.
+The level-table entries take ``band = (row0s, heights)`` for one rank's
+partials: their ``layers`` are then row bands, band ``l`` rows
+``[row0s[l], row0s[l] + band_h)`` of a layer ``heights[l]`` rows high. The
+corner indices and weights are those of the whole layer, and a corner adds
+its texel only when the texel's row lies in the band, in either mode.
+Without a band a layer is its own band of row 0. The JAX package reaches the same function through
+``grid_sample_banded_cf`` with ``row0`` and ``include_background=False``.
 """
 
 import ctypes
 import functools
+import operator
 
 import torch
 
@@ -67,9 +67,10 @@ def _clamped_pixel(grid, h, w):
     return px, py
 
 
-def _corner_indices_weights(grid, h, w):
+def corner_indices_weights(grid, h, w):
     """Clamped corner indices and the x1/y1 bilinear weights of an
-    align_corners=True, border-padded sample."""
+    align_corners=True, border-padded sample of an ``h x w`` layer:
+    ``(iy0, iy1, ix0, ix1, wy1, wx1)``."""
     px, py = _clamped_pixel(grid, h, w)
     ix0 = torch.floor(px).long()
     iy0 = torch.floor(py).long()
@@ -78,36 +79,6 @@ def _corner_indices_weights(grid, h, w):
     wx1 = px - ix0.to(px.dtype)
     wy1 = py - iy0.to(py.dtype)
     return iy0, iy1, ix0, ix1, wy1, wx1
-
-
-def _gather_plain(texture, grid):
-    h, w, c = texture.shape
-    iy0, iy1, ix0, ix1, wy1, wx1 = _corner_indices_weights(grid, h, w)
-    flat = texture.reshape(h * w, c)
-
-    def pix(iy, ix):
-        idx = iy * w + ix
-        return flat[idx.reshape(-1)].reshape(idx.shape + (c,))
-
-    wy1e, wx1e = wy1[..., None], wx1[..., None]
-    top = pix(iy0, ix0) * (1.0 - wx1e) + pix(iy0, ix1) * wx1e
-    bot = pix(iy1, ix0) * (1.0 - wx1e) + pix(iy1, ix1) * wx1e
-    return top * (1.0 - wy1e) + bot * wy1e
-
-
-def _splat_plain(g, grid, h, w):
-    c = g.shape[-1]
-    iy0, iy1, ix0, ix1, wy1, wx1 = _corner_indices_weights(grid, h, w)
-    g2 = g.reshape(-1, c)
-    wy1f, wx1f = wy1.reshape(-1, 1), wx1.reshape(-1, 1)
-    dtex = torch.zeros((h * w, c), dtype=g.dtype, device=g.device)
-    for iy, ix, contrib in (
-            (iy0, ix0, g2 * (1.0 - wy1f) * (1.0 - wx1f)),
-            (iy0, ix1, g2 * (1.0 - wy1f) * wx1f),
-            (iy1, ix0, g2 * wy1f * (1.0 - wx1f)),
-            (iy1, ix1, g2 * wy1f * wx1f)):
-        dtex.index_add_(0, (iy * w + ix).reshape(-1), contrib)
-    return dtex.reshape(h, w, c)
 
 
 def _bf16r(x):
@@ -127,74 +98,6 @@ def _background(grid):
     return (grid[..., 0] == -1.0) & (grid[..., 1] == -1.0)
 
 
-def _gather_plain_bf16(texture, grid):
-    h, w, c = texture.shape
-    iy0, iy1, ix0, ix1, wy1, wx1 = _corner_indices_weights(grid, h, w)
-    flat = _bf16r(texture).reshape(h * w, c)
-
-    def pix(iy, ix):
-        idx = iy * w + ix
-        return flat[idx.reshape(-1)].reshape(idx.shape + (c,))
-
-    ux, wx = (t[..., None] for t in _tent_bf16(wx1))
-    uy, wy = (t[..., None] for t in _tent_bf16(wy1))
-    top = pix(iy0, ix0) * ux + pix(iy0, ix1) * wx
-    bot = pix(iy1, ix0) * ux + pix(iy1, ix1) * wx
-    out = top * uy + bot * wy
-    return torch.where(_background(grid)[..., None],
-                       _gather_plain(texture, grid), out)
-
-
-def _splat_plain_bf16(g, grid, h, w):
-    c = g.shape[-1]
-    iy0, iy1, ix0, ix1, wy1, wx1 = _corner_indices_weights(grid, h, w)
-    bg = _background(grid).reshape(-1, 1)
-    g2 = g.reshape(-1, c)
-    gb = _bf16r(g2)
-    ux, wx = (t.reshape(-1, 1) for t in _tent_bf16(wx1))
-    uy, wy = (t.reshape(-1, 1) for t in _tent_bf16(wy1))
-    wy1f, wx1f = wy1.reshape(-1, 1), wx1.reshape(-1, 1)
-    dtex = torch.zeros((h * w, c), dtype=g.dtype, device=g.device)
-    for iy, ix, exact, row_w, col_w in (
-            (iy0, ix0, g2 * (1.0 - wy1f) * (1.0 - wx1f), uy, ux),
-            (iy0, ix1, g2 * (1.0 - wy1f) * wx1f, uy, wx),
-            (iy1, ix0, g2 * wy1f * (1.0 - wx1f), wy, ux),
-            (iy1, ix1, g2 * wy1f * wx1f, wy, wx)):
-        contrib = torch.where(bg, exact, _bf16r(row_w * gb) * col_w)
-        dtex.index_add_(0, (iy * w + ix).reshape(-1), contrib)
-    return dtex.reshape(h, w, c)
-
-
-def gather_layers_plain(layers, grid):
-    """Plain version of K1 (f32 mode): sum over layers of the bilinear
-    sample."""
-    out = None
-    for layer in layers:
-        y = _gather_plain(layer, grid)
-        out = y if out is None else out + y
-    return out
-
-
-def gather_layers_plain_bf16(layers, grid):
-    """Plain version of K1's bf16 mode."""
-    out = None
-    for layer in layers:
-        y = _gather_plain_bf16(layer, grid)
-        out = y if out is None else out + y
-    return out
-
-
-def splat_layers_plain(g, grid, shapes):
-    """Plain version of K2 (f32 mode): per-layer scatter-add of the
-    cotangent ``g``."""
-    return [_splat_plain(g, grid, h, w) for (h, w) in shapes]
-
-
-def splat_layers_plain_bf16(g, grid, shapes):
-    """Plain version of K2's bf16 mode."""
-    return [_splat_plain_bf16(g, grid, h, w) for (h, w) in shapes]
-
-
 def _band_corner(iy, ix, row0, band_h, w):
     """Band-local flat texel index of a corner at global row ``iy`` (0 where
     the row lies outside ``[row0, row0 + band_h)``) and its in-band flag."""
@@ -203,12 +106,15 @@ def _band_corner(iy, ix, row0, band_h, w):
     return torch.where(inside, local, torch.zeros_like(local)) * w + ix, inside
 
 
-def _gather_plain_banded(band, grid, row0, h, bf16):
-    """One layer's band ``[band_h, W, C]`` of a texture ``h`` rows high: the
+def _gather_plain(band, grid, bf16=False, row0=0, h=None):
+    """One layer's bilinear sample at ``grid``, or that of its band
+    ``[band_h, W, C]`` at ``row0`` of a texture ``h`` rows high: the
     corners whose texel row lies in the band, read at their band-local row;
-    the others contribute nothing."""
+    the others contribute nothing. By default the band is the whole
+    layer."""
     band_h, w, c = band.shape
-    iy0, iy1, ix0, ix1, wy1, wx1 = _corner_indices_weights(grid, h, w)
+    h = band_h if h is None else h
+    iy0, iy1, ix0, ix1, wy1, wx1 = corner_indices_weights(grid, h, w)
     flat = (_bf16r(band) if bf16 else band).reshape(band_h * w, c)
 
     def pix(iy, ix):
@@ -227,17 +133,19 @@ def _gather_plain_banded(band, grid, row0, h, bf16):
     out = top * uy + bot * wy
     if bf16:  # background pixels stay exact float32
         out = torch.where(_background(grid)[..., None],
-                          _gather_plain_banded(band, grid, row0, h, False), out)
+                          _gather_plain(band, grid, False, row0, h), out)
     return out
 
 
-def _splat_plain_banded(g, grid, band_hw, row0, h, bf16):
-    """One layer's band gradient: the scatter-add of :func:`_splat_plain`
-    (or its bf16 twin) restricted to the corners whose row lies in the
-    band."""
+def _splat_plain(g, grid, band_hw, bf16=False, row0=0, h=None):
+    """The scatter-add of the cotangent ``g`` into one zero ``band_hw``
+    layer, or into the band at ``row0`` of a texture ``h`` rows high:
+    restricted to the corners whose row lies in the band. By default the
+    band is the whole layer."""
     band_h, w = band_hw
+    h = band_h if h is None else h
     c = g.shape[-1]
-    iy0, iy1, ix0, ix1, wy1, wx1 = _corner_indices_weights(grid, h, w)
+    iy0, iy1, ix0, ix1, wy1, wx1 = corner_indices_weights(grid, h, w)
     g2 = g.reshape(-1, c)
     wy1f, wx1f = wy1.reshape(-1, 1), wx1.reshape(-1, 1)
     exact = ((iy0, ix0, g2 * (1.0 - wy1f) * (1.0 - wx1f)),
@@ -261,30 +169,24 @@ def _splat_plain_banded(g, grid, band_hw, row0, h, bf16):
     return dtex.reshape(band_h, w, c)
 
 
-def gather_layers_banded_plain(bands, grid, row0s, heights, compute="f32"):
-    """Plain version of the banded K1 (either mode): the sum over layers of
-    :func:`_gather_plain_banded`."""
+def _spans(shapes, band):
+    """(row0, layer height) of each layer or band: ``(0, H)`` without a
+    band."""
+    if band is None:
+        return [(0, hw[0]) for hw in shapes]
+    row0s, heights = band
+    return list(zip(row0s, heights))
+
+
+def gather_levels_plain(layers, grids, compute="f32", band=None):
+    """Plain version of K1 over a level table (either mode, with or without
+    a band): for each grid, the sum over the layers of the bilinear
+    sample."""
     _check_compute(compute)
-    out = None
-    for band, row0, h in zip(bands, row0s, heights):
-        y = _gather_plain_banded(band, grid, row0, h, compute == "bf16")
-        out = y if out is None else out + y
-    return out
-
-
-def splat_layers_banded_plain(g, grid, band_shapes, row0s, heights,
-                              compute="f32"):
-    """Plain version of the banded K2 (either mode)."""
-    _check_compute(compute)
-    return [_splat_plain_banded(g, grid, hw, row0, h, compute == "bf16")
-            for hw, row0, h in zip(band_shapes, row0s, heights)]
-
-
-def gather_levels_plain(layers, grids, compute="f32"):
-    """Plain version of K1 over a level table: one render per grid."""
-    _check_compute(compute)
-    gather = gather_layers_plain_bf16 if compute == "bf16" else gather_layers_plain
-    return [gather(layers, grid) for grid in grids]
+    spans = _spans([l.shape for l in layers], band)
+    return [functools.reduce(operator.add, (
+        _gather_plain(layer, grid, compute == "bf16", row0, h)
+        for layer, (row0, h) in zip(layers, spans))) for grid in grids]
 
 
 def gather_each_plain(images, grids):
@@ -294,32 +196,16 @@ def gather_each_plain(images, grids):
                         for image, grid in zip(images, grids)])
 
 
-def splat_levels_plain(cots, grids, shapes, compute="f32"):
-    """Plain version of K2 over a level table: the per-level splats of
-    ``cots[k]`` at ``grids[k]``, summed into one gradient per layer in level
+def splat_levels_plain(cots, grids, shapes, compute="f32", band=None):
+    """Plain version of K2 over a level table (either mode, with or without
+    a band): the per-level splats of ``cots[k]`` at ``grids[k]`` into one
+    zero ``shapes[l]`` per layer or band, summed per layer in level
     order."""
     _check_compute(compute)
-    splat = splat_layers_plain_bf16 if compute == "bf16" else splat_layers_plain
-    return _sum_levels(splat(g, grid, shapes) for g, grid in zip(cots, grids))
-
-
-def gather_levels_banded_plain(bands, grids, row0s, heights, compute="f32"):
-    """Plain version of the banded K1 over a level table."""
-    return [gather_layers_banded_plain(bands, grid, row0s, heights, compute)
-            for grid in grids]
-
-
-def splat_levels_banded_plain(cots, grids, band_shapes, row0s, heights,
-                              compute="f32"):
-    """Plain version of the banded K2 over a level table: the per-level band
-    splats summed into one gradient per band in level order."""
-    return _sum_levels(
-        splat_layers_banded_plain(g, grid, band_shapes, row0s, heights, compute)
-        for g, grid in zip(cots, grids))
-
-
-def _sum_levels(per_level):
-    """The levels' gradient lists summed per layer, in level order."""
+    spans = _spans(shapes, band)
+    per_level = ([_splat_plain(g, grid, hw, compute == "bf16", row0, h)
+                  for hw, (row0, h) in zip(shapes, spans)]
+                 for g, grid in zip(cots, grids))
     return functools.reduce(lambda a, b: [x + y for x, y in zip(a, b)],
                             per_level)
 
@@ -388,8 +274,9 @@ def _band_table(band):
     return (ctypes.c_int * n)(*heights), (ctypes.c_int * n)(*row0s)
 
 
-def _count(wrapper, compute, prefix=""):
-    attr = prefix + ("bf16_launches" if compute == "bf16" else "launches")
+def _count(wrapper, compute, band):
+    attr = (("" if band is None else "banded_")
+            + ("bf16_launches" if compute == "bf16" else "launches"))
     setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
@@ -435,26 +322,34 @@ def _splat(cots, grids, shapes, compute, band=None):
     return grads, True
 
 
-def gather_levels(layers, grids, compute="f32"):
+def gather_levels(layers, grids, compute="f32", band=None):
     """K1 over a level table: for each grid ``[..., 2]`` of ``grids`` (at
     most ``MAX_LEVELS``), ``sum_l bilinear(layers[l], grid)`` ->
     ``grid.shape[:-1] + (3,)``.
 
+    With ``band = (row0s, heights)``, this rank's share of that sum when
+    every layer ``l`` (``heights[l]`` rows) is split into row bands and
+    ``layers[l]`` holds rows ``[row0s[l], row0s[l] + layers[l].shape[0])``
+    of it. Summed over the bands of every rank, the partials are the
+    unbanded renders: the background pixels at grid (-1, -1) read texel
+    (0, 0) with weight 1 and so belong to the band holding row 0.
+
     CPU tensors take :func:`gather_levels_plain`; CUDA tensors launch the
     kernel (one launch for all grids and layers) or raise. Counts its
-    launches in ``.launches`` (f32) and ``.bf16_launches``.
+    launches in ``.launches`` (f32) and ``.bf16_launches``, and its banded
+    launches in ``.banded_launches`` and ``.banded_bf16_launches``.
     """
     _check_compute(compute)
     if _on_cpu(grids):
-        return gather_levels_plain(layers, grids, compute)
-    outs, launched = _gather(layers, grids, compute)
+        return gather_levels_plain(layers, grids, compute, band)
+    outs, launched = _gather(layers, grids, compute, band)
     if launched:
-        _count(gather_levels, compute)
+        _count(gather_levels, compute, band)
     return outs
 
 
-gather_levels.launches = 0
-gather_levels.bf16_launches = 0
+gather_levels.launches = gather_levels.bf16_launches = 0
+gather_levels.banded_launches = gather_levels.banded_bf16_launches = 0
 
 
 def _pair_aligned_rows(t):
@@ -526,105 +421,29 @@ def gather_each(images, grids):
 gather_each.launches = 0
 
 
-def splat_levels(cots, grids, shapes, compute="f32"):
+def splat_levels(cots, grids, shapes, compute="f32", band=None):
     """K2 over a level table: the atlas gradients of :func:`gather_levels`
     for the cotangents ``cots[k]`` of its renders, every level splatted into
-    one zero-initialised float32 ``[H_l, W_l, 3]`` per ``shapes[l]``.
+    one zero-initialised float32 ``[H_l, W_l, 3]`` per ``shapes[l]``. With
+    ``band = (row0s, heights)``, ``shapes`` are the bands' and the splat is
+    restricted to the corners whose row lies in the band.
 
     CPU tensors take :func:`splat_levels_plain`; CUDA tensors launch the
     kernel (one fill per layer, one launch for all grids and layers) or
     raise. Equal to the sequential scatter-add up to summation order.
-    Counts its launches in ``.launches`` (f32) and ``.bf16_launches``.
+    Counts its launches as :func:`gather_levels` does.
     """
     _check_compute(compute)
     if _on_cpu(grids):
-        return splat_levels_plain(cots, grids, shapes, compute)
-    grads, launched = _splat(cots, grids, shapes, compute)
+        return splat_levels_plain(cots, grids, shapes, compute, band)
+    grads, launched = _splat(cots, grids, shapes, compute, band)
     if launched:
-        _count(splat_levels, compute)
+        _count(splat_levels, compute, band)
     return grads
 
 
-splat_levels.launches = 0
-splat_levels.bf16_launches = 0
-
-
-def gather_levels_banded(bands, grids, row0s, heights, compute="f32"):
-    """The banded K1 over a level table: this rank's share of
-    :func:`gather_levels` when every layer ``l`` of the texture
-    (``heights[l]`` rows) is split into row bands and this rank holds rows
-    ``[row0s[l], row0s[l] + bands[l].shape[0])`` of it. The corner indices
-    and weights are those of the whole layer; a corner adds its texel only
-    when the texel's row lies in the band. Summed over the bands of every
-    rank, the partials are :func:`gather_levels`: the background pixels at
-    grid (-1, -1) read texel (0, 0) with weight 1 and so belong to the band
-    holding row 0.
-
-    CPU tensors take :func:`gather_levels_banded_plain`; CUDA tensors launch
-    the kernel (one launch for all grids and bands) or raise. Counts its
-    launches in ``.banded_launches`` (f32) and ``.banded_bf16_launches``.
-    """
-    _check_compute(compute)
-    if _on_cpu(grids):
-        return gather_levels_banded_plain(bands, grids, row0s, heights, compute)
-    outs, launched = _gather(bands, grids, compute, (row0s, heights))
-    if launched:
-        _count(gather_levels_banded, compute, "banded_")
-    return outs
-
-
-gather_levels_banded.banded_launches = 0
-gather_levels_banded.banded_bf16_launches = 0
-
-
-def splat_levels_banded(cots, grids, band_shapes, row0s, heights,
-                        compute="f32"):
-    """The banded K2 over a level table: the gradients of
-    :func:`gather_levels_banded` for the cotangents ``cots[k]``, every level
-    splatted into one zero-initialised float32 ``[band_h, W, 3]`` per
-    ``band_shapes[l]``: the scatter-add of :func:`splat_levels` restricted
-    to the corners whose row lies in the band.
-
-    CPU tensors take :func:`splat_levels_banded_plain`; CUDA tensors launch
-    the kernel (one launch for all grids and bands) or raise. Counts its
-    launches in ``.banded_launches`` (f32) and ``.banded_bf16_launches``.
-    """
-    _check_compute(compute)
-    if _on_cpu(grids):
-        return splat_levels_banded_plain(cots, grids, band_shapes, row0s,
-                                         heights, compute)
-    grads, launched = _splat(cots, grids, band_shapes, compute,
-                             (row0s, heights))
-    if launched:
-        _count(splat_levels_banded, compute, "banded_")
-    return grads
-
-
-splat_levels_banded.banded_launches = 0
-splat_levels_banded.banded_bf16_launches = 0
-
-
-def gather_layers(layers, grid, compute="f32"):
-    """K1 at one grid: :func:`gather_levels` of one level."""
-    return gather_levels(layers, [grid], compute)[0]
-
-
-def splat_layers(g, grid, shapes, compute="f32"):
-    """K2 at one grid: :func:`splat_levels` of one level."""
-    return splat_levels([g], [grid], shapes, compute)
-
-
-def gather_layers_banded(bands, grid, row0s, heights, compute="f32"):
-    """The banded K1 at one grid: :func:`gather_levels_banded` of one
-    level."""
-    return gather_levels_banded(bands, [grid], row0s, heights, compute)[0]
-
-
-def splat_layers_banded(g, grid, band_shapes, row0s, heights, compute="f32"):
-    """The banded K2 at one grid: :func:`splat_levels_banded` of one
-    level."""
-    return splat_levels_banded([g], [grid], band_shapes, row0s, heights,
-                               compute)
+splat_levels.launches = splat_levels.bf16_launches = 0
+splat_levels.banded_launches = splat_levels.banded_bf16_launches = 0
 
 
 class _SampleLevels(torch.autograd.Function):
@@ -642,9 +461,7 @@ class _SampleLevels(torch.autograd.Function):
         ctx.save_for_backward(*grids)
         ctx.shapes = [tuple(l.shape[:2]) for l in layers]
         ctx.compute, ctx.band = compute, band
-        if band is None:
-            return tuple(gather_levels(layers, grids, compute))
-        return tuple(gather_levels_banded(layers, grids, *band, compute))
+        return tuple(gather_levels(layers, grids, compute, band))
 
     @staticmethod
     def backward(ctx, *cots):
@@ -652,49 +469,26 @@ class _SampleLevels(torch.autograd.Function):
         live = [k for k, g in enumerate(cots) if g is not None]
         grads = [None] * len(ctx.shapes)
         if live:
-            args = ([cots[k].contiguous() for k in live],
-                    [grids[k] for k in live], ctx.shapes)
-            if ctx.band is None:
-                grads = splat_levels(*args, ctx.compute)
-            else:
-                grads = splat_levels_banded(*args, *ctx.band, ctx.compute)
+            grads = splat_levels([cots[k].contiguous() for k in live],
+                                 [grids[k] for k in live], ctx.shapes,
+                                 ctx.compute, ctx.band)
         return (None, None, None, *[None] * len(grids), *grads)
 
 
-def sample_levels(layers, grids, compute="f32"):
+def sample_levels(layers, grids, compute="f32", band=None):
     """For each grid of ``grids``, ``sum_l grid_sample(layers[l], grid)``,
     with the K1/K2 autograd pair in the given ``compute`` mode: one K1
     launch renders every grid, one K2 launch splats every render's
-    gradient into one gradient per layer."""
+    gradient into one gradient per layer. With ``band = (row0s,
+    heights)``, ``layers`` are this rank's row bands and the renders its
+    partials (:func:`gather_levels`)."""
     if not grids:
         return []
-    return list(_SampleLevels.apply(compute, None, len(grids),
+    if band is not None:
+        band = tuple(tuple(v) for v in band)
+    return list(_SampleLevels.apply(compute, band, len(grids),
                                     *[g.contiguous() for g in grids],
                                     *[l.contiguous() for l in layers]))
-
-
-def sample_levels_banded(bands, grids, row0s, heights, compute="f32"):
-    """This rank's partial renders from its row bands, one per grid, with
-    the banded K1/K2 autograd pair (``row0s`` / ``heights``: each band's
-    first row and its layer's full height)."""
-    if not grids:
-        return []
-    return list(_SampleLevels.apply(compute, (tuple(row0s), tuple(heights)),
-                                    len(grids),
-                                    *[g.contiguous() for g in grids],
-                                    *[b.contiguous() for b in bands]))
-
-
-def sample_layers(layers, grid, compute="f32"):
-    """``sum_l grid_sample(layers[l], grid)``: :func:`sample_levels` of one
-    grid."""
-    return sample_levels(layers, [grid], compute)[0]
-
-
-def sample_layers_banded(bands, grid, row0s, heights, compute="f32"):
-    """This rank's partial render at one grid: :func:`sample_levels_banded`
-    of one grid."""
-    return sample_levels_banded(bands, [grid], row0s, heights, compute)[0]
 
 
 def launch_counts():
@@ -704,17 +498,17 @@ def launch_counts():
             "gather_each": gather_each.launches,
             "splat": splat_levels.launches,
             "splat_bf16": splat_levels.bf16_launches,
-            "gather_banded": gather_levels_banded.banded_launches,
-            "gather_banded_bf16": gather_levels_banded.banded_bf16_launches,
-            "splat_banded": splat_levels_banded.banded_launches,
-            "splat_banded_bf16": splat_levels_banded.banded_bf16_launches}
+            "gather_banded": gather_levels.banded_launches,
+            "gather_banded_bf16": gather_levels.banded_bf16_launches,
+            "splat_banded": splat_levels.banded_launches,
+            "splat_banded_bf16": splat_levels.banded_bf16_launches}
 
 
 def grid_sample(texture, grid):
     """Bilinear sample of ``texture [H, W, C]`` at ``grid [..., 2]``: torch
     ``grid_sample(mode='bilinear', padding_mode='border',
     align_corners=True)`` with the texture broadcast over the batch."""
-    return sample_layers([texture], grid)
+    return sample_levels([texture], [grid])[0]
 
 
 def nearest_indices(grid, h, w):

@@ -7,7 +7,7 @@ constants are replicated on every rank.
 
 - forward: each rank renders its bands' partial of every live pyramid
   level with one launch of the banded K1
-  (``ops/grid_sample.py::gather_levels_banded``), and each level's
+  (``ops/grid_sample.py::gather_levels`` with a band), and each level's
   partials are summed over the ranks (:func:`mesh.all_reduce_sum`);
 - backward: the summed renders' cotangents are the same on every rank, and
   one launch of the banded K2 scatters them into the rank's bands only:
@@ -36,7 +36,7 @@ from stylemesh_tpu_torch.models.pipeline import (
     _scatter_levels,
 )
 from stylemesh_tpu_torch.models.texture import Texture
-from stylemesh_tpu_torch.ops.grid_sample import sample_levels_banded
+from stylemesh_tpu_torch.ops.grid_sample import sample_levels
 from stylemesh_tpu_torch.parallel.mesh import (
     Mesh,
     all_reduce_sum,
@@ -108,9 +108,9 @@ class AtlasShardedPipeline(TexturePipeline):
         this rank's partials (one banded K2 in the backward), each level's
         partial all-reduced."""
         live = self._live_levels(batch)
-        partials = sample_levels_banded(
-            list(texture.layers), [batch.uv[i] for i in live], self.row0s,
-            self.heights, self.config.kernel_compute)
+        partials = sample_levels(
+            list(texture.layers), [batch.uv[i] for i in live],
+            self.config.kernel_compute, band=(self.row0s, self.heights))
         return _scatter_levels(len(batch.uv), live,
                                [all_reduce_sum(p, self.mesh) for p in partials])
 

@@ -25,7 +25,7 @@ def _splat_counts(uv_grid, mask, tex_h, tex_w):
     lies. ``uv_grid [H, W, 2]`` in [-1, 1] (x, y); ``mask [H, W, 1]``. The
     corners are those of the bilinear gather (align_corners=True, border
     clamp); their weights are not used."""
-    y0, y1, x0, x1, _, _ = grid_sample._corner_indices_weights(
+    y0, y1, x0, x1, _, _ = grid_sample.corner_indices_weights(
         uv_grid, tex_h, tex_w)
     m = mask[..., 0].reshape(-1)
     flat = torch.zeros((tex_h * tex_w,), dtype=torch.float32,

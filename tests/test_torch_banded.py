@@ -1,6 +1,6 @@
-"""Port parity: the banded K1/K2 (``ops/grid_sample.py::gather_layers_banded``
-/ ``splat_layers_banded``, their plain versions here on the CPU) against the
-JAX package's banded TPU kernels.
+"""Port parity: the banded K1/K2 (``ops/grid_sample.py::gather_levels`` /
+``splat_levels`` with a band, their plain versions here on the CPU) against
+the JAX package's banded TPU kernels.
 
 - Per band: JAX ``gather_with_residual`` / ``splat_with_residual`` on
   ``plan_arrays_banded`` plans with ``row0`` and
@@ -81,12 +81,13 @@ def test_bands_match_jax_per_band(compute, tol):
             jfwd = np.where(bg, band[0, 0], jfwd)
             jbwd = jbwd.copy()
             jbwd[0, 0] += (ct * bg).sum(axis=(0, 1, 2))
-        got = tgs.gather_layers_banded([torch.from_numpy(band)],
-                                       torch.from_numpy(uv), [row0], [H],
-                                       compute).numpy()
-        (grad,) = tgs.splat_layers_banded(torch.from_numpy(ct),
-                                          torch.from_numpy(uv),
-                                          [(band_h, W)], [row0], [H], compute)
+        (got,) = tgs.gather_levels([torch.from_numpy(band)],
+                                   [torch.from_numpy(uv)], compute,
+                                   band=([row0], [H]))
+        got = got.numpy()
+        (grad,) = tgs.splat_levels([torch.from_numpy(ct)],
+                                   [torch.from_numpy(uv)], [(band_h, W)],
+                                   compute, band=([row0], [H]))
         assert _rel(got, jfwd) <= tol, (b, _rel(got, jfwd))
         assert _rel(grad.numpy(), jbwd) <= tol, (b, _rel(grad.numpy(), jbwd))
         if b != 0:  # no background in the other bands
@@ -107,20 +108,18 @@ def test_band_partials_sum_to_the_unbanded_kernels(compute, size, d):
     grid[:, :2, :3] = -1.0
     grid = torch.from_numpy(grid)
     ct = torch.from_numpy(rng.normal(size=(2, 9, 11, 3)).astype(np.float32))
-    full = (tgs.gather_layers_plain_bf16 if compute == "bf16"
-            else tgs.gather_layers_plain)(layers, grid)
-    full_grads = (tgs.splat_layers_plain_bf16 if compute == "bf16"
-                  else tgs.splat_layers_plain)(ct, grid,
-                                               [l.shape[:2] for l in layers])
+    (full,) = tgs.gather_levels_plain(layers, [grid], compute)
+    full_grads = tgs.splat_levels_plain([ct], [grid],
+                                        [l.shape[:2] for l in layers], compute)
     total, grads = 0, [[] for _ in layers]
     for b in range(d):
         row0s = [b * h // d for h in heights]
         bands = [l[r:r + h // d] for l, r, h in zip(layers, row0s, heights)]
-        total = total + tgs.gather_layers_banded(bands, grid, row0s, heights,
-                                                 compute)
-        for acc, g in zip(grads, tgs.splat_layers_banded(
-                ct, grid, [tuple(x.shape[:2]) for x in bands], row0s, heights,
-                compute)):
+        total = total + tgs.gather_levels(bands, [grid], compute,
+                                          band=(row0s, heights))[0]
+        for acc, g in zip(grads, tgs.splat_levels(
+                [ct], [grid], [tuple(x.shape[:2]) for x in bands], compute,
+                band=(row0s, heights))):
             acc.append(g)
     assert _rel(total.numpy(), full.numpy()) <= 1e-6
     for parts, want in zip(grads, full_grads):
@@ -159,8 +158,8 @@ def test_psum_matches_jax_shard_map():
     out, grads = 0, []
     for b in range(d):
         band = torch.from_numpy(tex[b * band_h:(b + 1) * band_h]).requires_grad_()
-        y = tgs.sample_layers_banded([band], torch.from_numpy(uv),
-                                     [b * band_h], [H])
+        (y,) = tgs.sample_levels([band], [torch.from_numpy(uv)],
+                                 band=([b * band_h], [H]))
         (g,) = torch.autograd.grad(y, [band], torch.from_numpy(ct))
         out, grads = out + y.detach(), grads + [g]
     assert _rel(out.numpy(), jout) <= 1e-5
@@ -168,18 +167,18 @@ def test_psum_matches_jax_shard_map():
 
 
 def test_banded_autograd_pair_and_checks():
-    """``sample_layers_banded``'s backward is the banded splat; the CPU
-    path counts no launch; a band outside its layer raises."""
+    """``sample_levels``'s backward with a band is the banded splat; the
+    CPU path counts no launch; a band outside its layer raises."""
     uv, tex, ct = _inputs(v=1, seed=7)
     before = tgs.launch_counts()
     band = torch.from_numpy(tex[16:48]).requires_grad_()
     for compute in ("f32", "bf16"):
-        y = tgs.sample_layers_banded([band], torch.from_numpy(uv), [16], [H],
-                                     compute)
+        (y,) = tgs.sample_levels([band], [torch.from_numpy(uv)], compute,
+                                 band=([16], [H]))
         (g,) = torch.autograd.grad(y, [band], torch.from_numpy(ct))
-        (want,) = tgs.splat_layers_banded_plain(
-            torch.from_numpy(ct), torch.from_numpy(uv), [(32, W)], [16], [H],
-            compute)
+        (want,) = tgs.splat_levels_plain(
+            [torch.from_numpy(ct)], [torch.from_numpy(uv)], [(32, W)],
+            compute, band=([16], [H]))
         assert torch.equal(g, want)
     assert tgs.launch_counts() == before
     with pytest.raises(ValueError, match="outside"):
@@ -188,7 +187,7 @@ def test_banded_autograd_pair_and_checks():
 
 @pytest.mark.parametrize("compute", ["f32", "bf16"])
 def test_banded_levels_sum_to_the_unbanded_call(compute):
-    """The banded multi-level pair (``sample_levels_banded``) for the 4
+    """The banded multi-level pair (``sample_levels`` with a band) for the 4
     bands of D = 4, three levels of different sizes, one of them detached:
     the bands' partial renders summed are ``sample_levels``'s renders and
     the bands' gradients stacked its gradients (1e-6 of the largest value:
@@ -218,7 +217,7 @@ def test_banded_levels_sum_to_the_unbanded_call(compute):
         row0s = [b * h // d for h in heights]
         bands = [l[r:r + h // d].clone().requires_grad_()
                  for l, r, h in zip(layers, row0s, heights)]
-        outs = tgs.sample_levels_banded(bands, grids, row0s, heights, compute)
+        outs = tgs.sample_levels(bands, grids, compute, band=(row0s, heights))
         grads = torch.autograd.grad(loss(outs), bands)
         outs = [o.detach() for o in outs]
         total = outs if total is None else [t + o for t, o in zip(total, outs)]

@@ -129,9 +129,10 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     grid = torch.zeros((1, 4, 4, 2), device=meta)
     layer = torch.zeros((8, 8, 3), device=meta)
     with pytest.raises(ValueError, match="CUDA"):
-        gs.gather_layers([layer], grid)
+        gs.gather_levels([layer], [grid])
     with pytest.raises(ValueError, match="CUDA"):
-        gs.splat_layers(torch.zeros((1, 4, 4, 3), device=meta), grid, [(8, 8)])
+        gs.splat_levels([torch.zeros((1, 4, 4, 3), device=meta)], [grid],
+                        [(8, 8)])
     f = torch.zeros((1, 16, 64), dtype=torch.bfloat16, device=meta)
     m = torch.zeros((1, 2, 16), dtype=torch.bfloat16, device=meta)
     with pytest.raises(ValueError, match="CUDA"):
@@ -156,8 +157,8 @@ def test_cpu_tensors_take_the_plain_version():
     layers = [torch.from_numpy(rng.normal(size=(8, 8, 3)).astype(np.float32))]
     grid = torch.from_numpy(rng.uniform(-1, 1, (1, 3, 3, 2)).astype(np.float32))
     before = _launch_counts()
-    torch.testing.assert_close(gs.gather_layers(layers, grid),
-                               gs.gather_layers_plain(layers, grid))
+    torch.testing.assert_close(gs.gather_levels(layers, [grid]),
+                               gs.gather_levels_plain(layers, [grid]))
     x, w9, w9t, b, g = _conv_inputs("cpu")
     for relu in (True, False):
         assert torch.equal(conv_kernels.conv3x3(x, w9, b, relu=relu),
@@ -185,10 +186,10 @@ def test_slice3_entry_points_stay_on_the_card(monkeypatch, tmp_path):
     meta = torch.device("meta")
     grid = torch.zeros((1, 4, 4, 2), device=meta)
     with pytest.raises(ValueError, match="CUDA"):
-        gs.gather_layers([torch.zeros((8, 8, 3), device=meta)], grid, "bf16")
+        gs.gather_levels([torch.zeros((8, 8, 3), device=meta)], [grid], "bf16")
     with pytest.raises(ValueError, match="CUDA"):
-        gs.splat_layers(torch.zeros((1, 4, 4, 3), device=meta), grid, [(8, 8)],
-                        "bf16")
+        gs.splat_levels([torch.zeros((1, 4, 4, 3), device=meta)], [grid],
+                        [(8, 8)], "bf16")
     x, w9, _, _, _ = _conv_inputs(meta)
     with pytest.raises(ValueError, match="CUDA"):
         conv_kernels.conv3x3_mxu(x, w9)
@@ -229,11 +230,11 @@ def test_parallel_entry_points_stay_on_the_card(monkeypatch):
     grid = torch.zeros((1, 4, 4, 2), device=meta)
     for compute in ("f32", "bf16"):
         with pytest.raises(ValueError, match="CUDA"):
-            gs.gather_layers_banded([torch.zeros((4, 8, 3), device=meta)],
-                                    grid, [4], [8], compute)
+            gs.gather_levels([torch.zeros((4, 8, 3), device=meta)], [grid],
+                             compute, band=([4], [8]))
         with pytest.raises(ValueError, match="CUDA"):
-            gs.splat_layers_banded(torch.zeros((1, 4, 4, 3), device=meta),
-                                   grid, [(4, 8)], [4], [8], compute)
+            gs.splat_levels([torch.zeros((1, 4, 4, 3), device=meta)], [grid],
+                            [(4, 8)], compute, band=([4], [8]))
     assert gs.launch_counts() == before
     assert mesh.init_from_env("cpu").device == torch.device("cpu")
     _no_cuda(monkeypatch)

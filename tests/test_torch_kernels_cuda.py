@@ -66,14 +66,14 @@ def test_gather_and_splat(cuda, n_layers, size):
     layers = [torch.randn((max(size[0] >> l, 1), max(size[1] >> l, 1), 3),
                           generator=gen, device=cuda) * 50
               for l in range(n_layers)]
-    _close(gs.gather_layers(layers, grid), gs.gather_layers_plain(layers, grid),
-           1e-5)
+    _close(gs.gather_levels(layers, [grid]),
+           gs.gather_levels_plain(layers, [grid]), 1e-5)
     g = torch.randn((2, 13, 17, 3), generator=gen, device=cuda)
     g[:, 5:] = 0.0  # skipped pixels
     shapes = [tuple(l.shape[:2]) for l in layers]
-    _close(gs.splat_layers(g, grid, shapes),
-           gs.splat_layers_plain(g, grid, shapes), 1e-5)
-    zero = gs.splat_layers(torch.zeros_like(g), grid, shapes)
+    _close(gs.splat_levels([g], [grid], shapes),
+           gs.splat_levels_plain([g], [grid], shapes), 1e-5)
+    zero = gs.splat_levels([torch.zeros_like(g)], [grid], shapes)
     assert all(z.abs().max().item() == 0.0 for z in zero)
 
 
@@ -89,21 +89,21 @@ def test_gather_and_splat_bf16_mode(cuda, n_layers, size):
     layers = [torch.randn((max(size[0] >> l, 1), max(size[1] >> l, 1), 3),
                           generator=gen, device=cuda) * 50
               for l in range(n_layers)]
-    got = gs.gather_layers(layers, grid, "bf16")
-    want = gs.gather_layers_plain_bf16(layers, grid)
+    (got,) = gs.gather_levels(layers, [grid], "bf16")
+    (want,) = gs.gather_levels_plain(layers, [grid], "bf16")
     _close(got, want, 1e-6)
-    exact = gs.gather_layers_plain(layers, grid)
+    (exact,) = gs.gather_levels_plain(layers, [grid])
     assert torch.equal(got[:, :3, :4], exact[:, :3, :4])
     assert (got - exact).abs().max().item() > 0.0  # the mode rounds
     g = torch.randn((3, 19, 23, 3), generator=gen, device=cuda)
     g[:, 7:] = 0.0  # skipped pixels
     shapes = [tuple(l.shape[:2]) for l in layers]
-    _close(gs.splat_layers(g, grid, shapes, "bf16"),
-           gs.splat_layers_plain_bf16(g, grid, shapes), 1e-5)
+    _close(gs.splat_levels([g], [grid], shapes, "bf16"),
+           gs.splat_levels_plain([g], [grid], shapes, "bf16"), 1e-5)
     # only background pixels: their gradient lands on texel (0, 0) unrounded
     g_bg = torch.zeros_like(g)
     g_bg[:, :3, :4] = g[:, :3, :4]
-    for d in gs.splat_layers(g_bg, grid, shapes, "bf16"):
+    for d in gs.splat_levels([g_bg], [grid], shapes, "bf16"):
         torch.testing.assert_close(d[0, 0], g_bg.sum(dim=(0, 1, 2)),
                                    rtol=1e-6, atol=1e-5)
         assert d.abs().sum().item() == pytest.approx(
@@ -137,19 +137,18 @@ def test_banded_gather_and_splat(cuda, compute, size, d, n_layers):
         bands = [l[r:r + h // d].clone()  # own, aligned allocations
                  for l, r, h in zip(layers, row0s, heights)]
         shapes = [tuple(x.shape[:2]) for x in bands]
-        got = gs.gather_layers_banded(bands, grid, row0s, heights, compute)
-        _close(got, gs.gather_layers_banded_plain(bands, grid, row0s, heights,
-                                                  compute), 1e-5)
+        band = (row0s, heights)
+        (got,) = gs.gather_levels(bands, [grid], compute, band)
+        _close(got, gs.gather_levels_plain(bands, [grid], compute, band)[0],
+               1e-5)
         total = total + got
-        grads = gs.splat_layers_banded(g, grid, shapes, row0s, heights, compute)
-        _close(grads, gs.splat_layers_banded_plain(g, grid, shapes, row0s,
-                                                   heights, compute), 1e-5)
+        grads = gs.splat_levels([g], [grid], shapes, compute, band)
+        _close(grads, gs.splat_levels_plain([g], [grid], shapes, compute,
+                                            band), 1e-5)
         for acc, x in zip(parts, grads):
             acc.append(x)
-        out_bg = gs.gather_layers_banded(bands, bg_grid, row0s, heights,
-                                         compute)
-        grads_bg = gs.splat_layers_banded(g, bg_grid, shapes, row0s, heights,
-                                          compute)
+        (out_bg,) = gs.gather_levels(bands, [bg_grid], compute, band)
+        grads_bg = gs.splat_levels([g], [bg_grid], shapes, compute, band)
         if b == 0:
             assert torch.equal(out_bg[0, 0, 0], sum(x[0, 0] for x in bands))
             for x in grads_bg:
@@ -158,8 +157,8 @@ def test_banded_gather_and_splat(cuda, compute, size, d, n_layers):
         else:
             assert out_bg.abs().max().item() == 0.0
             assert all(x.abs().max().item() == 0.0 for x in grads_bg)
-    _close(total, gs.gather_layers(layers, grid, compute), 1e-5)
-    full = gs.splat_layers(g, grid, [tuple(l.shape[:2]) for l in layers],
+    _close(total, gs.gather_levels(layers, [grid], compute)[0], 1e-5)
+    full = gs.splat_levels([g], [grid], [tuple(l.shape[:2]) for l in layers],
                            compute)
     _close([torch.cat(p) for p in parts], full, 1e-5)
 
@@ -172,7 +171,7 @@ def test_sampling_autograd_matches_cpu(cuda):
     results = []
     for device in ("cpu", cuda):
         ls = [l.to(device).requires_grad_() for l in layers]
-        out = gs.sample_layers(ls, grid.to(device))
+        (out,) = gs.sample_levels(ls, [grid.to(device)])
         grads = torch.autograd.grad(out, ls, ct.to(device))
         results.append([out.cpu()] + [x.cpu() for x in grads])
     _close(results[1], results[0], 1e-5)
@@ -192,7 +191,7 @@ def test_gather_at_nonfinite_grids(cuda, compute):
                         device=cuda)
     pick = torch.rand(grid.shape, generator=gen, device=cuda) < 0.3
     grid = torch.where(pick, special[idx], grid).contiguous()
-    out = gs.gather_layers([layer], grid, compute)
+    (out,) = gs.gather_levels([layer], [grid], compute)
     assert torch.isfinite(out).all()
     _close(out, gs.gather_levels_plain([layer.cpu()], [grid.cpu()],
                                        compute)[0].to(cuda), 1e-5)
@@ -296,15 +295,15 @@ def test_banded_levels_against_plain(cuda, compute):
         bands = [l[r:r + h // d].clone()
                  for l, r, h in zip(layers, row0s, heights)]
         shapes = [tuple(x.shape[:2]) for x in bands]
-        outs = gs.gather_levels_banded(bands, grids, row0s, heights, compute)
-        for out, want in zip(outs, gs.gather_levels_banded_plain(
-                bands, grids, row0s, heights, compute)):
+        band = (row0s, heights)
+        outs = gs.gather_levels(bands, grids, compute, band)
+        for out, want in zip(outs, gs.gather_levels_plain(
+                bands, grids, compute, band)):
             _close(out, want, 1e-5)
         total = outs if total is None else [a + o for a, o in zip(total, outs)]
-        grads = gs.splat_levels_banded(cots, grids, shapes, row0s, heights,
-                                       compute)
-        _close(grads, gs.splat_levels_banded_plain(cots, grids, shapes, row0s,
-                                                   heights, compute), 1e-4)
+        grads = gs.splat_levels(cots, grids, shapes, compute, band)
+        _close(grads, gs.splat_levels_plain(cots, grids, shapes, compute,
+                                            band), 1e-4)
         for acc, x in zip(parts, grads):
             acc.append(x)
     for t, want in zip(total, gs.gather_levels(layers, grids, compute)):
@@ -376,14 +375,10 @@ def test_levels_write_only_their_outputs(cuda, banded):
                    *gs._band_table(band), len(grads), 0)
     for buf, view in out_bufs + grad_bufs:
         _fills_intact(buf, view)
-    if banded:
-        want = gs.splat_levels_banded_plain(
-            cots, grids, [tuple(l.shape[:2]) for l in layers], row0s, heights)
-        outs_want = gs.gather_levels_banded_plain(layers, grids, row0s, heights)
-    else:
-        want = gs.splat_levels_plain(cots, grids,
-                                     [tuple(l.shape[:2]) for l in layers])
-        outs_want = gs.gather_levels_plain(layers, grids)
+    want = gs.splat_levels_plain(cots, grids,
+                                 [tuple(l.shape[:2]) for l in layers],
+                                 band=band)
+    outs_want = gs.gather_levels_plain(layers, grids, band=band)
     _close(grads, want, 1e-4)
     for (_, view), w in zip(out_bufs, outs_want):
         _close(view, w, 1e-5)
@@ -513,10 +508,10 @@ def test_masked_gram_sums_and_grad(cuda, c, k, p):
 def test_wrappers_refuse_bad_inputs(cuda):
     grid = torch.zeros((1, 4, 4, 2), device=cuda)
     with pytest.raises(TypeError):
-        gs.gather_layers([torch.zeros((8, 8, 3), device=cuda,
-                                      dtype=torch.float64)], grid)
+        gs.gather_levels([torch.zeros((8, 8, 3), device=cuda,
+                                      dtype=torch.float64)], [grid])
     with pytest.raises(ValueError):
-        gs.gather_layers([torch.zeros((8, 8, 3), device=cuda)] * 9, grid)
+        gs.gather_levels([torch.zeros((8, 8, 3), device=cuda)] * 9, [grid])
     with pytest.raises(ValueError, match="levels"):
         gs.gather_levels([torch.zeros((8, 8, 3), device=cuda)], [grid] * 9)
     f = torch.zeros((1, 16, 48), dtype=torch.bfloat16, device=cuda)

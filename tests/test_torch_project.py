@@ -196,7 +196,7 @@ def test_nonfinite_grids_sample_like_the_kernel():
     g = torch.tensor([[np.inf, -np.inf], [-np.inf, np.inf], [1e30, -1e30],
                       [np.nan, 0.25], [np.nan, np.nan], [1.0, -1.0]],
                      dtype=torch.float32)
-    out = gs.gather_layers_plain([layer], g)
+    (out,) = gs.gather_levels_plain([layer], [g])
     want = torch.stack([layer[0, 6], layer[4, 0], layer[0, 6],
                         layer[2, 0] * 0.5 + layer[3, 0] * 0.5,
                         layer[0, 0], layer[0, 6]])

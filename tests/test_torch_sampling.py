@@ -121,7 +121,7 @@ def test_against_planned_pallas_kernels():
                                interpret=True)
 
     layer = torch.from_numpy(tex).requires_grad_()
-    out = tgs.sample_layers([layer], torch.from_numpy(uv))
+    (out,) = tgs.sample_levels([layer], [torch.from_numpy(uv)])
     (grad,) = torch.autograd.grad(out, [layer], torch.from_numpy(ct))
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(jfwd), **F32)
     np.testing.assert_allclose(grad.numpy(),
@@ -158,7 +158,7 @@ def test_bf16_mode_against_planned_pallas_kernels():
         interpret=True)).transpose(1, 2, 0)
 
     layer = torch.from_numpy(tex).requires_grad_()
-    out = tgs.sample_layers([layer], torch.from_numpy(uv), compute="bf16")
+    (out,) = tgs.sample_levels([layer], [torch.from_numpy(uv)], compute="bf16")
     (grad,) = torch.autograd.grad(out, [layer], torch.from_numpy(ct))
     out, grad = out.detach().numpy(), grad.numpy()
     np.testing.assert_allclose(out, jfwd, rtol=0,
@@ -166,8 +166,9 @@ def test_bf16_mode_against_planned_pallas_kernels():
     np.testing.assert_allclose(grad, jbwd, rtol=0,
                                atol=1e-2 * np.abs(jbwd).max())
     # the mode does round: it differs from the exact function
-    exact = tgs.gather_layers_plain([torch.from_numpy(tex)],
-                                    torch.from_numpy(uv)).numpy()
+    (exact,) = tgs.gather_levels_plain([torch.from_numpy(tex)],
+                                       [torch.from_numpy(uv)])
+    exact = exact.numpy()
     assert np.abs(out - exact).max() > 1e-4
     # background pixels stay float32: texel (0, 0) exactly, and texel
     # (0, 0)'s gradient holds their cotangent sum exactly as in JAX
@@ -208,20 +209,20 @@ def test_bf16_mode_plain_versions():
         want += top * wy0 + bot * wy1
     bg = (grid[..., 0] == -1) & (grid[..., 1] == -1)
     want[bg] = sum(l[0, 0] for l in layers)
-    got = tgs.gather_layers(tl, tg, compute="bf16").numpy()
+    got = tgs.gather_levels(tl, [tg], compute="bf16")[0].numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-4)
 
     ttex = texture_from_jax(layers, device="cpu")
     for compute in ("f32", "bf16"):
         out = ttexture.sample_texture(ttex, [tg], compute=compute)[0]
         grads = torch.autograd.grad(out, list(ttex.layers), torch.from_numpy(ct))
-        plain = (tgs.splat_layers_plain_bf16 if compute == "bf16"
-                 else tgs.splat_layers_plain)(
-            torch.from_numpy(ct), tg, [l.shape[:2] for l in layers])
+        plain = tgs.splat_levels_plain(
+            [torch.from_numpy(ct)], [tg], [l.shape[:2] for l in layers],
+            compute)
         for a, b in zip(grads, plain):
             np.testing.assert_array_equal(a.numpy(), b.numpy())
     with pytest.raises(ValueError, match="compute"):
-        tgs.gather_layers(tl, tg, compute="f16")
+        tgs.gather_levels(tl, [tg], compute="f16")
 
 
 def test_texture_from_arrays_copies():
@@ -290,10 +291,12 @@ def test_sample_levels_bf16_against_per_level_plain():
     for out, grid in zip(outs, grids):
         np.testing.assert_allclose(
             out.detach().numpy(),
-            tgs.gather_layers_plain_bf16(layers, grid).numpy(), rtol=1e-6)
+            tgs.gather_levels_plain(layers, [grid], "bf16")[0].numpy(),
+            rtol=1e-6)
     shapes = [tuple(l.shape[:2]) for l in layers]
     want = [sum(parts) for parts in zip(*[
-        tgs.splat_layers_plain_bf16(c, g, shapes) for c, g in zip(cts, grids)])]
+        tgs.splat_levels_plain([c], [g], shapes, "bf16")
+        for c, g in zip(cts, grids)])]
     for got, w in zip(grads, want):
         np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=1e-6,
                                    atol=1e-6 * np.abs(w.numpy()).max())
@@ -305,8 +308,9 @@ def test_sample_levels_bf16_against_per_level_plain():
 
 def test_sample_levels_detached_level_and_one_level():
     """A level whose render is detached gets no cotangent and stays out of
-    the splat; one level is ``sample_layers``; more levels than the kernels'
-    table holds raise on any device."""
+    the splat; one level's value and gradient are the plain K1 and K2 of
+    its grid; more levels than the kernels' table holds raise on any
+    device."""
     layers = [torch.from_numpy(l) for l in _layers(n=2)]
     grids = [torch.from_numpy(g) for g in _level_grids()]
     cts = [torch.from_numpy(c) for c in _cotangents(grids)]
@@ -325,10 +329,9 @@ def test_sample_levels_detached_level_and_one_level():
 
     one = tgs.sample_levels(leaves, grids[:1])
     assert len(one) == 1
-    single = tgs.sample_layers(leaves, grids[0])
-    assert torch.equal(one[0], single)
+    assert torch.equal(one[0], tgs.gather_levels_plain(layers, grids[:1])[0])
     g1 = torch.autograd.grad(one[0], leaves, cts[0])
-    g2 = torch.autograd.grad(single, leaves, cts[0])
+    g2 = tgs.splat_levels_plain(cts[:1], grids[:1], shapes)
     for a, b in zip(g1, g2):
         assert torch.equal(a, b)
     assert tgs.sample_levels(leaves, []) == []
