@@ -15,6 +15,7 @@ phase fails. Phases:
    and ``train_step``; every loss must be finite, the launch counts of
    K1-K8 and the stem kernels over the timed steps above zero
    and K1's and K2's one a step (one launch over all pyramid levels each),
+   as the one-pass update's (Adam and the clamp over the four layers),
    and the profile of a step must show no cuDNN convolution and no float32
    GEMM (no ``bmm``, no SIMT sgemm): every style layer's Gram goes through
    K3/K4 and conv1_1 through its stem kernels; a profile of ``loss_fn`` and
@@ -96,7 +97,12 @@ phase fails. Phases:
    equal bit for bit to 8 launches of the shared-layer form, one a view),
    each against its plain version and timed per call; the warp call's
    device time also with the calls queued back to back behind a spin
-   kernel, beside one ``F.grid_sample``'s;
+   kernel, beside one ``F.grid_sample``'s; the one-pass update (``update``:
+   Adam and the clamp, one launch over the bench atlas's four layers)
+   against its plain version, the chain of PyTorch elementwise kernels it
+   replaced: p, m and v each within 1e-6 of its largest value, the share
+   of elements equal bit for bit logged; bound: p, g, m, v read and p, m,
+   v written once;
 7. the demo room (after phase 3): the port's ``build_demo_scene`` (24 views
    of 480x640, the native bake at 480x640 and heights 256..960, the frame
    renders and the bake timed apart); views 0-3 re-baked by
@@ -155,8 +161,8 @@ from stylemesh_tpu_torch.models.pipeline import PipelineConfig, TexturePipeline
 from stylemesh_tpu_torch.models import vgg
 from stylemesh_tpu_torch.models.texture import sample_texture
 from stylemesh_tpu_torch.models.vgg import init_vgg_params, vgg_features
-from stylemesh_tpu_torch.ops import (conv_im2col, conv_kernels, gram_kernels,
-                                     head_kernels)
+from stylemesh_tpu_torch.ops import (adam_kernels, conv_im2col, conv_kernels,
+                                     gram_kernels, head_kernels)
 from stylemesh_tpu_torch.ops import grid_sample as gs
 from stylemesh_tpu_torch.ops.color import gatys_post
 from stylemesh_tpu_torch.ops.resize import resize_bilinear
@@ -173,6 +179,7 @@ SAMPLE_SRC = "stylemesh_tpu_torch/kernels/csrc/sample.cu"
 GEMM_SRC = "stylemesh_tpu_torch/kernels/csrc/conv_gemm.cu"
 BWD_SRC = "stylemesh_tpu_torch/kernels/csrc/conv_pool_bwd.cu"
 STEM_SRC = "stylemesh_tpu_torch/kernels/csrc/conv_stem.cu"
+ADAM_SRC = "stylemesh_tpu_torch/kernels/csrc/adam.cu"
 KERNELS = {  # launches: (wrapper, attribute holding its launch count);
     # unit: what the row's launches_per_unit counts per (default a step)
     "K1_gather": dict(source="stylemesh_tpu_torch/kernels/csrc/sample.cu",
@@ -247,12 +254,19 @@ KERNELS = {  # launches: (wrapper, attribute holding its launch count);
                      replaces="stylemesh_tpu/ops/conv_im2col.py:67",
                      launches=(conv_im2col.stem_backward, "launches"),
                      rel_tol=2 ** -7),
+    # Adam and the clamp, whose TPU path is optax.adam and clamp_texture in
+    # one XLA fusion (no pallas_call)
+    "update": dict(source=ADAM_SRC,
+                   replaces="stylemesh_tpu/models/pipeline.py:250",
+                   launches=(adam_kernels.adam_clamp_, "launches"),
+                   rel_tol=1e-6),
 }
 # the kernels each driven path must launch
 BENCH_KERNELS = ("K1_gather", "K2_splat", "K3_gram_fwd", "K4_gram_bwd",
                  "K5_conv3x3", "K6_conv_relu_pool", "K7_conv_relu_pool_dual",
                  "K8_conv_relu_pool_bwd", "stem_fwd", "stem_bwd")
 TRUNK_KERNELS = BENCH_KERNELS[4:]
+ONCE_A_STEP = ("K1_gather", "K2_splat", "update")
 RUN_KERNELS = ("K1_gather_bf16", "K2_splat_bf16") + BENCH_KERNELS[2:]
 K9_ENV = {"STYLEMESH_CONV_FLIPVJP": "0", "STYLEMESH_FAST_CONV": "1"}
 # Tolerances, relative to the largest |value| of the plain version:
@@ -271,6 +285,9 @@ K9_ENV = {"STYLEMESH_CONV_FLIPVJP": "0", "STYLEMESH_FAST_CONV": "1"}
 #    of the elements may lie farther than 1e-2 from the plain version.
 # K9 is K5 without bias and relu: 1e-2 (and K5 with bias=None, relu=False
 #    must equal it bit for bit: one C entry).
+# update: the same float32 operations in the same order as its plain
+#    version's PyTorch kernels; where those fuse a multiply-add a rounding
+#    may differ: 1e-6 (each of p, m and v against its own largest value).
 # stem_fwd / stem_bwd (conv1_1) round float32 sums taken in another order
 #    to bf16 once: one bf16 ulp of each element (2^-7 of the largest), and
 #    by check_ulps one ulp of the element itself, or of 2^-9 of the
@@ -395,7 +412,7 @@ def main_path():
         log(f"[main] {name}: {counts[name]} launches in {STEPS} steps")
         if counts[name] == 0:
             raise RuntimeError(f"{name} was not launched on the main path")
-    for name in ("K1_gather", "K2_splat"):  # one launch over all levels
+    for name in ONCE_A_STEP:  # one launch over all levels or layers
         if counts[name] != STEPS:
             raise RuntimeError(f"{name}: {counts[name]} launches in {STEPS} "
                                f"steps, not one a step")
@@ -1302,6 +1319,40 @@ def sampling_step(layers, grids, cots, add):
     del lib_renders, leaves
 
 
+def update_step(state, add):
+    """The one-pass update on copies of the bench state's layers and
+    moments, from a gradient a third of whose elements are exactly zero
+    (texels no view touched), at step 0's scalars: held against its plain
+    version (p, m and v each, and the share of elements equal bit for bit),
+    then timed. Bound: p, g, m and v read, p, m and v written, once."""
+    layers = [l.detach().clone() for l in state.texture.layers]
+    mus = [m.clone() for m in state.mu]
+    nus = [v.clone() for v in state.nu]
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    grads = [torch.randn(l.shape, generator=gen, device="cuda")
+             * (torch.rand(l.shape, generator=gen, device="cuda") > 1 / 3)
+             for l in layers]
+    scalars = torch.tensor([1.0, 1.0 - adam_kernels.ADAM_B1,
+                            1.0 - adam_kernels.ADAM_B2], device="cuda")
+    ref = [[t.clone() for t in ts] for ts in (layers, mus, nus)]
+    adam_kernels.adam_clamp_(layers, grads, mus, nus, scalars)
+    adam_kernels.adam_clamp_plain_(ref[0], grads, ref[1], ref[2], scalars)
+    err, tol = 0.0, 0.0
+    for what, got, want in zip("pmv", (layers, mus, nus), ref):
+        e, t = check("update", got, want, f"bench atlas, {what}")
+        err, tol = max(err, e), max(tol, t)
+    n = sum(l.numel() for l in layers)
+    same = sum(int((g == w).sum()) for got, want in zip((layers, mus, nus), ref)
+               for g, w in zip(got, want))
+    log(f"[kernel] update bench atlas: {same / (3 * n):.6f} of p, m and v "
+        f"equal bit for bit")
+    add("update", "bench atlas", (err, tol),
+        lambda: adam_kernels.adam_clamp_(layers, grads, mus, nus, scalars),
+        lambda: adam_kernels.adam_clamp_plain_(ref[0], grads, ref[1], ref[2],
+                                               scalars),
+        None, 28 * n)
+
+
 def cotangent(like, mask=None, seed=0):
     """A random bf16 cotangent shaped as ``like``, zero where ``mask`` is
     False."""
@@ -1712,6 +1763,7 @@ def kernel_phase(pipe, state, batch, aux, launches):
             del fcat, scat
 
     sampling_step(layers, list(batch.uv), cots, add)
+    update_step(state, add)
     # the post chain's K1 launches in phase 4: its calls (the render's
     # chunks; per pairing and eval chunk, a colour and a mask warp) times
     # the launches measured in one call, one for each
@@ -2123,7 +2175,7 @@ def demo_step(scene_root, kernel_rows, synthetic_uv):
         log(f"[demo] {name}: {counts[name]} launches in {STEPS} steps")
         if counts[name] == 0:
             raise RuntimeError(f"{name} was not launched on the demo room")
-    for name in ("K1_gather", "K2_splat"):
+    for name in ONCE_A_STEP:
         if counts[name] != STEPS:
             raise RuntimeError(f"demo room: {name} launched {counts[name]} "
                                f"times in {STEPS} steps, not one a step")
@@ -2436,7 +2488,8 @@ def main(argv):
         return 2
 
     pipe, state, batch, aux, counts = main_path()
-    launches = {k: (counts[k], counts[k] / STEPS) for k in BENCH_KERNELS}
+    launches = {k: (counts[k], counts[k] / STEPS)
+                for k in BENCH_KERNELS + ("update",)}
     reference_check()
     reference_check_bf16()
     launches.update(run_loop_phases(pipe, state, batch, aux, smi))

@@ -24,6 +24,7 @@ CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry point -> argument types (every entry point returns an int status)
 _SIGNATURES = {
     # level table (grids, outputs or cotangents, pixel counts), levels,
@@ -44,6 +45,9 @@ _SIGNATURES = {
     # conv1_1: (x, w9, bias, y) and (g, y, w9, dx); V, H, W, relu
     "stylemesh_stem_fwd": [_P] * 4 + [_I] * 4 + [_P],
     "stylemesh_stem_bwd": [_P] * 4 + [_I] * 4 + [_P],
+    # layer table (p, g, m, v, element counts as int64), layers, scalars
+    # {lr, bc1, bc2} on the device; b1, 1 - b1, b2, 1 - b2, eps, lo, hi
+    "stylemesh_adam_clamp": [_P] * 5 + [_I, _P] + [_F] * 7 + [_P],
 }
 
 _library = None

@@ -6,10 +6,11 @@
   forward reweighting ``x.detach() + w * (x - x.detach())``, whose value is
   exactly ``x`` and whose gradient is ``w``.
 - Adam (0.9, 0.999, eps 1e-8) with a staircase StepLR, written out as optax
-  computes it, followed by the clamp of the texture to the Gatys range. The
-  texture, the Adam moments and the Gram cache are updated in place. The
-  step's rate and bias corrections are written to a device tensor before
-  each update, which reads them there.
+  computes it, followed by the clamp of the texture to the Gatys range
+  (``ops/adam_kernels.py``: one kernel launch on a card). The texture, the
+  Adam moments and the Gram cache are updated in place. The step's rate and
+  bias corrections are written to a device tensor before each update, which
+  reads them there.
 - On a card, :meth:`TexturePipeline.train_step` replays the step as three
   CUDA graphs (``models/step_graph.py``) from the second step of each step
   signature on; :meth:`TexturePipeline.eager_step` is the step launched op
@@ -46,11 +47,15 @@ from stylemesh_tpu_torch.models.texture import (
 )
 from stylemesh_tpu_torch.models.step_graph import StepGraphs
 from stylemesh_tpu_torch.models.vgg import VGG_LAYER_CHANNELS
+from stylemesh_tpu_torch.ops.adam_kernels import (
+    ADAM_B1,
+    ADAM_B2,
+    ADAM_EPS,
+    adam_clamp_,
+)
 from stylemesh_tpu_torch.ops.erosion import erode
 from stylemesh_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 from stylemesh_tpu_torch.utils.profiling import count, span
-
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
 def _grad_scale(x, w):
@@ -245,7 +250,7 @@ class TexturePipeline:
             steps_per_epoch = 1
         self._decay_every = config.decay_step_size * steps_per_epoch
         # the rate and the two bias corrections the update reads
-        self._adam_scalars = torch.zeros(3, device=self.device).unbind()
+        self._adam_scalars = torch.zeros(3, device=self.device)
         self._graphs = StepGraphs() if self.device.type == "cuda" else None
 
     # ------------------------------------------------------------- state
@@ -398,16 +403,17 @@ class TexturePipeline:
         return {k: v.detach() for k, v in losses.items()}
 
     def apply_update(self, state: TrainState, grads, gram_cache=None):
-        """Adam on the texture with ``grads``, the clamp, the walked Gram
-        cache copied into the state's own (its push log dropped), all in
-        place, and the step count. Adam's rate and bias corrections are
-        written here (:meth:`write_adam_scalars`); under a CUDA graph
-        capture, which would freeze them, before each replay instead."""
+        """Adam on the texture with ``grads`` and the clamp (on a card one
+        launch, ``ops/adam_kernels.py``), the walked Gram cache copied into
+        the state's own (its push log dropped), all in place, and the step
+        count. Adam's rate and bias corrections are written here
+        (:meth:`write_adam_scalars`); under a CUDA graph capture, which
+        would freeze them, before each replay instead."""
         if not (self.device.type == "cuda"
                 and torch.cuda.is_current_stream_capturing()):
             self.write_adam_scalars(state.step)
-        self._adam_update(state, grads)
-        clamp_texture(state.texture)
+        adam_clamp_(list(state.texture.layers), grads, state.mu, state.nu,
+                    self._adam_scalars)
         if gram_cache is not None:
             own = state.gram_cache
             with torch.no_grad():
@@ -424,20 +430,6 @@ class TexturePipeline:
         lr.fill_(self.learning_rate(step))
         bc1.fill_(1.0 - ADAM_B1 ** (step + 1))
         bc2.fill_(1.0 - ADAM_B2 ** (step + 1))
-
-    @torch.no_grad()
-    def _adam_update(self, state: TrainState, grads):
-        """optax.adam(b1=0.9, b2=0.999, eps=1e-8) with the scheduled rate,
-        the rate and bias corrections read on the device. On the CPU, the
-        same roundings as ``addcdiv_(mu / bc1, denom, value=-lr)`` with
-        Python scalars (whose CPU kernel multiplies before it divides)."""
-        lr, bc1, bc2 = self._adam_scalars
-        for p, g, mu, nu in zip(state.texture.layers, grads, state.mu,
-                                state.nu):
-            mu.mul_(ADAM_B1).add_(g, alpha=1.0 - ADAM_B1)
-            nu.mul_(ADAM_B2).addcmul_(g, g, value=1.0 - ADAM_B2)
-            denom = (nu / bc2).sqrt_().add_(ADAM_EPS)
-            p.addcdiv_((mu / bc1).mul_(lr), denom, value=-1.0)
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: ViewBatch,

@@ -125,6 +125,7 @@ def _launch_counters():
     """(wrapper, attribute) of every launch counter of the kernel
     wrappers (the ``*launches`` integers of ``ops/``' functions)."""
     from stylemesh_tpu_torch.ops import (
+        adam_kernels,
         conv_im2col,
         conv_kernels,
         gram_kernels,
@@ -133,8 +134,8 @@ def _launch_counters():
     )
 
     out = {}
-    for module in (conv_im2col, conv_kernels, gram_kernels, grid_sample,
-                   head_kernels):
+    for module in (adam_kernels, conv_im2col, conv_kernels, gram_kernels,
+                   grid_sample, head_kernels):
         for fn in vars(module).values():
             for attr, v in getattr(fn, "__dict__", {}).items():
                 if (callable(fn) and attr.endswith("launches")

@@ -58,8 +58,8 @@ def test_port_imports_no_jax():
 
 def test_kernel_sources_present():
     sources = sorted(p.name for p in kernels.CSRC.glob("*.cu"))
-    assert sources == ["conv_gemm.cu", "conv_pool_bwd.cu", "conv_stem.cu",
-                       "gram.cu", "sample.cu"]
+    assert sources == ["adam.cu", "conv_gemm.cu", "conv_pool_bwd.cu",
+                       "conv_stem.cu", "gram.cu", "sample.cu"]
     headers = sorted(p.name for p in kernels.CSRC.glob("*.cuh"))
     assert headers == ["conv_core.cuh"]
     assert "-gencode=arch=compute_90a,code=sm_90a" in kernels.CUDA_FLAGS

@@ -24,16 +24,25 @@ product on the card; the input gradient's on the kernel's own y, so that
 both apply one relu mask): one bf16 ulp of each element, or of 2^-9 of the
 largest value where an element is smaller (float32 sums in another order
 move a value near zero by more than its own bf16 spacing); bit for bit
-where every sum is exact.
+where every sum is exact. The one-pass update (Adam, the clamp) against
+its plain version's chain of PyTorch kernels on the card: p, m and v
+within 1e-6 relative plus 1e-6 absolute (the same float32 operations in the
+same order; only where PyTorch's kernels fuse a multiply-add may a rounding
+differ).
 """
 
 import pytest
 import torch
 
 from stylemesh_tpu_torch import kernels
+from stylemesh_tpu_torch.models.losses import StyleTargets
+from stylemesh_tpu_torch.models.pipeline import PipelineConfig, TexturePipeline
+from stylemesh_tpu_torch.ops import adam_kernels
 from stylemesh_tpu_torch.ops import conv_im2col, conv_kernels, gram_kernels
 from stylemesh_tpu_torch.ops import head_kernels
 from stylemesh_tpu_torch.ops import grid_sample as gs
+from stylemesh_tpu_torch.ops.adam_kernels import ADAM_B1, ADAM_B2
+from stylemesh_tpu_torch.ops.color import GATYS_MAX, GATYS_MIN
 
 pytestmark = pytest.mark.cuda
 
@@ -1086,3 +1095,166 @@ def test_stem_refuses_bad_inputs_on_the_card(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         conv_im2col.stem_backward(g.transpose(1, 2), g, w9)
 
+
+
+# ---------------------------------------------------------------- update
+
+# the bench atlas: 4096^2 ... 512^2, 3 channels
+ATLAS_SHAPES = [(4096 >> l, 4096 >> l, 3) for l in range(4)]
+# element counts that are and are not multiples of four; eight layers
+ADAM_EDGE_SHAPES = [[(1, 1, 1)], [(5, 7, 3)],
+                    [(65 >> l, 33 >> l, 3) for l in range(6)] + [(1, 3, 1),
+                                                                 (2, 2, 1)]]
+
+
+def _adam_state(cuda, shapes, seed):
+    """Layers over the Gatys range and 10 beyond each bound, zero moments
+    (as ``TexturePipeline.init`` makes them)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    layers = [torch.rand(s, generator=gen, device=cuda)
+              * (GATYS_MAX - GATYS_MIN + 20) + (GATYS_MIN - 10) for s in shapes]
+    return (layers, [torch.zeros_like(l) for l in layers],
+            [torch.zeros_like(l) for l in layers])
+
+
+def _adam_grads(shapes, gen, cuda):
+    """Gradients over six decades, a third of them exactly zero (texels no
+    view touched)."""
+    out = []
+    for s in shapes:
+        g = torch.randn(s, generator=gen, device=cuda) * 10.0 ** (
+            torch.rand(s, generator=gen, device=cuda) * 6 - 3)
+        out.append(g * (torch.rand(s, generator=gen, device=cuda) > 1 / 3))
+    return out
+
+
+def _adam_scalars(step, cuda, lr=1.0):
+    return torch.tensor([lr, 1.0 - ADAM_B1 ** (step + 1),
+                         1.0 - ADAM_B2 ** (step + 1)], device=cuda)
+
+
+def _adam_close(got, want):
+    """p, m and v within 1e-6 relative plus 1e-6 absolute, element by
+    element."""
+    for gs_, ws_ in zip(got, want):
+        for g, w in zip(gs_, ws_):
+            err = ((g - w).abs() - 1e-6 * w.abs()).max().item()
+            assert torch.allclose(g, w, rtol=1e-6, atol=1e-6), err
+
+
+@pytest.mark.parametrize("shapes", [ATLAS_SHAPES] + ADAM_EDGE_SHAPES)
+def test_adam_clamp_against_plain(cuda, shapes):
+    """The kernel against its plain version run on the card, after one
+    update and after 20 (the rate dropping tenfold at the 11th), the
+    layers reaching both clamp bounds."""
+    layers, mus, nus = _adam_state(cuda, shapes, seed=len(shapes))
+    ref = [[t.clone() for t in ts] for ts in (layers, mus, nus)]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    before = adam_kernels.adam_clamp_.launches
+    for step in range(20):
+        grads = _adam_grads(shapes, gen, cuda)
+        scalars = _adam_scalars(step, cuda, lr=1.0 if step < 10 else 0.1)
+        adam_kernels.adam_clamp_(layers, grads, mus, nus, scalars)
+        adam_kernels.adam_clamp_plain_(ref[0], grads, ref[1], ref[2], scalars)
+        if step in (0, 19):
+            _adam_close((layers, mus, nus), ref)
+    assert adam_kernels.adam_clamp_.launches == before + 20
+    flat = torch.cat([l.flatten() for l in layers])
+    if flat.numel() > 100:
+        assert flat.min().item() == ref[0][0].new_tensor(GATYS_MIN).item()
+        assert flat.max().item() == ref[0][0].new_tensor(GATYS_MAX).item()
+
+
+def test_adam_clamp_writes_only_its_layers(cuda):
+    """p, m and v inside guard regions of 64 floats: the scalar tail of an
+    odd element count writes nothing past its layer."""
+    guard, shapes = 64, [(5, 7, 3), (3, 3, 1)]
+    bufs, views = [], []
+    for _ in range(3):
+        for s in shapes:
+            n = s[0] * s[1] * s[2]
+            buf = torch.full((n + 2 * guard,), 12345.0, device=cuda)
+            bufs.append(buf)
+            views.append(buf[guard:guard + n].view(s))
+    layers, mus, nus = views[0:2], views[2:4], views[4:6]
+    init, _, _ = _adam_state(cuda, shapes, seed=0)
+    for dst, src in zip(layers + mus + nus, init + [torch.zeros_like(l)
+                                                    for l in init] * 2):
+        dst.copy_(src)
+    ref = [[t.clone() for t in ts] for ts in (layers, mus, nus)]
+    grads = _adam_grads(shapes, torch.Generator(device=cuda).manual_seed(2),
+                        cuda)
+    scalars = _adam_scalars(0, cuda)
+    adam_kernels.adam_clamp_(layers, grads, mus, nus, scalars)
+    adam_kernels.adam_clamp_plain_(ref[0], grads, ref[1], ref[2], scalars)
+    torch.cuda.synchronize()
+    for buf, view in zip(bufs, views):
+        assert (buf[:guard] == 12345.0).all()
+        assert (buf[guard + view.numel():] == 12345.0).all()
+    _adam_close((layers, mus, nus), ref)
+
+
+def test_adam_clamp_graph_replay_reads_the_scalars(cuda):
+    """The update captured in a CUDA graph and replayed after
+    ``write_adam_scalars`` at steps 0, 39 and 40 (a StepLR decay of 40
+    steps: the rate drops tenfold at 40), new gradients copied into the
+    captured buffers each time: each replay matches the plain update run
+    eagerly with that step's scalars. Captured with zero scalars, so a
+    frozen rate or bias correction would not match. The capture counts one
+    launch; a replay runs no Python and counts none."""
+    cfg = PipelineConfig(steps_per_epoch=1, texture_width=96,
+                         texture_height=64, hierarchical_layers=3,
+                         learning_rate=1.0, decay_gamma=0.1,
+                         decay_step_size=40)
+    pipe = TexturePipeline(cfg, {}, None, device=cuda,
+                           style_targets=StyleTargets(grams={}))
+    shapes = [(64 >> l, 96 >> l, 3) for l in range(3)]
+    layers, mus, nus = _adam_state(cuda, shapes, seed=3)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    grads = _adam_grads(shapes, gen, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up, on copies
+        adam_kernels.adam_clamp_([l.clone() for l in layers], grads,
+                                 [m.clone() for m in mus],
+                                 [v.clone() for v in nus], _adam_scalars(0, cuda))
+    torch.cuda.current_stream().wait_stream(side)
+    assert not pipe._adam_scalars.any()
+    before = adam_kernels.adam_clamp_.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        adam_kernels.adam_clamp_(layers, grads, mus, nus, pipe._adam_scalars)
+    assert adam_kernels.adam_clamp_.launches == before + 1
+    ref = [[t.clone() for t in ts] for ts in (layers, mus, nus)]
+    rates = []
+    for step in (0, 39, 40):
+        for g, new in zip(grads, _adam_grads(shapes, gen, cuda)):
+            g.copy_(new)
+        pipe.write_adam_scalars(step)
+        graph.replay()
+        adam_kernels.adam_clamp_plain_(ref[0], grads, ref[1], ref[2],
+                                       pipe._adam_scalars)
+        torch.cuda.synchronize()
+        rates.append(pipe._adam_scalars[0].item())
+        _adam_close((layers, mus, nus), ref)
+    assert rates == [1.0, 1.0, pytest.approx(0.1)]
+    assert adam_kernels.adam_clamp_.launches == before + 1
+
+
+def test_adam_clamp_refuses_bad_inputs_on_the_card(cuda):
+    """A misaligned layer, scalars on the CPU and nine layers raise before
+    a launch."""
+    shapes = [(8, 8, 3)]
+    layers, mus, nus = _adam_state(cuda, shapes, seed=0)
+    grads = [torch.zeros_like(l) for l in layers]
+    scalars = _adam_scalars(0, cuda)
+    flat = torch.zeros(8 * 8 * 3 + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        adam_kernels.adam_clamp_([flat[1:].view(8, 8, 3)], grads, mus, nus,
+                                 scalars)
+    with pytest.raises(ValueError, match="CUDA"):
+        adam_kernels.adam_clamp_(layers, grads, mus, nus, scalars.cpu())
+    with pytest.raises(ValueError, match="at most 8"):
+        adam_kernels.adam_clamp_(layers * 9, grads * 9, mus * 9, nus * 9,
+                                 scalars)
+    assert not mus[0].any()

@@ -28,7 +28,7 @@ On a card (marked ``cuda``; without JAX, from the repo root:
   that noise. The loss dicts are read after every step was queued, so
   each must hold its own step's values;
 - one capture over three chunks, and one K1 and one K2 launch counted a
-  step;
+  step; one launch of the one-pass update a step, eager or replayed;
 - a state whose tensors are replaced is captured again.
 """
 
@@ -52,6 +52,7 @@ from stylemesh_tpu_torch.models.pipeline import (
 from stylemesh_tpu_torch.models.texture import Texture
 from stylemesh_tpu_torch.models.vgg import init_vgg_params
 from stylemesh_tpu_torch.ops import (
+    adam_kernels,
     conv_im2col,
     conv_kernels,
     gram_kernels,
@@ -220,7 +221,8 @@ def test_every_kernel_wrapper_launch_counter_is_found():
             (head_kernels.conv_relu_pool, "dual_launches"),
             (head_kernels.conv_relu_pool_bwd, "launches"),
             (conv_im2col.stem_forward, "launches"),
-            (conv_im2col.stem_backward, "launches")}
+            (conv_im2col.stem_backward, "launches"),
+            (adam_kernels.adam_clamp_, "launches")}
     assert want <= found
     # every counter of launch_counts() is among them
     assert len([1 for fn, attr in found if fn in (
@@ -350,6 +352,24 @@ def test_one_capture_over_three_chunks_and_launches_counted(card):
     assert _graph_counts(rec) == {"eager_steps": 1, "step_graph_captures": 1,
                             "step_graph_replays": 8}
     assert deltas == [{"gather_bf16": 1, "splat_bf16": 1}] * 9
+
+
+@pytest.mark.cuda
+def test_update_launches_once_a_step(card):
+    """The one-pass update launches once a step, eager or replayed: the
+    replays add what their capture launched."""
+    pipe = _card_pipe("full", card)
+    state = pipe.init()
+    batch = _card_chunks("full", card, 1)[0]
+    aux = pipe.prepare_batch(batch)
+    deltas = []
+    for _ in range(4):  # eager, capture and replay, two replays
+        before = adam_kernels.adam_clamp_.launches
+        pipe.train_step(state, batch, aux)
+        deltas.append(adam_kernels.adam_clamp_.launches - before)
+    torch.cuda.synchronize()
+    assert deltas == [1] * 4
+    assert state.step == 4
 
 
 @pytest.mark.cuda
