@@ -56,7 +56,8 @@ def readings(cell, seed, device, control, faults):
             numbers["control"] = check.reference_numbers(session, cfg, "fp8")
             out["control_s"] = time.perf_counter() - t0
     out["gaps"] = {k: check.gaps(v, ref) for k, v in numbers.items()}
-    out["numbers"] = dict(numbers, reference=ref)
+    out["numbers"] = {k: check.printable(v)
+                      for k, v in dict(numbers, reference=ref).items()}
     return out
 
 

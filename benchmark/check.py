@@ -2,7 +2,7 @@
 run against the plain reference's (``reference/``) on the same scene files,
 VGG weights and style image.
 
-Two numbers are compared, each with the cell's limit
+Three numbers are compared, each with the cell's limit
 (``limits/<cell>.json``):
 
 - ``loss_gap``: the largest relative gap of a loss term (content, style,
@@ -12,7 +12,14 @@ Two numbers are compared, each with the cell's limit
   way; the texture it is a function of is compared by ``change_gap``;
 - ``change_gap``: each texture layer's change over the three steps: the
   largest gap between the program's and the reference's norm of it, over
-  the larger of the reference's norm of that layer and of the median layer.
+  the larger of the reference's norm of that layer and of the median layer;
+- ``content_gap``: the content targets that the program's
+  ``prepare_batch`` encoded for the chunk of those steps (the VGG trunk on
+  the chunk's photos, resized to each live level), against the reference's
+  of the same photos: the largest norm of their difference over the norm
+  of the reference's, over levels and content layers. Unlike the sums
+  above, it is compared element by element, so a lower precision's
+  rounding cannot cancel out in it.
 
 ``grad_gap``, the same of the first step's gradient as Adam received it
 (read from its first moment after one step), is worked out and logged but
@@ -33,13 +40,13 @@ from benchmark.reference.data import load_style, load_views
 from benchmark.reference.step import Reference
 
 LOSS_TERMS = ("content", "style", "total")
-NUMBERS = ("loss_gap", "change_gap")  # compared; grad_gap is logged
+NUMBERS = ("loss_gap", "change_gap", "content_gap")  # grad_gap is logged
 DEAD_LEAF = 1e-3
 
 
 def reference_numbers(session, resolved_cfg, quant=None):
     """The reference's numbers over the session's first steps: the same
-    structure as ``Session.numbers``."""
+    structure as ``Session.numbers``, the content targets on the host."""
     cell = session.cell
     ref = Reference(resolved_cfg, cell.config["adam"], session.vgg,
                     load_style(session.style_path), session.device, quant)
@@ -59,10 +66,18 @@ def reference_numbers(session, resolved_cfg, quant=None):
             grad = [float(g.norm()) for g in grads]
     change = [float((l - b).double().norm())
               for l, b in zip(ref.layers, before)]
+    content = {k: t.cpu() for k, t in ref.content_targets(
+        views[tuple(session.content_chunk)]).items()}
     del ref
     if session.device.type == "cuda":
         torch.cuda.empty_cache()
-    return {"losses": losses, "grad_norms": grad, "change_norms": change}
+    return {"losses": losses, "grad_norms": grad, "change_norms": change,
+            "content": content}
+
+
+def printable(numbers):
+    """``numbers`` without the content targets."""
+    return {k: v for k, v in numbers.items() if k != "content"}
 
 
 def _rel(p, r):
@@ -72,8 +87,8 @@ def _rel(p, r):
 
 
 def gaps(program, reference):
-    """``loss_gap``, ``grad_gap`` and ``change_gap`` of ``program``
-    against ``reference``."""
+    """``loss_gap``, ``grad_gap``, ``change_gap`` and ``content_gap`` of
+    ``program`` against ``reference``."""
     loss = max(_rel(p[k], r[k]) for p, r in zip(program["losses"],
                                                  reference["losses"])
                for k in LOSS_TERMS)
@@ -87,8 +102,16 @@ def gaps(program, reference):
         return max(abs(p[i] - r[i]) / max(r[i], scale, 1e-30)
                    for i in counted)
 
+    def content_gap(p, r):
+        if p.shape != r.shape:
+            return float("inf")
+        return float((p.double() - r.double()).norm() / r.double().norm())
+
+    p, r = program["content"], reference["content"]
+    content = (max(content_gap(p[k], r[k]) for k in r) if set(p) == set(r)
+               else float("inf"))
     return {"loss_gap": loss, "grad_gap": worst("grad_norms"),
-            "change_gap": worst("change_norms")}
+            "change_gap": worst("change_norms"), "content_gap": content}
 
 
 def verdict(numbers, limits):

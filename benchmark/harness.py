@@ -352,8 +352,11 @@ class Session:
     def _first_steps(self):
         """The loop's first :data:`CHECK_STEPS` steps, with the numbers the
         reference checks: each step's loss terms, the first gradient's norm
-        per layer (from Adam's first moment after one step) and each
-        layer's change over the steps."""
+        per layer (from Adam's first moment after one step), each layer's
+        change over the steps, and the content targets that
+        ``prepare_batch`` encoded for the last of their chunks
+        (``content_chunk``), ``{(level, layer): [V, h, w, C]}`` on the
+        host."""
         adam_b1 = self.cell.config["adam"]["b1"]
         before = [l.detach().cpu().clone() for l in self.state.texture.layers]
         losses = [self.loop.step()]
@@ -367,9 +370,14 @@ class Session:
                   for l, b in zip(self.state.texture.layers, before)]
         self.first_chunks = [list(key) for key, n, _ in self.loop.cut()
                              for _ in range(n)]
+        self.content_chunk = list(self.loop.key)
+        targets = self.loop.aux.loss_aux["content_targets"]
         return {"losses": [{k: float(v) for k, v in l.items()}
                            for l in losses],
-                "grad_norms": grad, "change_norms": change}
+                "grad_norms": grad, "change_norms": change,
+                "content": {(i, k): t.float().cpu()
+                            for i, d in enumerate(targets)
+                            for k, t in d.items()}}
 
     def _sync(self):
         if self.device.type == "cuda":

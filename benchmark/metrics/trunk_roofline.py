@@ -1,9 +1,10 @@
 """Loss trunk (``models/vgg.py`` -> ``ops/conv_kernels.py``,
-``ops/head_kernels.py``, K5-K8, and conv1_1's im2col product): the
+``ops/head_kernels.py``, K5-K8, and conv1_1 in ``ops/conv_im2col.py``): the
 operations of every trunk convolution in the profiled stretch, forward and
 input gradient, with the chunks' content encodes (``work.py``), at the
 dense bf16 peak, over the device time of the kernels named below, in
-percent. conv1_1's product is a cuBLAS GEMM, whose names hold ``gemm``."""
+percent. conv1_1 runs on the stem kernels
+``stem_conv_gemm_{fwd,bwd}_kernel``, whose names hold ``gemm``."""
 
 KERNELS = ("conv3x3_gemm_kernel", "conv_relu_pool_kernel",
            "conv_relu_pool_bwd_kernel", "gemm")

@@ -294,6 +294,26 @@ class Reference:
         losses["total"] = losses["content"] + losses["style"] + losses["tex_reg"]
         return losses, grads
 
+    def content_targets(self, views):
+        """The content targets of ``views`` (``reference.data.load_views``)
+        as :meth:`step`'s loss takes them: ``{(level, layer): [V, h, w,
+        C]}`` for each live level and content layer."""
+        c = self.cfg
+        out = {}
+        with torch.no_grad(), full_float32():
+            b = self.batch(views)
+            content = self.features(b["rgb"], self.content_layers)
+            for i, u in enumerate(b["uv"]):
+                if i in c["skip_levels"]:
+                    continue
+                for k in self.content_layers:
+                    fhw = layer_hw(k, tuple(u.shape[1:3]))
+                    out[(i, k)] = torch.cat([
+                        self.q(bilinear(content[k][v:v + 1], fhw))
+                        for v in range(content[k].shape[0])]).permute(
+                            0, 2, 3, 1)
+        return out
+
     def tex_reg_weights(self):
         c = self.cfg
         if c["tex_reg_weights"] is not None:

@@ -120,7 +120,7 @@ def run_cell(cell, seed, seconds, trace, device, t_start, bench_dir=None,
     result["correct"] = check.verdict(numbers, cell.limits) and failed == 0
     result["checks"] = {k: {"value": numbers[k], "limit": cell.limits[k]}
                         for k in check.NUMBERS}
-    log("[run] program " + json.dumps(session.numbers))
+    log("[run] program " + json.dumps(check.printable(session.numbers)))
     log(f"[run] gaps (grad_gap not compared) {json.dumps(numbers)}")
     return result
 
@@ -135,6 +135,8 @@ def top(seconds_by_name, scale, n=TOP):
 def launch_counts():
     """The launch counters of the port's kernel wrappers."""
     from stylemesh_tpu_torch.ops import (
+        adam_kernels,
+        conv_im2col,
         conv_kernels,
         gram_kernels,
         grid_sample,
@@ -145,9 +147,13 @@ def launch_counts():
     counts["gram_fwd"] = gram_kernels.masked_gram_sums.launches
     counts["gram_bwd"] = gram_kernels.masked_gram_sums_grad.launches
     counts["conv3x3"] = conv_kernels.conv3x3.launches
+    counts["conv3x3_mxu"] = conv_kernels.conv3x3_mxu.launches
     counts["conv_relu_pool"] = head_kernels.conv_relu_pool.launches
     counts["conv_relu_pool_dual"] = head_kernels.conv_relu_pool.dual_launches
     counts["conv_relu_pool_bwd"] = head_kernels.conv_relu_pool_bwd.launches
+    counts["stem_fwd"] = conv_im2col.stem_forward.launches
+    counts["stem_bwd"] = conv_im2col.stem_backward.launches
+    counts["adam_clamp"] = adam_kernels.adam_clamp_.launches
     return counts
 
 

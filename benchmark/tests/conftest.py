@@ -13,7 +13,7 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 BENCH = ROOT / "benchmark"
-CELLS = ("scannet_full.b4r20", "scannet_dip.b1r1")
+CELLS = ("scannet_full.b4r20", "scannet_full.b1r20", "scannet_dip.b1r1")
 
 
 def tiny_bench(dest, f32=False):

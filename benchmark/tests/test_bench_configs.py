@@ -82,3 +82,79 @@ def test_benchmark_json_keeps_to_the_contract():
         names.append(m["name"])
     assert all(NAME.match(n) for n in names)
     assert len(json.dumps(b)) < 64 * 1024
+
+
+@pytest.mark.parametrize("name", [w["name"] for w in bench()["workloads"]])
+def test_limits_give_every_compared_number_a_limit(name):
+    from benchmark import check
+
+    limits = harness.load_cell(name).limits
+    assert set(limits) == set(check.NUMBERS)
+    assert all(v > 0 for v in limits.values())
+
+
+def level_tables(cell, wd, seed):
+    """The scene of ``cell`` written for ``seed`` under ``wd`` at its own
+    size, and what ``harness.Session`` checks its chunks with: (cache,
+    train indices, run config, pipeline config with the static level skip,
+    loss_live, grad_live)."""
+    from benchmark.scene import write_scene
+    from stylemesh_tpu_torch.data.loading import SceneCache
+    from stylemesh_tpu_torch.data.sampling import make_split
+    from stylemesh_tpu_torch.optimize import (
+        discover_scene,
+        scene_grad_dead_levels,
+        scene_skip_levels,
+        view_level_tables,
+    )
+
+    data_root, scene, style = write_scene(wd, cell.traffic["scene"], seed)
+    run = harness.run_config(cell, data_root, scene, style)
+    pipe_cfg = harness.pipeline_config(cell)
+    cache = SceneCache(discover_scene(run), resize_size=run.resize_size)
+    tables = loss_live, grad_live = view_level_tables(cache, pipe_cfg)
+    skip = tuple(sorted(set(scene_skip_levels(cache, pipe_cfg, tables))
+                        | set(pipe_cfg.skip_levels)))
+    dead = tuple(sorted((set(scene_grad_dead_levels(cache, pipe_cfg, tables))
+                         | set(pipe_cfg.stop_grad_levels)) - set(skip)))
+    pipe_cfg = dataclasses.replace(pipe_cfg, skip_levels=skip,
+                                   stop_grad_levels=dead)
+    train_idx, _ = make_split(cache.num_views,
+                              split=(run.train_split, run.val_split),
+                              split_mode=run.split_mode, shuffle=run.shuffle,
+                              seed=run.seed)
+    return cache, train_idx, run, pipe_cfg, loss_live, grad_live
+
+
+def test_one_view_cell_as_the_harness_sees_it():
+    from benchmark import faults
+
+    name = "scannet_full.b1r20"
+    cell = harness.load_cell(name)
+    assert cell.traffic["views_per_step"] == 1
+    assert cell.traffic["index_repeat"] == 20
+    b4 = json.loads((harness.BENCH_DIR / "traffic" / "b4r20.json")
+                    .read_text())
+    assert cell.traffic["scene"] == b4["scene"]
+    b = bench()
+    assert [m["name"] for m in cell.metrics_of("per_layer")] == [
+        m["name"] for m in b["per_layer"] if name in m.get("workloads", [])]
+    assert {m["name"] for m in cell.metrics_of("end_to_end")} == {
+        "views_per_s", "setup_s"}
+    assert faults.applicable(cell) == ["unchanged_state"]
+
+    with harness.workdir() as wd:
+        cache, train_idx, run, pipe_cfg, loss_live, grad_live = level_tables(
+            cell, wd, 2 ** 31 + 22)
+    assert run.views_per_batch == 1 and len(train_idx) > 1
+    assert loss_live.shape == (cell.traffic["scene"]["views"], 4)
+    # every one-view chunk keeps every level of the run
+    harness._same_signature(cache, train_idx, run, pipe_cfg, loss_live,
+                            grad_live)
+    # and a view that loses a level is refused
+    view = train_idx[5]
+    live = loss_live.copy()
+    live[cache._pos_of[view], 3] = False
+    with pytest.raises(ValueError, match=rf"chunk \[{view}\] drops level 3"):
+        harness._same_signature(cache, train_idx, run, pipe_cfg, live,
+                                grad_live)

@@ -14,7 +14,7 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-CELLS = ("scannet_full.b4r20",)
+CELLS = ("scannet_full.b4r20", "scannet_full.b1r20")
 
 
 @pytest.fixture

@@ -36,6 +36,9 @@ def test_reference_matches_the_port_in_float32(tiny_f32, name):
     # three steps of Adam move each texel by about its gradient's sign,
     # so elements nought to rounding can land either way
     assert gaps["loss_gap"] < 1e-3 and gaps["change_gap"] < 5e-3
+    # the content targets are one forward of the photos, compared element
+    # by element
+    assert program["content"] and gaps["content_gap"] < 1e-5
 
 
 @pytest.mark.parametrize("name", CELLS)
