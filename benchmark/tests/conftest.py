@@ -16,10 +16,11 @@ BENCH = ROOT / "benchmark"
 CELLS = ("scannet_full.b4r20", "scannet_full.b1r20", "scannet_dip.b1r1")
 
 
-def tiny_bench(dest, f32=False):
+def tiny_bench(dest, f32=False, source=ROOT / "BENCHMARK.json"):
     """A checkout root under ``dest`` whose ``BENCHMARK.json`` holds the
-    benchmark's cells cut to a CPU's size: a 64x64 atlas, 32-pixel views of
-    a 6-view 48x64 scene with UV levels 32..56, 3 repeats. ``f32`` runs the
+    cells of ``source`` (a ``BENCHMARK.json``; its files are the
+    benchmark's) cut to a CPU's size: a 64x64 atlas, 32-pixel views of a
+    6-view 48x64 scene with UV levels 32..56, 3 repeats. ``f32`` runs the
     pipeline in float32 with float32 K1/K2. Returns (root, bench_dir)."""
     root = Path(dest)
     bench_dir = root / "bench"
@@ -28,11 +29,13 @@ def tiny_bench(dest, f32=False):
     shutil.copytree(BENCH / "metrics", bench_dir / "metrics",
                     dirs_exist_ok=True)
     shutil.copy(BENCH / "peaks.json", bench_dir / "peaks.json")
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    # the DIP cell's files are in the benchmark, its entries not (PERF.md)
+    bench = json.loads(Path(source).read_text())
+    # scannet_dip.b1r1's files are in the benchmark, its entries may not be
+    # (PERF.md): each entry is added where no entry of its name is there
     if "scannet_dip" not in [c["name"] for c in bench["configs"]]:
         bench["configs"].append({"name": "scannet_dip", "reduced": [],
                                  "file": "benchmark/configs/scannet_dip.json"})
+    if "scannet_dip.b1r1" not in [w["name"] for w in bench["workloads"]]:
         bench["workloads"].append({"name": "scannet_dip.b1r1", "chips": 1,
                                    "config": "scannet_dip",
                                    "traffic": "b1r1"})
@@ -52,8 +55,9 @@ def tiny_bench(dest, f32=False):
         t["index_repeat"] = min(t["index_repeat"], 3)
         (bench_dir / "traffic" / f"{w['traffic']}.json").write_text(
             json.dumps(t))
-        shutil.copy(BENCH / "limits" / f"{w['name']}.json",
-                    bench_dir / "limits" / f"{w['name']}.json")
+        limits = BENCH / "limits" / f"{w['name']}.json"
+        if limits.exists():  # else the caller writes the cell's limits
+            shutil.copy(limits, bench_dir / "limits" / limits.name)
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return root, bench_dir
 

@@ -8,6 +8,9 @@ import time
 
 from benchmark import harness
 from benchmark.run import run_cell
+from conftest import ROOT, tiny_bench
+
+DIP_CELL = "scannet_dip.b4r1"  # a second DIP cell beside scannet_dip.b1r1
 
 METRIC = '''"""A made-up per-layer metric: the steps of the synced stretch."""
 
@@ -54,3 +57,30 @@ def test_new_files_and_entries_make_a_new_cell(tiny):
     # the benchmark's own cells do not report the made-up metric
     other = harness.load_cell("scannet_dip.b1r1", root, bench_dir)
     assert "made_up_steps" not in [m["name"] for m in other.metrics]
+
+
+def test_a_dip_cell_added_by_entries_alone(tmp_path):
+    b = json.loads((ROOT / "BENCHMARK.json").read_text())
+    config, traffic = DIP_CELL.split(".")
+    if config not in [c["name"] for c in b["configs"]]:
+        b["configs"].append({"name": config, "source": "a test",
+                             "file": f"benchmark/configs/{config}.json",
+                             "reduced": [], "why": "a test"})
+    if DIP_CELL not in [w["name"] for w in b["workloads"]]:
+        b["workloads"].append({"name": DIP_CELL, "config": config,
+                               "traffic": traffic, "chips": 1,
+                               "why": "a test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(b))
+    root, bench_dir = tiny_bench(tmp_path / "tiny", f32=True,
+                                 source=tmp_path / "BENCHMARK.json")
+    limits = bench_dir / "limits" / f"{DIP_CELL}.json"
+    if not limits.exists():  # the file that the cell's PR would bring
+        shutil.copy(bench_dir / "limits" / "scannet_dip.b1r1.json", limits)
+
+    for name in ("scannet_dip.b1r1", DIP_CELL):
+        cell = harness.load_cell(name, root, bench_dir)
+        assert cell.config["pipeline"]["gram_mode"] == "average"
+        result = run_cell(cell, 8, 0.5, 0, "cpu", time.perf_counter(),
+                          bench_dir=bench_dir, log=lambda *a: None)
+        assert result["correct"] is True, result["checks"]
+        assert result["attempted"] > 0 and result["failed"] == 0
