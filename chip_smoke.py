@@ -23,7 +23,11 @@ phase fails. Phases:
    show one K1 and one K2 launch, at most one fill of each texture layer
    (K2's zeroed gradient), and no float32 add of texture-layer-shaped
    tensors but the one per layer that joins the regularizer's gradient to
-   K2's;
+   K2's; a profile of the train step itself (``eager_step``) with the ops'
+   input shapes must show no PyTorch op on a texture layer's shape that
+   runs on the card but K2's fill, one a layer: the regularizer's value and
+   gradient are ``adam.cu``'s (the value kernels, and the update's fold),
+   launched once a step each;
 2. reference: a small configuration trained on the card and on the CPU
    (plain versions), float32, losses compared;
 2b. the same small configuration in bf16 (the kernel trunk), the losses of
@@ -101,8 +105,11 @@ phase fails. Phases:
    Adam and the clamp, one launch over the bench atlas's four layers)
    against its plain version, the chain of PyTorch elementwise kernels it
    replaced: p, m and v each within 1e-6 of its largest value, the share
-   of elements equal bit for bit logged; bound: p, g, m, v read and p, m,
-   v written once;
+   of elements equal bit for bit logged, with the bench configuration's
+   regularizer coefficients folded in: equal bit for bit; bound: p, g, m,
+   v read and p, m, v written once; the regularizer's value
+   (``tex_reg_value``) against a float64 sum, 1e-6 of the value, timed
+   beside the plain float32 ``mean`` chain; bound: the atlas read once;
 7. the demo room (after phase 3): the port's ``build_demo_scene`` (24 views
    of 480x640, the native bake at 480x640 and heights 256..960, the frame
    renders and the bake timed apart); views 0-3 re-baked by
@@ -260,13 +267,19 @@ KERNELS = {  # launches: (wrapper, attribute holding its launch count);
                    replaces="stylemesh_tpu/models/pipeline.py:250",
                    launches=(adam_kernels.adam_clamp_, "launches"),
                    rel_tol=1e-6),
+    # the texture regularizer's value, read once; its TPU path is
+    # texture_regularizer under XLA (no pallas_call)
+    "tex_reg_value": dict(source=ADAM_SRC,
+                          replaces="stylemesh_tpu/models/texture.py:111",
+                          launches=(adam_kernels.tex_reg_value, "launches"),
+                          rel_tol=1e-6),
 }
 # the kernels each driven path must launch
 BENCH_KERNELS = ("K1_gather", "K2_splat", "K3_gram_fwd", "K4_gram_bwd",
                  "K5_conv3x3", "K6_conv_relu_pool", "K7_conv_relu_pool_dual",
                  "K8_conv_relu_pool_bwd", "stem_fwd", "stem_bwd")
 TRUNK_KERNELS = BENCH_KERNELS[4:]
-ONCE_A_STEP = ("K1_gather", "K2_splat", "update")
+ONCE_A_STEP = ("K1_gather", "K2_splat", "update", "tex_reg_value")
 RUN_KERNELS = ("K1_gather_bf16", "K2_splat_bf16") + BENCH_KERNELS[2:]
 K9_ENV = {"STYLEMESH_CONV_FLIPVJP": "0", "STYLEMESH_FAST_CONV": "1"}
 # Tolerances, relative to the largest |value| of the plain version:
@@ -288,6 +301,7 @@ K9_ENV = {"STYLEMESH_CONV_FLIPVJP": "0", "STYLEMESH_FAST_CONV": "1"}
 # update: the same float32 operations in the same order as its plain
 #    version's PyTorch kernels; where those fuse a multiply-add a rounding
 #    may differ: 1e-6 (each of p, m and v against its own largest value).
+# tex_reg_value: sums in double against a float64 sum: 1e-6 of the value.
 # stem_fwd / stem_bwd (conv1_1) round float32 sums taken in another order
 #    to bf16 once: one bf16 ulp of each element (2^-7 of the largest), and
 #    by check_ulps one ulp of the element itself, or of 2^-9 of the
@@ -423,6 +437,7 @@ def main_path():
     log("[main] " + json.dumps(result))
     profile_step(pipe, state, batch, aux, result["step_ms"])
     profile_loss_grad(pipe, state, batch, aux)
+    profile_train_step(pipe, state, batch, aux)
     return pipe, state, batch, aux, counts
 
 
@@ -458,6 +473,8 @@ def profile_step(pipe, state, batch, aux, step_ms):
 
 
 FILL_OPS = ("aten::fill_", "aten::zero_")
+ADAM_CU_KERNELS = ("adam_clamp_kernel", "tex_reg_partials_kernel",
+                   "tex_reg_finish_kernel")
 ADD_OPS = ("aten::add", "aten::add_")
 
 
@@ -519,6 +536,49 @@ def profile_loss_grad(pipe, state, batch, aux):
     if any(n > allowed_adds for n in adds.values()):
         raise RuntimeError(f"layer-shaped float32 adds of the levels' "
                            f"gradients: {adds}")
+
+
+def profile_train_step(pipe, state, batch, aux):
+    """Profile the train step (``eager_step``: the replayed graphs' kernels)
+    with the ops' input shapes. Raise if an ATen op whose input has a
+    texture layer's shape ran on the card, but for one fill of each layer
+    (K2's zeroed gradient): the regularizer's value, its gradient and
+    Adam are ``adam.cu``'s kernels, no PyTorch op. Logs the device ms of
+    those kernels and of every layer-shaped op it saw."""
+    from torch.profiler import ProfilerActivity, profile
+
+    shapes = {tuple(l.shape) for l in state.texture.layers}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        pipe.eager_step(state, batch, aux)
+        torch.cuda.synchronize()
+    fills, others = {sh: 0 for sh in shapes}, {}
+    for e in prof.events():
+        sh = next((tuple(x) for x in e.input_shapes if tuple(x) in shapes),
+                  None)
+        if sh is None or not e.kernels or not e.name.startswith("aten::"):
+            continue  # K1's launch runs inside its autograd op, no aten op
+        if e.name in FILL_OPS:
+            fills[sh] += 1
+        else:
+            key = f"{e.name} {sh}"
+            others[key] = others.get(key, 0.0) + sum(
+                k.duration for k in e.kernels) / 1e3
+    ours = {}
+    for e in prof.key_averages():
+        name = next((k for k in ADAM_CU_KERNELS if k in e.key), None)
+        if name is not None and e.self_device_time_total > 0:
+            ours[name] = e.self_device_time_total / 1e3
+    log(f"[train_step] adam.cu device ms: {json.dumps(ours)}; layer-shaped "
+        f"fills {json.dumps({str(k): n for k, n in fills.items()})}; other "
+        f"layer-shaped ops (device ms): {json.dumps(others)}")
+    if len(ours) != len(ADAM_CU_KERNELS):
+        raise RuntimeError(f"the step did not run the update and the "
+                           f"regularizer's value kernels: {ours}")
+    if others or any(n > 1 for n in fills.values()):
+        raise RuntimeError("the train step ran PyTorch ops on texture "
+                           "layers beyond K2's fill")
 
 
 def no_float32_grams(prof):
@@ -1319,12 +1379,15 @@ def sampling_step(layers, grids, cots, add):
     del lib_renders, leaves
 
 
-def update_step(state, add):
+def update_step(pipe, state, add):
     """The one-pass update on copies of the bench state's layers and
     moments, from a gradient a third of whose elements are exactly zero
-    (texels no view touched), at step 0's scalars: held against its plain
-    version (p, m and v each, and the share of elements equal bit for bit),
-    then timed. Bound: p, g, m and v read, p, m and v written, once."""
+    (texels no view touched), at step 0's scalars, the bench
+    configuration's regularizer coefficients folded in: held against its
+    plain version (p, m and v each, and the share of elements equal bit for
+    bit, which must be all), then timed. Bound: p, g, m and v read, p, m
+    and v written, once. Then the regularizer's value against a float64
+    sum, and timed. Bound: the layers read once."""
     layers = [l.detach().clone() for l in state.texture.layers]
     mus = [m.clone() for m in state.mu]
     nus = [v.clone() for v in state.nu]
@@ -1334,9 +1397,11 @@ def update_step(state, add):
              for l in layers]
     scalars = torch.tensor([1.0, 1.0 - adam_kernels.ADAM_B1,
                             1.0 - adam_kernels.ADAM_B2], device="cuda")
+    coefs = pipe.config.tex_reg_coefficients()
     ref = [[t.clone() for t in ts] for ts in (layers, mus, nus)]
-    adam_kernels.adam_clamp_(layers, grads, mus, nus, scalars)
-    adam_kernels.adam_clamp_plain_(ref[0], grads, ref[1], ref[2], scalars)
+    adam_kernels.adam_clamp_(layers, grads, mus, nus, scalars, coefs)
+    adam_kernels.adam_clamp_plain_(ref[0], grads, ref[1], ref[2], scalars,
+                                   coefs)
     err, tol = 0.0, 0.0
     for what, got, want in zip("pmv", (layers, mus, nus), ref):
         e, t = check("update", got, want, f"bench atlas, {what}")
@@ -1346,11 +1411,24 @@ def update_step(state, add):
                for g, w in zip(got, want))
     log(f"[kernel] update bench atlas: {same / (3 * n):.6f} of p, m and v "
         f"equal bit for bit")
+    if same != 3 * n:
+        raise RuntimeError("update: not equal bit for bit to its plain version")
     add("update", "bench atlas", (err, tol),
-        lambda: adam_kernels.adam_clamp_(layers, grads, mus, nus, scalars),
+        lambda: adam_kernels.adam_clamp_(layers, grads, mus, nus, scalars,
+                                         coefs),
         lambda: adam_kernels.adam_clamp_plain_(ref[0], grads, ref[1], ref[2],
-                                               scalars),
+                                               scalars, coefs),
         None, 28 * n)
+    weights = pipe.config.resolved_tex_reg_weights()
+    value = adam_kernels.tex_reg_value(layers, weights)
+    same_bits("tex_reg_value, two calls", value,
+              adam_kernels.tex_reg_value(layers, weights))
+    want = sum(w * (l.double() ** 2).mean() for w, l in zip(weights, layers))
+    add("tex_reg_value", "bench atlas",
+        check("tex_reg_value", value, want.float(), "bench atlas"),
+        lambda: adam_kernels.tex_reg_value(layers, weights),
+        lambda: adam_kernels.tex_reg_value_plain(layers, weights),
+        None, 4 * n)
 
 
 def cotangent(like, mask=None, seed=0):
@@ -1763,7 +1841,7 @@ def kernel_phase(pipe, state, batch, aux, launches):
             del fcat, scat
 
     sampling_step(layers, list(batch.uv), cots, add)
-    update_step(state, add)
+    update_step(pipe, state, add)
     # the post chain's K1 launches in phase 4: its calls (the render's
     # chunks; per pairing and eval chunk, a colour and a mask warp) times
     # the launches measured in one call, one for each
@@ -2489,7 +2567,7 @@ def main(argv):
 
     pipe, state, batch, aux, counts = main_path()
     launches = {k: (counts[k], counts[k] / STEPS)
-                for k in BENCH_KERNELS + ("update",)}
+                for k in BENCH_KERNELS + ONCE_A_STEP[2:]}
     reference_check()
     reference_check_bf16()
     launches.update(run_loop_phases(pipe, state, batch, aux, smi))

@@ -45,9 +45,13 @@ _SIGNATURES = {
     # conv1_1: (x, w9, bias, y) and (g, y, w9, dx); V, H, W, relu
     "stylemesh_stem_fwd": [_P] * 4 + [_I] * 4 + [_P],
     "stylemesh_stem_bwd": [_P] * 4 + [_I] * 4 + [_P],
-    # layer table (p, g, m, v, element counts as int64), layers, scalars
-    # {lr, bc1, bc2} on the device; b1, 1 - b1, b2, 1 - b2, eps, lo, hi
-    "stylemesh_adam_clamp": [_P] * 5 + [_I, _P] + [_F] * 7 + [_P],
+    # layer table (p, g, m, v, element counts as int64, the regularizer's
+    # coefficients as float32), layers, scalars {lr, bc1, bc2} on the
+    # device; b1, 1 - b1, b2, 1 - b2, eps, lo, hi
+    "stylemesh_adam_clamp": [_P] * 6 + [_I, _P] + [_F] * 7 + [_P],
+    # layer table (p, element counts as int64, scales as float64), layers,
+    # scratch and its length in doubles, the float32 output
+    "stylemesh_tex_reg_value": [_P] * 3 + [_I, _P, _I, _P, _P],
 }
 
 _library = None

@@ -11,6 +11,13 @@
   Adam moments and the Gram cache are updated in place. The step's rate and
   bias corrections are written to a device tensor before each update, which
   reads them there.
+- The texture regularizer leaves autograd in the train step: the step's
+  loss (:meth:`TexturePipeline.step_loss`) carries its value detached (one
+  read of the atlas on a card), and the update adds its gradient ``c_l *
+  p`` (:meth:`PipelineConfig.tex_reg_coefficients`) to the rest of the
+  loss's gradient. :meth:`TexturePipeline.loss_fn` stays the
+  differentiable objective, regularizer included; both are one helper,
+  and the step's gradient is the same sum.
 - On a card, :meth:`TexturePipeline.train_step` replays the step as three
   CUDA graphs (``models/step_graph.py``) from the second step of each step
   signature on; :meth:`TexturePipeline.eager_step` is the step launched op
@@ -21,7 +28,8 @@
 - ``gram_mode="average"`` carries the loss's ``GramCache`` in the train
   state (``TrainState.gram_cache``).
 - The render (:meth:`TexturePipeline._render_pyramid`), the regularizer
-  (:meth:`TexturePipeline._tex_reg`) and the update
+  (:meth:`TexturePipeline._tex_reg`, its value
+  :meth:`TexturePipeline._tex_reg_value`) and the update
   (:meth:`TexturePipeline.apply_update`) are the pieces the multi-device
   pipelines of ``parallel/`` override or reuse.
 """
@@ -43,6 +51,7 @@ from stylemesh_tpu_torch.models.texture import (
     Texture,
     clamp_texture,
     sample_texture,
+    texture_grads,
     texture_regularizer,
 )
 from stylemesh_tpu_torch.models.step_graph import StepGraphs
@@ -52,6 +61,7 @@ from stylemesh_tpu_torch.ops.adam_kernels import (
     ADAM_B2,
     ADAM_EPS,
     adam_clamp_,
+    tex_reg_value,
 )
 from stylemesh_tpu_torch.ops.erosion import erode
 from stylemesh_tpu_torch.ops.resize import resize_bilinear, resize_nearest
@@ -176,6 +186,18 @@ class PipelineConfig:
             w[-1] = 0.0
         return tuple(w)
 
+    def tex_reg_coefficients(self):
+        """Per layer l, ``c_l`` of the weighted regularizer's gradient
+        ``c_l * p``: ``tex_reg_weight * w_l * 2 / N_l``, ``N_l`` the full
+        layer's size (a rank's bands use the same numbers); all 0 where
+        the regularizer is off."""
+        if not self.tex_reg_weight > 0:
+            return (0.0,) * self.hierarchical_layers
+        return tuple(
+            self.tex_reg_weight * w * 2.0 / ((self.texture_height >> l)
+                                             * (self.texture_width >> l) * 3)
+            for l, w in enumerate(self.resolved_tex_reg_weights()))
+
     def loss_config(self) -> ContentAndStyleLoss:
         return ContentAndStyleLoss(
             style_layers=self.style_layers,
@@ -251,6 +273,8 @@ class TexturePipeline:
         self._decay_every = config.decay_step_size * steps_per_epoch
         # the rate and the two bias corrections the update reads
         self._adam_scalars = torch.zeros(3, device=self.device)
+        # the regularizer's gradient, which the update adds
+        self._tex_reg_coefs = config.tex_reg_coefficients()
         self._graphs = StepGraphs() if self.device.type == "cuda" else None
 
     # ------------------------------------------------------------- state
@@ -315,7 +339,8 @@ class TexturePipeline:
     def loss_fn(self, texture: Texture, batch: ViewBatch,
                 aux: Optional[BatchAux] = None,
                 gram_cache: Optional[GramCache] = None):
-        """(total loss, dict of the weighted loss terms, new Gram cache)."""
+        """(total loss, dict of the weighted loss terms, new Gram cache):
+        the differentiable objective, the regularizer included."""
         return self.loss_with_targets(texture, self.style_targets, batch, aux,
                                       gram_cache)
 
@@ -324,6 +349,27 @@ class TexturePipeline:
                           gram_cache: Optional[GramCache] = None):
         """:meth:`loss_fn` with explicit style targets (the multi-style
         sweep's per-style loss, ``parallel/multistyle.py``)."""
+        return self._losses(texture, style_targets, batch, aux, gram_cache,
+                            self._tex_reg)
+
+    def step_loss(self, texture: Texture, batch: ViewBatch,
+                  aux: Optional[BatchAux] = None,
+                  gram_cache: Optional[GramCache] = None,
+                  style_targets: Optional[StyleTargets] = None):
+        """:meth:`loss_with_targets` (``style_targets`` defaulting to the
+        pipeline's) as the train step takes it: the same terms, the
+        regularizer's value detached, since :meth:`apply_update` adds its
+        gradient. Its gradient plus the regularizer's is
+        :meth:`loss_fn`'s."""
+        targets = (self.style_targets if style_targets is None
+                   else style_targets)
+        return self._losses(texture, targets, batch, aux, gram_cache,
+                            self._tex_reg_value)
+
+    def _losses(self, texture, style_targets, batch, aux, gram_cache,
+                tex_reg_fn):
+        """The loss of :meth:`loss_with_targets`, the regularizer's value
+        from ``tex_reg_fn(texture)``."""
         cfg = self.config
         if aux is None:
             aux = self.prepare_batch(batch)
@@ -344,7 +390,7 @@ class TexturePipeline:
             gram_cache=gram_cache)
         # 4. texture regularizer
         if cfg.tex_reg_weight > 0:
-            tex_reg = self._tex_reg(texture)
+            tex_reg = tex_reg_fn(texture)
         else:
             tex_reg = torch.zeros((), device=self.device)
         losses = {
@@ -373,6 +419,12 @@ class TexturePipeline:
         return texture_regularizer(texture,
                                    self.config.resolved_tex_reg_weights())
 
+    def _tex_reg_value(self, texture: Texture):
+        """:meth:`_tex_reg`'s value, detached: one read of the atlas on a
+        card (``ops/adam_kernels.py::tex_reg_value``)."""
+        return tex_reg_value(list(texture.layers),
+                             self.config.resolved_tex_reg_weights())
+
     # ------------------------------------------------------------- steps
 
     def train_step(self, state: TrainState, batch: ViewBatch,
@@ -394,26 +446,27 @@ class TexturePipeline:
         layers = list(state.texture.layers)
         with span("train_step", step=state.step):
             with span("forward"):
-                total, losses, cache = self.loss_fn(state.texture, batch, aux,
-                                                    state.gram_cache)
+                total, losses, cache = self.step_loss(state.texture, batch,
+                                                      aux, state.gram_cache)
             with span("backward"):
-                grads = torch.autograd.grad(total, layers)
+                grads = texture_grads(total, layers)
             with span("update"):
                 self.apply_update(state, grads, cache)
         return {k: v.detach() for k, v in losses.items()}
 
     def apply_update(self, state: TrainState, grads, gram_cache=None):
-        """Adam on the texture with ``grads`` and the clamp (on a card one
-        launch, ``ops/adam_kernels.py``), the walked Gram cache copied into
-        the state's own (its push log dropped), all in place, and the step
-        count. Adam's rate and bias corrections are written here
-        (:meth:`write_adam_scalars`); under a CUDA graph capture, which
-        would freeze them, before each replay instead."""
+        """Adam on the texture with ``grads`` of :meth:`step_loss` plus the
+        regularizer's gradient, and the clamp (on a card one launch,
+        ``ops/adam_kernels.py``), the walked Gram cache copied into the
+        state's own (its push log dropped), all in place, and the step
+        count. :meth:`prepare_update` runs here; under a CUDA graph
+        capture, which would freeze what it writes, before each replay
+        instead."""
         if not (self.device.type == "cuda"
                 and torch.cuda.is_current_stream_capturing()):
-            self.write_adam_scalars(state.step)
+            self.prepare_update(state.step)
         adam_clamp_(list(state.texture.layers), grads, state.mu, state.nu,
-                    self._adam_scalars)
+                    self._adam_scalars, self._tex_reg_coefs)
         if gram_cache is not None:
             own = state.gram_cache
             with torch.no_grad():
@@ -421,6 +474,14 @@ class TexturePipeline:
                     own.grams[k].copy_(g)
                 own.count.copy_(gram_cache.count)
         state.step += 1
+
+    def prepare_update(self, step: int):
+        """The host's part of each executed update: Adam's scalars written
+        (:meth:`write_adam_scalars`), and, on a card, ``tex_reg_folded``
+        counted where the update adds the regularizer's gradient."""
+        self.write_adam_scalars(step)
+        if self.device.type == "cuda" and any(self._tex_reg_coefs):
+            count("tex_reg_folded", 1)
 
     def write_adam_scalars(self, step: int):
         """The scheduled rate and Adam's bias corrections at optimizer count

@@ -7,13 +7,15 @@ them. Here each step signature is captured once into three graphs, which
 every later step replays inside the program's ``forward``, ``backward``
 and ``update`` spans:
 
-- forward: :meth:`TexturePipeline.loss_fn`, and the loss terms stacked into
-  one static vector;
-- backward: ``torch.autograd.grad`` of the forward's static total, captured
-  as ``torch.cuda.make_graphed_callables`` captures a backward: on the same
+- forward: :meth:`TexturePipeline.step_loss` (the regularizer's value
+  detached), and the loss terms stacked into one static vector;
+- backward: ``torch.autograd.grad`` of the forward's static total
+  (``pipeline.texture_grads``), captured as
+  ``torch.cuda.make_graphed_callables`` captures a backward: on the same
   stream and in the same memory pool as the forward;
-- update: :meth:`TexturePipeline.apply_update` (Adam, the clamp, the walked
-  Gram cache copied into the state's own tensors).
+- update: :meth:`TexturePipeline.apply_update` (Adam with the
+  regularizer's gradient folded in, the clamp, the walked Gram cache
+  copied into the state's own tensors).
 
 The signature is the structure, shapes and dtypes of every tensor of the
 batch and of its constants (and which of them are one tensor), the
@@ -29,8 +31,9 @@ restored checkpoint) is a new signature.
   in whenever a step gets other objects than the last ones its graphs
   replayed with (a new chunk): one copy a tensor, and no capture.
 - Adam's rate and bias corrections are read from a device tensor, which
-  :meth:`TexturePipeline.write_adam_scalars` fills before each update
-  replay.
+  :meth:`TexturePipeline.prepare_update` fills before each update replay
+  (and where the update folds in the regularizer's gradient, counts
+  ``tex_reg_folded``).
 - Each replay returns the step's own loss terms, copied out of the
   forward's static vector, and adds to the kernel wrappers' launch
   counters the launches its capture made.
@@ -40,7 +43,8 @@ restored checkpoint) is a new signature.
 
 Counters (``utils/profiling.py``): ``step_graph_captures``,
 ``step_graph_replays`` and, in :meth:`TexturePipeline.eager_step`,
-``eager_steps``.
+``eager_steps``; ``tex_reg_folded`` once an executed update, eager or
+replayed, that adds the regularizer's gradient.
 """
 
 import dataclasses
@@ -48,6 +52,7 @@ import os
 
 import torch
 
+from stylemesh_tpu_torch.models.texture import texture_grads
 from stylemesh_tpu_torch.models.vgg import ROUTE_ENV
 from stylemesh_tpu_torch.utils.profiling import count, span
 
@@ -210,12 +215,12 @@ class _Graphs:
         self.forward, self.backward, self.update = (
             torch.cuda.CUDAGraph() for _ in range(3))
         with torch.cuda.graph(self.forward, pool=pool, stream=stream):
-            total, losses, cache = pipe.loss_fn(state.texture, static_batch,
-                                                static_aux, state.gram_cache)
+            total, losses, cache = pipe.step_loss(
+                state.texture, static_batch, static_aux, state.gram_cache)
             self.keys = tuple(losses)
             self.losses = torch.stack([v.detach() for v in losses.values()])
         with torch.cuda.graph(self.backward, pool=pool, stream=stream):
-            grads = torch.autograd.grad(total, list(state.texture.layers))
+            grads = texture_grads(total, list(state.texture.layers))
         # the capture runs apply_update's host half too: on a copy
         captured = dataclasses.replace(state)
         with torch.cuda.graph(self.update, pool=pool, stream=stream):
@@ -239,7 +244,7 @@ class _Graphs:
         with span("backward"):
             self.backward.replay()
         with span("update"):
-            pipe.write_adam_scalars(state.step)
+            pipe.prepare_update(state.step)
             self.update.replay()
         state.step += self.steps
         for fn, attr, n in self.launches:

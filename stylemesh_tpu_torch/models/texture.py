@@ -80,6 +80,17 @@ def texture_regularizer(texture: Texture, weights):
     return reg
 
 
+def texture_grads(total, layers):
+    """The gradient of the step's loss ``total`` for each texture layer;
+    zeros for a layer the loss does not reach (every live level detached,
+    and the regularizer's gradient folded into the update)."""
+    if not total.requires_grad:
+        return [torch.zeros_like(l) for l in layers]
+    grads = torch.autograd.grad(total, layers, allow_unused=True)
+    return [torch.zeros_like(l) if g is None else g
+            for g, l in zip(grads, layers)]
+
+
 def texture_image(texture: Texture):
     """Compose the pyramid into a full-resolution ``[H, W, C]`` image: every
     layer sampled at the identity grid over [-1, 1]² and summed."""

@@ -13,8 +13,10 @@ constants are replicated on every rank.
   one launch of the banded K2 scatters them into the rank's bands only:
   texture gradients never cross ranks;
 - the regularizer sums each band's squares, all-reduces the sums and
-  divides by the full layer sizes;
-- Adam and the clamp run on the bands;
+  divides by the full layer sizes; the train step takes that value under
+  ``no_grad``;
+- Adam and the clamp run on the bands, the regularizer's gradient folded
+  in with the full layers' coefficients;
 - the step is :meth:`TexturePipeline.eager_step` on a card too: the
   forward's all-reduces are collectives, which the single-device step's
   CUDA graphs do not capture.
@@ -124,3 +126,7 @@ class AtlasShardedPipeline(TexturePipeline):
                                    self.mesh)
             reg = reg + total / (band.numel() * self.mesh.size) * w
         return reg
+
+    @torch.no_grad()
+    def _tex_reg_value(self, texture: Texture):
+        return self._tex_reg(texture)

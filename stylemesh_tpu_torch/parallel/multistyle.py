@@ -22,7 +22,7 @@ from stylemesh_tpu_torch.models.pipeline import (
     TexturePipeline,
     TrainState,
 )
-from stylemesh_tpu_torch.models.texture import Texture
+from stylemesh_tpu_torch.models.texture import Texture, texture_grads
 from stylemesh_tpu_torch.parallel.mesh import Mesh, all_gather_rows
 
 
@@ -99,9 +99,9 @@ class MultiStylePipeline:
             aux = self.prepare_batch(batch)
         per_style = []
         for st, targets in zip(state.states, self.style_targets):
-            total, losses, _ = self.base.loss_with_targets(
-                st.texture, targets, batch, aux)
-            grads = torch.autograd.grad(total, list(st.texture.layers))
+            total, losses, _ = self.base.step_loss(
+                st.texture, batch, aux, style_targets=targets)
+            grads = texture_grads(total, list(st.texture.layers))
             self.base.apply_update(st, grads)
             per_style.append(losses)
         return self._gather_losses(per_style)

@@ -4,7 +4,9 @@ Rank r of D takes the contiguous views ``[r * V / D, (r + 1) * V / D)`` of
 every batch, runs the whole single-device step on them, and the texture
 gradients and the losses are averaged over the ranks (the loss is a mean
 over views, so this is the single-device step's arithmetic). The texture
-and the Adam moments are replicated; every rank applies the same update.
+and the Adam moments are replicated; every rank applies the same update,
+which adds the regularizer's gradient ``c * p`` to the averaged one: with
+``p`` replicated, ``pmean(g) + c * p`` is ``pmean(g + c * p)``.
 
 Under ``gram_mode='average'`` each rank walks its own views from the
 pre-step cache, and :meth:`ShardedTexturePipeline._merge_gram_pushes`
@@ -27,6 +29,7 @@ from stylemesh_tpu_torch.models.pipeline import (
     TexturePipeline,
     TrainState,
 )
+from stylemesh_tpu_torch.models.texture import texture_grads
 from stylemesh_tpu_torch.parallel.mesh import (
     Mesh,
     all_gather_rows,
@@ -84,10 +87,10 @@ class ShardedTexturePipeline(TexturePipeline):
         if aux is None:
             aux = self.prepare_batch(batch)
         layers = list(state.texture.layers)
-        total, losses, cache = self.loss_fn(state.texture,
-                                            self.local_batch(batch), aux,
-                                            state.gram_cache)
-        grads = self._pmean(list(torch.autograd.grad(total, layers)))
+        total, losses, cache = self.step_loss(state.texture,
+                                              self.local_batch(batch), aux,
+                                              state.gram_cache)
+        grads = self._pmean(texture_grads(total, layers))
         if cache is not None and cache.push_log is not None:
             cache = self._merge_gram_pushes(state.gram_cache, cache)
         self.apply_update(state, grads, cache)

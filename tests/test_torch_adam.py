@@ -4,9 +4,13 @@
   v), over several steps with zero gradients and values beyond both clamp
   bounds, at layer sizes whose element counts are and are not multiples of
   four;
+- with the regularizer's coefficients it is the plain update of the
+  gradient joined by ``c * p`` (product, then sum), bit for bit, and with
+  zero coefficients the update without them; the gradients are left as
+  they were;
 - it refuses what the kernel does not take, on the CPU too: a strided
   layer, a float64 one, tensors of two shapes, lists of two lengths, a
-  scalars tensor of another size;
+  scalars tensor of another size, a coefficient list of another length;
 - it launches nothing on the CPU: its counter stays 0.
 
 The kernel itself is held to the plain version on a card in
@@ -90,6 +94,8 @@ def _bad_inputs(which):
         nus = nus[:1]
     elif which == "scalars":
         scalars = scalars[:2]
+    elif which == "coefs":
+        return layers, grads, mus, nus, scalars, [1.0]
     return layers, grads, mus, nus, scalars
 
 
@@ -98,7 +104,8 @@ def _bad_inputs(which):
     ("float64", TypeError, "float32"),
     ("shapes", ValueError, "shape"),
     ("lengths", ValueError, "moments"),
-    ("scalars", ValueError, "scalars")])
+    ("scalars", ValueError, "scalars"),
+    ("coefs", ValueError, "coefficients")])
 def test_wrapper_refuses_bad_inputs(which, error, match):
     args = _bad_inputs(which)
     before = [t.clone() for t in args[0] + args[2]]
@@ -106,6 +113,25 @@ def test_wrapper_refuses_bad_inputs(which, error, match):
         adam_clamp_(*args)
     # nothing was updated
     assert all(torch.equal(a, b) for a, b in zip(args[0] + args[2], before))
+
+
+@pytest.mark.parametrize("coefs", [[2.5e-3, 0.0, 7.0, 1e-9], [0.0] * 4])
+def test_coefficients_join_the_gradient(coefs):
+    shapes = [(33, 17, 3), (16, 8, 3), (8, 4, 3), (4, 2, 3)]
+    layers, mus, nus = _state(shapes, seed=5)
+    want_p, want_m, want_v = (_clones(ts) for ts in (layers, mus, nus))
+    gen = torch.Generator().manual_seed(9)
+    for step in range(3):
+        grads = _grads(shapes, gen)
+        kept = _clones(grads)
+        joined = [g + p * c if c else g
+                  for g, p, c in zip(grads, want_p, coefs)]
+        adam_clamp_(layers, grads, mus, nus, _scalars(step), coefs)
+        adam_clamp_plain_(want_p, joined, want_m, want_v, _scalars(step))
+        assert all(torch.equal(g, k) for g, k in zip(grads, kept))
+    for got, ref in zip((layers, mus, nus), (want_p, want_m, want_v)):
+        for g, w in zip(got, ref):
+            assert torch.equal(g, w)
 
 
 def test_no_launch_on_the_cpu():

@@ -28,7 +28,10 @@ where every sum is exact. The one-pass update (Adam, the clamp) against
 its plain version's chain of PyTorch kernels on the card: p, m and v
 within 1e-6 relative plus 1e-6 absolute (the same float32 operations in the
 same order; only where PyTorch's kernels fuse a multiply-add may a rounding
-differ).
+differ); with the texture regularizer's gradient folded in (per-layer
+coefficients, some 0), bit for bit. The regularizer's value (two launches:
+per-block partials in double, one finishing block) against a float64 sum:
+1e-6 relative, and the same bits from call to call.
 """
 
 import pytest
@@ -1239,6 +1242,69 @@ def test_adam_clamp_graph_replay_reads_the_scalars(cuda):
         _adam_close((layers, mus, nus), ref)
     assert rates == [1.0, 1.0, pytest.approx(0.1)]
     assert adam_kernels.adam_clamp_.launches == before + 1
+
+
+def _reg_coefs(shapes):
+    """The regularizer's coefficients at tex_reg_weight 5e3: layer weights
+    2^(L-1-l), the last 0 (where there are two or more), over each layer's
+    own size."""
+    n = len(shapes)
+    weights = [2.0 ** (n - 1 - l) for l in range(n)]
+    if n > 1:
+        weights[-1] = 0.0
+    return [5e3 * w * 2.0 / (s[0] * s[1] * s[2])
+            for w, s in zip(weights, shapes)], weights
+
+
+@pytest.mark.parametrize("off", [False, True])
+@pytest.mark.parametrize("shapes", [ATLAS_SHAPES] + ADAM_EDGE_SHAPES)
+def test_adam_clamp_folds_the_regularizer_bit_for_bit(cuda, shapes, off):
+    """The kernel with the regularizer's coefficients (or all of them 0)
+    against its plain version run on the card, over three updates: p, m
+    and v bit for bit; the gradients are left as they were. At the bench
+    atlas, a layer with a scalar tail, one layer and eight."""
+    layers, mus, nus = _adam_state(cuda, shapes, seed=7 + len(shapes))
+    coefs = [0.0] * len(shapes) if off else _reg_coefs(shapes)[0]
+    ref = [[t.clone() for t in ts] for ts in (layers, mus, nus)]
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    for step in range(3):
+        grads = _adam_grads(shapes, gen, cuda)
+        kept = [g.clone() for g in grads]
+        scalars = _adam_scalars(step, cuda)
+        adam_kernels.adam_clamp_(layers, grads, mus, nus, scalars, coefs)
+        adam_kernels.adam_clamp_plain_(ref[0], grads, ref[1], ref[2],
+                                       scalars, coefs)
+        assert all(torch.equal(g, k) for g, k in zip(grads, kept))
+    torch.cuda.synchronize()
+    for got, want in zip((layers, mus, nus), ref):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (g - w).abs().max().item()
+
+
+@pytest.mark.parametrize("shapes", [ATLAS_SHAPES] + ADAM_EDGE_SHAPES)
+def test_tex_reg_value_against_float64(cuda, shapes):
+    """The regularizer's value against a float64 sum, 1e-6 relative; two
+    calls give the same bits and count two launches each."""
+    layers, _, _ = _adam_state(cuda, shapes, seed=9)
+    weights = _reg_coefs(shapes)[1]
+    before = adam_kernels.tex_reg_value.launches
+    first = adam_kernels.tex_reg_value(layers, weights)
+    second = adam_kernels.tex_reg_value(layers, weights)
+    want = sum(w * (l.double() ** 2).mean() for w, l in zip(weights, layers))
+    assert adam_kernels.tex_reg_value.launches == before + 2
+    assert first.dtype == torch.float32 and first.shape == ()
+    assert torch.equal(first, second)
+    assert abs(first.item() - want.item()) <= 1e-6 * abs(want.item())
+
+
+def test_tex_reg_value_refuses_bad_inputs_on_the_card(cuda):
+    """A misaligned layer and nine layers raise before a launch."""
+    flat = torch.zeros(8 * 8 * 3 + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        adam_kernels.tex_reg_value([flat[1:].view(8, 8, 3)], [1.0])
+    layer = torch.zeros(8, 8, 3, device=cuda)
+    with pytest.raises(ValueError, match="at most 8"):
+        adam_kernels.tex_reg_value([layer] * 9, [1.0] * 9)
 
 
 def test_adam_clamp_refuses_bad_inputs_on_the_card(cuda):

@@ -26,9 +26,11 @@ On a card (marked ``cuda``; without JAX, from the repo root:
   state). Free-running, two eager runs of the full method already part by
   5e-3 of the state after 10 steps: Adam's sign-like early steps amplify
   that noise. The loss dicts are read after every step was queued, so
-  each must hold its own step's values;
+  each must hold its own step's values. ``tex_reg_folded`` counts every
+  update of the full method (the regularizer on), none of ``dip``'s;
 - one capture over three chunks, and one K1 and one K2 launch counted a
-  step; one launch of the one-pass update a step, eager or replayed;
+  step; one launch of the one-pass update a step, eager or replayed, and
+  one of the regularizer's value (with it on);
 - a state whose tensors are replaced is captured again.
 """
 
@@ -222,7 +224,8 @@ def test_every_kernel_wrapper_launch_counter_is_found():
             (head_kernels.conv_relu_pool_bwd, "launches"),
             (conv_im2col.stem_forward, "launches"),
             (conv_im2col.stem_backward, "launches"),
-            (adam_kernels.adam_clamp_, "launches")}
+            (adam_kernels.adam_clamp_, "launches"),
+            (adam_kernels.tex_reg_value, "launches")}
     assert want <= found
     # every counter of launch_counts() is among them
     assert len([1 for fn, attr in found if fn in (
@@ -316,8 +319,9 @@ def test_graphed_steps_match_eager_steps(card, name):
     with profiling.recording() as rec:
         g_losses, e_losses, states, steps = _lockstep(name, card)
     # the graphed pipeline: one eager step, one capture; the other's 10
+    folded = {"tex_reg_folded": 20} if name == "full" else {}
     assert _graph_counts(rec) == {"eager_steps": 11, "step_graph_captures": 1,
-                            "step_graph_replays": 9}
+                                  "step_graph_replays": 9, **folded}
     assert steps == 10
     for got, want in zip(g_losses, e_losses):
         for k, w in want.items():
@@ -350,25 +354,28 @@ def test_one_capture_over_three_chunks_and_launches_counted(card):
                                if n != before[k]})
     torch.cuda.synchronize()
     assert _graph_counts(rec) == {"eager_steps": 1, "step_graph_captures": 1,
-                            "step_graph_replays": 8}
+                                  "step_graph_replays": 8, "tex_reg_folded": 9}
     assert deltas == [{"gather_bf16": 1, "splat_bf16": 1}] * 9
 
 
 @pytest.mark.cuda
 def test_update_launches_once_a_step(card):
-    """The one-pass update launches once a step, eager or replayed: the
-    replays add what their capture launched."""
+    """The one-pass update launches once a step, eager or replayed, and so
+    does the regularizer's value: the replays add what their capture
+    launched."""
     pipe = _card_pipe("full", card)
     state = pipe.init()
     batch = _card_chunks("full", card, 1)[0]
     aux = pipe.prepare_batch(batch)
     deltas = []
     for _ in range(4):  # eager, capture and replay, two replays
-        before = adam_kernels.adam_clamp_.launches
+        before = (adam_kernels.adam_clamp_.launches,
+                  adam_kernels.tex_reg_value.launches)
         pipe.train_step(state, batch, aux)
-        deltas.append(adam_kernels.adam_clamp_.launches - before)
+        deltas.append((adam_kernels.adam_clamp_.launches - before[0],
+                       adam_kernels.tex_reg_value.launches - before[1]))
     torch.cuda.synchronize()
-    assert deltas == [1] * 4
+    assert deltas == [(1, 1)] * 4
     assert state.step == 4
 
 
@@ -390,6 +397,6 @@ def test_replaced_state_tensors_are_captured_again(card):
             losses = pipe.train_step(state, batch, aux)
     torch.cuda.synchronize()
     assert _graph_counts(rec) == {"eager_steps": 2, "step_graph_captures": 2,
-                            "step_graph_replays": 4}
+                                  "step_graph_replays": 4, "tex_reg_folded": 6}
     assert state.step == 6
     assert all(np.isfinite(float(v)) for v in losses.values())
