@@ -10,10 +10,11 @@ phase fails. Phases:
 
 1. main path: the full-method bench workload (4096² x 4 Laplacian atlas,
    V = 4 views, content 256x341, UV levels 256..784 px high, multi style
-   pyramid, bf16 VGG trunk on the conv kernels K5-K8 and conv1_1's stem
-   kernels, float32 K1/K2, Adam) through ``TexturePipeline.prepare_batch``
-   and ``train_step``; every loss must be finite, the launch counts of
-   K1-K8 and the stem kernels over the timed steps above zero
+   pyramid, bf16 VGG trunk on the conv kernels K5-K8, the route kernel and
+   conv1_1's stem kernels, float32 K1/K2, Adam) through
+   ``TexturePipeline.prepare_batch`` and ``train_step``; every loss must be
+   finite, the launch counts of K1-K8, the route kernel and the stem
+   kernels over the timed steps above zero
    and K1's and K2's one a step (one launch over all pyramid levels each),
    as the one-pass update's (Adam and the clamp over the four layers),
    and the profile of a step must show no cuDNN convolution and no float32
@@ -89,7 +90,11 @@ phase fails. Phases:
    without bias and relu must equal K9 bit for bit, and at every block-tail
    shape K6 must equal maxpool2 of K5's relu output, K7's maps K5's output
    and K6's, and K8 K5 with the flipped kernel on the routed cotangent, bit
-   for bit; K1/K2 (both modes) and the banded K1/K2 for the 4 bands of
+   for bit; the route kernel (``pool_route``, the 128-channel tail's pool
+   backward from K7's pre-pool map) at conv2_2's shape of each level
+   against its plain chain, bit for bit, timed beside it; bound: the map
+   read and dr written once, the pooled cotangent read once; K1/K2 (both
+   modes) and the banded K1/K2 for the 4 bands of
    D = 4 at each level alone (each against its plain version, the bands'
    sum against the unbanded K1/K2), then all of them at step level, as the
    main path calls them: one launch over the 4 levels each, against their
@@ -230,6 +235,12 @@ KERNELS = {  # launches: (wrapper, attribute holding its launch count);
                            replaces="stylemesh_tpu/ops/conv_pallas.py:136",
                            launches=(conv_kernels.conv3x3_mxu, "launches"),
                            rel_tol=1e-2),
+    # the 128-channel tail's pool backward before K5, whose TPU path is the
+    # pool's elementwise VJP under XLA (no pallas_call); bit for bit
+    "pool_route": dict(source=BWD_SRC,
+                       replaces="stylemesh_tpu/models/vgg.py:466",
+                       launches=(head_kernels.pool_route, "launches"),
+                       rel_tol=0.0),
     # the banded form, reached through grid_sample.py::grid_sample_banded_cf
     "K1_gather_banded": dict(
         source=SAMPLE_SRC, replaces="stylemesh_tpu/ops/grid_sample.py:185",
@@ -277,7 +288,7 @@ KERNELS = {  # launches: (wrapper, attribute holding its launch count);
 # the kernels each driven path must launch
 BENCH_KERNELS = ("K1_gather", "K2_splat", "K3_gram_fwd", "K4_gram_bwd",
                  "K5_conv3x3", "K6_conv_relu_pool", "K7_conv_relu_pool_dual",
-                 "K8_conv_relu_pool_bwd", "stem_fwd", "stem_bwd")
+                 "K8_conv_relu_pool_bwd", "stem_fwd", "stem_bwd", "pool_route")
 TRUNK_KERNELS = BENCH_KERNELS[4:]
 ONCE_A_STEP = ("K1_gather", "K2_splat", "update", "tex_reg_value")
 RUN_KERNELS = ("K1_gather_bf16", "K2_splat_bf16") + BENCH_KERNELS[2:]
@@ -1498,7 +1509,8 @@ def trunk_kernels(where, pipe, pred, add):
                 err = check("K8_conv_relu_pool_bwd", dx,
                             head_kernels.conv_relu_pool_bwd_plain(
                                 h, w9, w9t, b, g, t), at)
-                k5_routed = conv_kernels.conv3x3(head_kernels.pool_route(y, g), w9t)
+                k5_routed = conv_kernels.conv3x3(
+                    head_kernels.pool_route_plain(y, g), w9t)
                 same_bits(f"K8 vs K5 on the routed cotangent"
                           f"{'' if t is None else ', + t'} at {at}", dx,
                           k5_routed if t is None else k5_routed + t)
@@ -1533,7 +1545,18 @@ def trunk_kernels(where, pipe, pred, add):
                     library, x_bytes + w_bytes + 4 * cout
                     + (pooled.numel() + pre.numel()) * 2, flops)
                 # its backward: pool routing from pre, then K5 (flipped)
-                dr = head_kernels.pool_route(pre, cotangent(pooled, seed=i))
+                g = cotangent(pooled, seed=i)
+                dr = head_kernels.pool_route(pre, g)
+                dr_plain = head_kernels.pool_route_plain(pre, g)
+                err = check("pool_route", dr, dr_plain, at)
+                same_bits(f"pool_route vs its plain version at {at}",
+                          dr.view(torch.int16), dr_plain.view(torch.int16))
+                del dr_plain
+                log(f"[kernel] pool_route {at}: bit for bit")
+                add("pool_route", at, err,
+                    lambda: head_kernels.pool_route(pre, g),
+                    lambda: head_kernels.pool_route_plain(pre, g), None,
+                    2 * pre.numel() * 2 + g.numel() * 2)
                 k5_backward(at, dr, w9t, wt_lib, flops, add, m, t)
                 h = pooled
             del y

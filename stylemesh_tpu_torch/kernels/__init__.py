@@ -42,6 +42,8 @@ _SIGNATURES = {
     "stylemesh_conv_relu_pool": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
     # (x, w9, w9t, bias, g, t, dx): t may be NULL
     "stylemesh_conv_relu_pool_bwd": [_P] * 7 + [_I] * 5 + [_P],
+    # (r, g, dr), V, H, W, C
+    "stylemesh_pool_route": [_P] * 3 + [_I] * 4 + [_P],
     # conv1_1: (x, w9, bias, y) and (g, y, w9, dx); V, H, W, relu
     "stylemesh_stem_fwd": [_P] * 4 + [_I] * 4 + [_P],
     "stylemesh_stem_bwd": [_P] * 4 + [_I] * 4 + [_P],

@@ -1,6 +1,7 @@
 // K8: the input gradient of the 64-channel fused block tail
 // maxpool2(bf16(relu(conv3x3(x, w) + b))), on the wgmma + TMA core of
-// conv_core.cuh.
+// conv_core.cuh; and the route kernel, the pool's backward of the
+// 128-channel tail by K8's routing rule (at the end of this note).
 //
 // Replaces the TPU kernel
 //   K8  ops/head_pallas.py::conv_relu_pool_bwd (_kernel_packed_bwd):
@@ -46,6 +47,18 @@
 // Shared memory: a 2-stage ring of 40 KB stages (80 KB) and the 126 KB r
 // tile, 207 KB: one block per SM. The ring has two stages, not K5's four,
 // because the r tile takes the rest.
+//
+// The route kernel (stylemesh_pool_route): the 128-channel tail's backward
+// before K5, dr = pool_route(r, g) from the saved relu output r (K7's pre-pool
+// map) and the pooled cotangent g, by K8's phase-2 rule (route_window). It
+// replaces a chain of about 40 PyTorch passes (a float32 copy of r, three
+// maximums, per window position eq, gt, and, or and where, a stack, a zero
+// fill and a permuted copy); the TPU path has no kernel for it (the pool's
+// elementwise VJP, models/vgg.py::_maxpool2_bwd, under XLA). What bounds it
+// on an H100: bytes. r is read and dr written once (2 bytes an element each)
+// and g read once (0.5 bytes an element): 237 MB a view at conv2_2's four
+// bench levels, 0.071 ms at 3.35 TB/s. Nothing is summed, so dr equals the
+// plain chain bit for bit.
 
 #include "conv_core.cuh"
 
@@ -70,12 +83,44 @@ static_assert(kSubs * kSubRows == kRH && kSubPx <= 256, "phase-1 boxes");
 static_assert(kTW == 32 && kTH % 8 == 0, "m64 blocks of dx: two rows of 32");
 static_assert(kSmem <= 232448, "shared memory of one block");
 static_assert(2 * kPasses - kEpiBufs == 2, "t of the last pass: two buffers");
+constexpr int kRouteThreads = 256;  // the route kernel's block
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
                : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
                : "r"(addr)
                : "memory");
+}
+
+// The pool's backward for one 2x2 window and eight channels, K8's rule and
+// the route kernel's: q[e] is the window's pixel e in raster order ((0,0),
+// (0,1), (1,0), (1,1)) and g the window's cotangent, eight bf16 each (channel
+// c in bits [16 (c % 2), 16 (c % 2) + 16) of word c / 2). Each channel's
+// cotangent, its bits, goes to the first maximum in that order where that
+// value is > 0; every other element of out is bf16 +0. A channel whose
+// window holds a NaN routes nothing: its maximum is NaN then and equals no
+// element (torch.maximum, then ==). K8's r, a relu output, holds no NaN.
+__device__ __forceinline__ void route_window(const uint32_t (&q)[4][4],
+                                             const uint32_t (&g)[4],
+                                             uint32_t (&out)[4][4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) out[e][0] = out[e][1] = out[e][2] = out[e][3] = 0u;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    // channel c's bf16, widened to float32 exactly
+    const int wd = c / 2, sh = 16 * (c % 2);
+    float f[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[e] = __uint_as_float(((q[e][wd] >> sh) & 0xFFFFu) << 16);
+    const float top = fmaxf(fmaxf(f[0], f[1]), fmaxf(f[2], f[3]));
+    bool taken = isnan(f[0]) || isnan(f[1]) || isnan(f[2]) || isnan(f[3]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool first = !taken && f[e] == top && f[e] > 0.0f;
+      taken = taken || first;
+      if (first) out[e][wd] |= ((g[wd] >> sh) & 0xFFFFu) << sh;
+    }
+  }
 }
 
 // ADD_T: t (tmap) is added to dx.
@@ -186,27 +231,9 @@ __global__ void __launch_bounds__(kThreads, 1) conv_relu_pool_bwd_kernel(
       for (int e = 0; e < 4; ++e) {
         const uint4 u = *reinterpret_cast<const uint4*>(rtp + swz(rows[e], j));
         q[e][0] = u.x, q[e][1] = u.y, q[e][2] = u.z, q[e][3] = u.w;
-        out[e][0] = out[e][1] = out[e][2] = out[e][3] = 0u;  // bf16 +0
       }
       const uint32_t gw[4] = {gv.x, gv.y, gv.z, gv.w};
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        // channel c: the bf16 in bits [16 (c % 2), 16 (c % 2) + 16) of word
-        // c / 2, widened to float32 exactly
-        const int wd = c / 2, sh = 16 * (c % 2);
-        float f[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          f[e] = __uint_as_float(((q[e][wd] >> sh) & 0xFFFFu) << 16);
-        const float top = fmaxf(fmaxf(f[0], f[1]), fmaxf(f[2], f[3]));
-        bool taken = false;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool first = !taken && f[e] == top && f[e] > 0.0f;
-          taken = taken || first;
-          if (first) out[e][wd] |= ((gw[wd] >> sh) & 0xFFFFu) << sh;
-        }
-      }
+      route_window(q, gw, out);
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         *reinterpret_cast<uint4*>(rtp + swz(rows[e], j)) =
@@ -296,6 +323,53 @@ __global__ void __launch_bounds__(kThreads, 1) conv_relu_pool_bwd_kernel(
   if (t == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
+// The route kernel: one thread per 2x2 window (rounded up: a window cut by
+// the odd last row or column is a tail) and eight channels. A whole window:
+// the four pixels of r and the window's g read with 16-byte loads, routed by
+// route_window, the four pixels of dr stored with 16-byte stores. A tail: its
+// pixels of dr set to +0. Consecutive threads take consecutive channel groups,
+// then consecutive windows of a row, so a warp reads and writes whole runs
+// of each of the window's two rows.
+__global__ void __launch_bounds__(kRouteThreads) pool_route_kernel(
+    const uint4* __restrict__ r, const uint4* __restrict__ g,
+    uint4* __restrict__ dr, int H, int W, int C8, int wins_y, int wins_x,
+    int threads) {
+  const long long t = (long long)blockIdx.x * kRouteThreads + threadIdx.x;
+  if (t >= threads) return;
+  const int i = (int)t;
+  const int j = i % C8;
+  int w = i / C8;
+  const int wj = w % wins_x;
+  w /= wins_x;
+  const int wi = w % wins_y;
+  const int v = w / wins_y;
+  const int y = 2 * wi, x = 2 * wj;
+  // pixel (y + dy, x + dx) of view v, at 16-byte group j
+  auto at = [&](int dy, int dx) {
+    return (((size_t)v * H + y + dy) * W + x + dx) * C8 + j;
+  };
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  if (y + 1 >= H || x + 1 >= W) {
+    dr[at(0, 0)] = zero;
+    if (x + 1 < W) dr[at(0, 1)] = zero;
+    if (y + 1 < H) dr[at(1, 0)] = zero;
+    return;
+  }
+  const size_t px[4] = {at(0, 0), at(0, 1), at(1, 0), at(1, 1)};
+  uint32_t q[4][4], out[4][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const uint4 u = __ldg(r + px[e]);
+    q[e][0] = u.x, q[e][1] = u.y, q[e][2] = u.z, q[e][3] = u.w;
+  }
+  const uint4 gv = __ldg(g + (((size_t)v * (H / 2) + wi) * (W / 2) + wj) * C8 + j);
+  const uint32_t gw[4] = {gv.x, gv.y, gv.z, gv.w};
+  route_window(q, gw, out);
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    dr[px[e]] = make_uint4(out[e][0], out[e][1], out[e][2], out[e][3]);
+}
+
 }  // namespace
 
 // dx [V, H, W, 64] of maxpool2(bf16(relu(conv3x3(x, w9) + bias))) for the
@@ -337,5 +411,25 @@ extern "C" int stylemesh_conv_relu_pool_bwd(const void* x, const void* w9,
     conv_relu_pool_bwd_kernel<false><<<(unsigned)blocks, kThreads, kSmem, st>>>(
         xmap, wmap, wtmap, dxmap, (const float*)bias, (const bf16*)g, H, W,
         tiles_x, tiles_y, tmap);
+  return (int)cudaGetLastError();
+}
+
+// dr [V, H, W, C] bf16, the backward of maxpool2 and of the relu before it,
+// from the relu output r [V, H, W, C] and the pooled cotangent g [V, H / 2,
+// W / 2, C] (bf16, channel-last): route_window's rule in every whole window,
+// +0 in the odd last row and column. C must be a multiple of 8. One launch on
+// `stream`, nothing allocated. Returns the launch's cudaError_t.
+extern "C" int stylemesh_pool_route(const void* r, const void* g, void* dr,
+                                    int V, int H, int W, int C, void* stream) {
+  if (V < 0 || H < 0 || W < 0 || C <= 0 || C % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (V == 0 || H == 0 || W == 0) return 0;
+  const int wins_y = (H + 1) / 2, wins_x = (W + 1) / 2, C8 = C / 8;
+  const long long threads = (long long)V * wins_y * wins_x * C8;
+  if (threads > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((threads + kRouteThreads - 1) / kRouteThreads);
+  pool_route_kernel<<<blocks, kRouteThreads, 0, (cudaStream_t)stream>>>(
+      (const uint4*)r, (const uint4*)g, (uint4*)dr, H, W, C8, wins_y, wins_x,
+      (int)threads);
   return (int)cudaGetLastError();
 }

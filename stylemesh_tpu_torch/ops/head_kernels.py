@@ -1,5 +1,6 @@
 """The VGG block tail ``maxpool2(relu(conv3x3 + b))`` fused: kernels K6, K7
-and K8 (counterpart of ``stylemesh_tpu/ops/head_pallas.py``).
+and K8 (counterpart of ``stylemesh_tpu/ops/head_pallas.py``), and the route
+kernel of the 128-channel tail's backward.
 
 - :func:`conv_relu_pool` (K6): the pooled map only, the conv output never
   reaches device memory (``head_pallas.py::conv_relu_pool``, 64 and 128
@@ -12,6 +13,9 @@ and K8 (counterpart of ``stylemesh_tpu/ops/head_pallas.py``).
   window (raster order) where the activation is > 0, then the transposed
   conv (``conv_relu_pool_bwd``); optionally with the loss tap's cotangent
   of the input added in its epilogue, as autograd's bf16 sum would.
+- :func:`pool_route`: the 128-channel form's backward before K5, the same
+  routing from K7's saved pre-pool map, one pass (the TPU path's pool VJP,
+  ``models/vgg.py::_maxpool2_bwd``, has no kernel).
 
 Numerics are K5's (``ops/conv_kernels.py``): float32 sums, float32 bias,
 relu, one bf16 rounding, and the pool takes the maximum of the bf16 values.
@@ -48,7 +52,7 @@ def maxpool2(x):
     return x[:, :2 * h2, :2 * w2].reshape(v, h2, 2, w2, 2, c).amax(dim=(2, 4))
 
 
-def pool_route(r, g):
+def pool_route_plain(r, g):
     """The backward of ``maxpool2`` and of the relu before it, from the
     relu output ``r [V, H, W, C]``: each window's cotangent ``g`` goes to its
     first maximum in raster order ((0,0), (0,1), (1,0), (1,1)) where that
@@ -76,6 +80,30 @@ def pool_route(r, g):
     return dr
 
 
+def pool_route(r, g):
+    """:func:`pool_route_plain`'s ``dr``: CPU tensors take the plain
+    version; CUDA tensors launch the route kernel (one pass, bf16 ``r``, C a
+    multiple of 8; ``conv_pool_bwd.cu``), equal to it bit for bit, or raise.
+    Launches count in ``pool_route.launches``."""
+    if r.device.type == "cpu":
+        return pool_route_plain(r, g)
+    g = g.to(torch.bfloat16).contiguous()
+    kernels.require_cuda(r, g, dtype=torch.bfloat16)
+    v, h, w, c = r.shape
+    if c % 8:
+        raise ValueError(f"the route kernel takes C a multiple of 8, got {c}")
+    if tuple(g.shape) != (v, h // 2, w // 2, c):
+        raise ValueError(f"g {tuple(g.shape)} vs r {tuple(r.shape)}")
+    dr = torch.empty_like(r)
+    kernels.launch("stylemesh_pool_route", r.device, r.data_ptr(),
+                   g.data_ptr(), dr.data_ptr(), v, h, w, c)
+    pool_route.launches += 1
+    return dr
+
+
+pool_route.launches = 0
+
+
 def conv_relu_pool_plain(x, w9, bias, with_pre=False):
     """Plain version of K6 (and of K7 with ``with_pre``): K5's plain version
     with relu, then :func:`maxpool2` of the bf16 map."""
@@ -88,7 +116,7 @@ def conv_relu_pool_bwd_plain(x, w9, w9_flipped, bias, g, tap=None):
     """Plain version of K8, the composed backward: recompute, route, conv
     with the flipped kernel, then the bf16 sum with ``tap``."""
     r = conv3x3_plain(x, w9, bias, relu=True)
-    dx = conv3x3_plain(pool_route(r, g), w9_flipped)
+    dx = conv3x3_plain(pool_route_plain(r, g), w9_flipped)
     return dx if tap is None else dx + tap
 
 

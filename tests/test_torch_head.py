@@ -114,6 +114,79 @@ def test_pool_route_matches_jax_pool_backward():
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
+def _route_by_loops(r, g):
+    """The pool's backward with the relu mask, window by window and channel
+    by channel: the cotangent to the first maximum in raster order where it
+    is > 0, nothing from a window that holds a NaN, 0 elsewhere."""
+    v, h, w, c = r.shape
+    dr = np.zeros(r.shape, np.float32)
+    for n in range(v):
+        for i in range(h // 2):
+            for j in range(w // 2):
+                for k in range(c):
+                    px = [(2 * i, 2 * j), (2 * i, 2 * j + 1),
+                          (2 * i + 1, 2 * j), (2 * i + 1, 2 * j + 1)]
+                    vals = [r[n, y, x, k] for y, x in px]
+                    if any(np.isnan(vals)):
+                        continue
+                    top = max(vals)
+                    for (y, x), val in zip(px, vals):
+                        if val == top and val > 0:
+                            dr[n, y, x, k] = g[n, i, j, k]
+                            break
+    return dr
+
+
+def _route_case(case):
+    rng = np.random.default_rng(sum(map(ord, case)))
+    shape = {"h1": (2, 1, 7, 8), "w1": (2, 7, 1, 8), "odd": (2, 9, 11, 8)}.get(
+        case, (2, 8, 10, 8))
+    v, h, w, c = shape
+    r = np.maximum(rng.normal(0, 1, shape), 0).astype(np.float32)
+    g = rng.normal(0, 1, (v, h // 2, w // 2, c)).astype(np.float32)
+    if case == "nan":
+        r[rng.random(shape) < 0.05] = np.nan
+    elif case == "ties":
+        r = rng.integers(0, 3, shape).astype(np.float32)
+    elif case == "nonpositive":
+        r = -r
+    elif case == "inf":
+        r[rng.random(shape) < 0.05] = np.inf
+    elif case == "neg_zero_g":
+        g[rng.random(g.shape) < 0.3] = -0.0
+    return _bf16(r), _bf16(g)
+
+
+@pytest.mark.parametrize("case", ["nan", "neg_zero_g", "h1", "w1", "odd",
+                                  "ties", "nonpositive", "inf"])
+def test_pool_route_plain_edge_semantics(case):
+    """The plain route, the card's reference, against a loop over windows,
+    bit for bit (signed zeros too): a NaN silences its window's channel, -0.0
+    in g is routed with its sign, H or W of 1 routes nothing, the odd last
+    row and column get +0, ties go to the first maximum in raster order,
+    windows all <= 0 route nothing, +inf is a maximum."""
+    r, g = _route_case(case)
+    got = head_kernels.pool_route_plain(r, g)
+    want = torch.from_numpy(_route_by_loops(r.float().numpy(),
+                                            g.float().numpy())).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    if case == "neg_zero_g":
+        assert (got.view(torch.int16) == -32768).any()
+    if case in ("h1", "w1", "nonpositive"):
+        assert torch.equal(got.view(torch.int16), torch.zeros_like(
+            got).view(torch.int16))
+
+
+def test_pool_route_takes_the_plain_version_on_the_cpu():
+    """On the CPU the wrapper is the plain version and launches nothing."""
+    r, g = _route_case("odd")
+    before = head_kernels.pool_route.launches
+    assert torch.equal(head_kernels.pool_route(r, g).view(torch.int16),
+                       head_kernels.pool_route_plain(r, g).view(torch.int16))
+    assert head_kernels.pool_route.launches == before
+
+
 def test_bwd_tile_geometry():
     """K8's dx tile (24 x 32, even, so it holds whole pool windows) and its
     r region (the tile plus one ring of windows, 28 x 36): the recompute

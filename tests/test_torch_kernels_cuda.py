@@ -18,8 +18,10 @@ ulps: float32 sums in another order, then one rounding). Between the
 kernels themselves, bit for bit (one wgmma core, one mainloop, K5's N
 tile): K9 is K5 without bias and relu (one entry); K6 is maxpool2 of K5's
 relu output, K7's pre-pool map is K5's relu output and its pooled map
-K6's; K8 is K5 with the flipped kernel on ``pool_route`` of K5's relu
-output. conv1_1's stem kernels against their plain versions (the im2col
+K6's; K8 is K5 with the flipped kernel on ``pool_route_plain`` of K5's
+relu output. The route kernel (``pool_route``) equals ``pool_route_plain``
+bit for bit, signed zeros included (nothing is summed). conv1_1's stem
+kernels against their plain versions (the im2col
 product on the card; the input gradient's on the kernel's own y, so that
 both apply one relu mask): one bf16 ulp of each element, or of 2^-9 of the
 largest value where an element is smaller (float32 sums in another order
@@ -608,7 +610,7 @@ def test_conv_relu_pool_bwd(cuda, shape):
                     device=cuda).to(torch.bfloat16)
     got = head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g)
     y = conv_kernels.conv3x3(x, w9, b, True)
-    composed = conv_kernels.conv3x3(head_kernels.pool_route(y, g), w9t)
+    composed = conv_kernels.conv3x3(head_kernels.pool_route_plain(y, g), w9t)
     assert torch.equal(got, composed)
     if h >= 2 and w >= 2:
         _close_but(got, head_kernels.conv_relu_pool_bwd_plain(x, w9, w9t, b, g),
@@ -645,6 +647,153 @@ def test_conv_relu_pool_bwd_ties(cuda, shape):
     got = head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g)
     assert torch.equal(got, head_kernels.conv_relu_pool_bwd_plain(
         x, w9, w9t, b, g))
+
+
+def _same_bits(got, want):
+    """Equal bit for bit (``torch.equal`` takes -0.0 for +0.0)."""
+    return got.shape == want.shape and torch.equal(
+        got.view(torch.int16), want.view(torch.int16))
+
+
+# conv2_2's four bench levels at V = 1 and 4, odd H and W, and H or W of 1
+# (no whole window)
+ROUTE_SHAPES = ([(v, h, w) for v in (1, 4) for h, w in (
+    (128, 170), (216, 288), (304, 405), (392, 522))]
+    + [(2, 25, 33), (3, 1, 9), (2, 7, 1), (1, 1, 1)])
+
+
+def _route_inputs(cuda, shape, c=128, seed=0):
+    """A relu output r (about half the elements 0) and a cotangent g."""
+    v, h, w = shape
+    gen = torch.Generator(device=cuda).manual_seed(seed + h * w + v)
+    r = torch.randn((v, h, w, c), generator=gen, device=cuda).relu()
+    g = torch.randn((v, h // 2, w // 2, c), generator=gen, device=cuda)
+    return r.to(torch.bfloat16), g.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", ROUTE_SHAPES)
+def test_pool_route_against_plain(cuda, shape):
+    """The route kernel equals the plain chain bit for bit (nothing is
+    summed) and counts one launch a call."""
+    r, g = _route_inputs(cuda, shape)
+    before = head_kernels.pool_route.launches
+    got = head_kernels.pool_route(r, g)
+    assert head_kernels.pool_route.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    assert _same_bits(got, head_kernels.pool_route_plain(r, g))
+
+
+@pytest.mark.parametrize("c", [8, 24, 64])
+def test_pool_route_other_widths(cuda, c):
+    r, g = _route_inputs(cuda, (2, 25, 33), c=c, seed=1)
+    assert _same_bits(head_kernels.pool_route(r, g),
+                      head_kernels.pool_route_plain(r, g))
+
+
+@pytest.mark.parametrize("shape", [(2, 30, 70), (3, 25, 33)])
+def test_pool_route_ties(cuda, shape):
+    """r from {0, 1, 2}: over a tenth of the live windows hold their maximum
+    twice or more; each goes to its first maximum in raster order."""
+    v, h, w = shape
+    gen = torch.Generator(device=cuda).manual_seed(h + w)
+    r = torch.randint(0, 3, (v, h, w, 128), generator=gen, device=cuda)
+    r = r.to(torch.bfloat16)
+    g = torch.randn((v, h // 2, w // 2, 128), generator=gen, device=cuda)
+    g = g.to(torch.bfloat16)
+    q = r[:, :h // 2 * 2, :w // 2 * 2].float().reshape(
+        v, h // 2, 2, w // 2, 2, 128)
+    top = q.amax(dim=(2, 4), keepdim=True)
+    live = top > 0
+    ties = ((q == top) & live).sum(dim=(2, 4)) >= 2
+    assert ties.sum().item() > 0.1 * live.sum().item()
+    assert _same_bits(head_kernels.pool_route(r, g),
+                      head_kernels.pool_route_plain(r, g))
+
+
+def test_pool_route_nonpositive_windows(cuda):
+    """Windows whose values are all <= 0 (-0.0 among them) route nothing."""
+    r, g = _route_inputs(cuda, (2, 24, 30), seed=2)
+    r = -r
+    r[0, :4] = -0.0
+    got = head_kernels.pool_route(r, g)
+    assert _same_bits(got, head_kernels.pool_route_plain(r, g))
+    assert _same_bits(got, torch.zeros_like(r))
+
+
+def test_pool_route_specials(cuda):
+    """A NaN in r silences its window's channel (the maximum is NaN and
+    equals no element), +inf is a maximum like any other, and -0.0 in g is
+    routed with its sign."""
+    r, g = _route_inputs(cuda, (2, 26, 34), seed=3)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    pick = torch.rand(r.shape, generator=gen, device=cuda)
+    r = torch.where(pick < 0.01, float("nan"), r.float())
+    r = torch.where((pick > 0.5) & (pick < 0.505), float("inf"), r)
+    r = r.to(torch.bfloat16)
+    g = torch.where(torch.rand(g.shape, generator=gen, device=cuda) < 0.2,
+                    -0.0, g.float()).to(torch.bfloat16)
+    got = head_kernels.pool_route(r, g)
+    want = head_kernels.pool_route_plain(r, g)
+    assert _same_bits(got, want)
+    assert (got.view(torch.int16) == -32768).any()  # a routed -0.0
+    nan_windows = torch.isnan(r[:, :26, :34].float().reshape(
+        2, 13, 2, 17, 2, 128)).any(dim=(2, 4))
+    assert nan_windows.any()
+    routed = got.float().reshape(2, 13, 2, 17, 2, 128).ne(0).any(dim=(2, 4))
+    assert not (routed & nan_windows).any()
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 31), (2, 9, 65), (1, 25, 33),
+                                   (3, 2, 130)])
+def test_pool_route_writes_only_its_output(cuda, shape):
+    """A canary around dr: every element written (the odd tails too),
+    nothing outside."""
+    r, g = _route_inputs(cuda, shape, seed=5)
+    v, h, w = shape
+    buf, dr = _canary(cuda, (v, h, w, 128))
+    kernels.launch("stylemesh_pool_route", r.device, r.data_ptr(),
+                   g.data_ptr(), dr.data_ptr(), v, h, w, 128)
+    _guards_intact(buf, dr)
+    assert _same_bits(dr, head_kernels.pool_route_plain(r, g))
+
+
+def test_pool_route_refuses_bad_inputs(cuda):
+    """C not a multiple of 8, float32 r, g of another shape, and a C entry
+    given C not a multiple of 8 raise."""
+    r, g = _route_inputs(cuda, (1, 8, 8), c=12)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        head_kernels.pool_route(r, g)
+    r, g = _route_inputs(cuda, (1, 8, 8), c=16)
+    with pytest.raises(TypeError):
+        head_kernels.pool_route(r.float(), g)
+    with pytest.raises(ValueError, match="vs r"):
+        head_kernels.pool_route(r, g[:, :3])
+    with pytest.raises(RuntimeError, match="failed"):
+        kernels.launch("stylemesh_pool_route", r.device, r.data_ptr(),
+                       g.data_ptr(), torch.empty_like(r).data_ptr(), 1, 8, 8,
+                       12)
+
+
+@pytest.mark.parametrize("finish", [False, True])
+def test_conv_relu_pool_128_backward_routes_in_one_launch(cuda, finish):
+    """The 128-channel tail's backward (K7's saved map, the route kernel,
+    then K5) equals the chain composed with the plain route bit for bit, as
+    the input gradient of conv2_2 was before the route kernel."""
+    from stylemesh_tpu_torch.models import vgg
+
+    x, w9, w9t, b = _conv_inputs(cuda, 2, 54, 70, 128, 128, seed=6)
+    x = x.relu() if finish else x
+    xt = x.clone().requires_grad_()
+    out = vgg._ConvReLUPool.apply(xt, w9, w9t, b, finish)
+    g = torch.randn(out.shape, device=cuda).to(torch.bfloat16)
+    before = head_kernels.pool_route.launches
+    (got,) = torch.autograd.grad(out, [xt], g)
+    assert head_kernels.pool_route.launches == before + 1
+    _, pre = head_kernels.conv_relu_pool(x, w9, b, with_pre=True)
+    dr = head_kernels.pool_route_plain(pre, g)
+    want = (conv_kernels.conv3x3_masked(dr, w9t, x, None) if finish
+            else conv_kernels.conv3x3(dr, w9t))
+    assert _same_bits(got, want)
 
 
 def _canary(cuda, shape, guard=4096):
