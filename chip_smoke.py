@@ -14,7 +14,9 @@ phase fails. Phases:
    conv1_1's stem kernels, float32 K1/K2, Adam) through
    ``TexturePipeline.prepare_batch`` and ``train_step``; every loss must be
    finite, the launch counts of K1-K8, the route kernel and the stem
-   kernels over the timed steps above zero
+   kernels over the timed steps above zero, K6's launches that write route
+   codes (``conv_relu_pool.switch_launches``) one a level a step and none
+   in ``prepare_batch``,
    and K1's and K2's one a step (one launch over all pyramid levels each),
    as the one-pass update's (Adam and the clamp over the four layers),
    and the profile of a step must show no cuDNN convolution and no float32
@@ -89,8 +91,9 @@ phase fails. Phases:
    difference in bf16 ulps logged; at every K5 and K9 shape, K5
    without bias and relu must equal K9 bit for bit, and at every block-tail
    shape K6 must equal maxpool2 of K5's relu output, K7's maps K5's output
-   and K6's, and K8 K5 with the flipped kernel on the routed cotangent, bit
-   for bit; the route kernel (``pool_route``, the 128-channel tail's pool
+   and K6's, K6 with route codes K6 and its codes the plain rule on K5's
+   relu output, and K8 (from those codes) K5 with the flipped kernel on the
+   routed cotangent, bit for bit; the route kernel (``pool_route``, the 128-channel tail's pool
    backward from K7's pre-pool map) at conv2_2's shape of each level
    against its plain chain, bit for bit, timed beside it; bound: the map
    read and dr written once, the pooled cotangent read once; K1/K2 (both
@@ -227,10 +230,15 @@ KERNELS = {  # launches: (wrapper, attribute holding its launch count);
     "K7_conv_relu_pool_dual": dict(
         source=GEMM_SRC, replaces="stylemesh_tpu/ops/head_pallas.py:234",
         launches=(head_kernels.conv_relu_pool, "dual_launches"), rel_tol=1e-2),
+    # K6 at 64 channels in a forward whose backward runs: the pooled map and
+    # each window's route codes, K8's input
+    "K6_conv_relu_pool_codes": dict(
+        source=GEMM_SRC, replaces="stylemesh_tpu/ops/head_pallas.py:487",
+        launches=(head_kernels.conv_relu_pool, "switch_launches"),
+        rel_tol=1e-2),
     "K8_conv_relu_pool_bwd": dict(
         source=BWD_SRC, replaces="stylemesh_tpu/ops/head_pallas.py:413",
-        launches=(head_kernels.conv_relu_pool_bwd, "launches"), rel_tol=1e-2,
-        max_share=2e-3),
+        launches=(head_kernels.conv_relu_pool_bwd, "launches"), rel_tol=1e-2),
     "K9_conv3x3_mxu": dict(source=GEMM_SRC,
                            replaces="stylemesh_tpu/ops/conv_pallas.py:136",
                            launches=(conv_kernels.conv3x3_mxu, "launches"),
@@ -287,7 +295,8 @@ KERNELS = {  # launches: (wrapper, attribute holding its launch count);
 }
 # the kernels each driven path must launch
 BENCH_KERNELS = ("K1_gather", "K2_splat", "K3_gram_fwd", "K4_gram_bwd",
-                 "K5_conv3x3", "K6_conv_relu_pool", "K7_conv_relu_pool_dual",
+                 "K5_conv3x3", "K6_conv_relu_pool", "K6_conv_relu_pool_codes",
+                 "K7_conv_relu_pool_dual",
                  "K8_conv_relu_pool_bwd", "stem_fwd", "stem_bwd", "pool_route")
 TRUNK_KERNELS = BENCH_KERNELS[4:]
 ONCE_A_STEP = ("K1_gather", "K2_splat", "update", "tex_reg_value")
@@ -304,9 +313,8 @@ K9_ENV = {"STYLEMESH_CONV_FLIPVJP": "0", "STYLEMESH_FAST_CONV": "1"}
 # K4 rounds a float32 sum to bf16: two bf16 ulps of the largest element
 #    (2 * 2^-8 ~ 1e-2).
 # K5-K7 round float32 sums taken in another order to bf16: 1e-2 (two ulps).
-# K8 as K5, but a value that rounds differently can break a tie in a pool
-#    window and route that window's gradient to another pixel: at most 2e-3
-#    of the elements may lie farther than 1e-2 from the plain version.
+# K8 as K5: its plain version routes by the same codes, so no tie can
+#    break the other way (1e-2).
 # K9 is K5 without bias and relu: 1e-2 (and K5 with bias=None, relu=False
 #    must equal it bit for bit: one C entry).
 # update: the same float32 operations in the same order as its plain
@@ -320,7 +328,8 @@ K9_ENV = {"STYLEMESH_CONV_FLIPVJP": "0", "STYLEMESH_FAST_CONV": "1"}
 #    than its own bf16 spacing when its float32 order changes).
 # Between the kernels, bit for bit (one mainloop at K5's N tile): K6 is
 #    maxpool2 of K5's relu output, K7's pre-pool map is that output and its
-#    pooled map K6's, K8 is K5 with the flipped kernel on the routed
+#    pooled map K6's, K6 with codes is K6 and its codes the plain rule's on
+#    K5's relu output, K8 is K5 with the flipped kernel on the routed
 #    cotangent.
 
 
@@ -412,10 +421,15 @@ def main_path():
     torch.cuda.synchronize()
     log(f"[main] setup (batch, style targets, init, prepare_batch): "
         f"{time.perf_counter() - t0:.3f} s")
+    switches = head_kernels.conv_relu_pool.switch_launches
     t0 = time.perf_counter()
     aux = pipe.prepare_batch(batch)
     torch.cuda.synchronize()
     prepare_ms = (time.perf_counter() - t0) * 1e3
+    switches = head_kernels.conv_relu_pool.switch_launches - switches
+    log(f"[main] prepare_batch: {switches} K6 launches with route codes")
+    if switches:
+        raise RuntimeError("prepare_batch's encodes wrote route codes")
     for _ in range(2):  # warm-up: the eager step, then the graphs' capture
         losses = pipe.train_step(state, batch, aux)
     torch.cuda.synchronize()
@@ -441,6 +455,11 @@ def main_path():
         if counts[name] != STEPS:
             raise RuntimeError(f"{name}: {counts[name]} launches in {STEPS} "
                                f"steps, not one a step")
+    # conv1_2 at each level: one K6 with route codes, one K8
+    for name in ("K6_conv_relu_pool_codes", "K8_conv_relu_pool_bwd"):
+        if counts[name] != len(batch.uv) * STEPS:
+            raise RuntimeError(f"{name}: {counts[name]} launches in {STEPS} "
+                               f"steps, not one a level a step")
     result = dict(step_ms=wall / STEPS * 1e3,
                   views_per_s=STEPS * batch.num_views / wall,
                   prepare_batch_ms=prepare_ms,
@@ -1504,11 +1523,27 @@ def trunk_kernels(where, pipe, pred, add):
                     lambda x=h: head_kernels.conv_relu_pool_plain(x, w9, b),
                     library, x_bytes + w_bytes + 4 * cout
                     + pooled.numel() * 2, flops)
+                switched, codes = head_kernels.conv_relu_pool(
+                    h, w9, b, with_codes=True)
+                err = check("K6_conv_relu_pool_codes", switched,
+                            head_kernels.conv_relu_pool_plain(h, w9, b), at)
+                same_bits(f"K6 with codes vs K6 at {at}", switched, pooled)
+                same_bits(f"K6's codes vs the plain rule on K5 at {at}", codes,
+                          head_kernels.pool_codes_plain(y))
+                add("K6_conv_relu_pool_codes", at, err,
+                    lambda x=h: head_kernels.conv_relu_pool(
+                        x, w9, b, with_codes=True),
+                    lambda x=h: head_kernels.conv_relu_pool_plain(
+                        x, w9, b, with_codes=True),
+                    library, x_bytes + w_bytes + 4 * cout
+                    + pooled.numel() * 2 + codes.numel() * 4, flops)
+                del switched
                 g = cotangent(pooled, seed=i)
-                dx = head_kernels.conv_relu_pool_bwd(h, w9, w9t, b, g, t)
+                hw = tuple(h.shape[1:3])
+                dx = head_kernels.conv_relu_pool_bwd(codes, g, w9t, hw, t)
                 err = check("K8_conv_relu_pool_bwd", dx,
                             head_kernels.conv_relu_pool_bwd_plain(
-                                h, w9, w9t, b, g, t), at)
+                                codes, g, w9t, hw, t), at)
                 k5_routed = conv_kernels.conv3x3(
                     head_kernels.pool_route_plain(y, g), w9t)
                 same_bits(f"K8 vs K5 on the routed cotangent"
@@ -1518,16 +1553,17 @@ def trunk_kernels(where, pipe, pred, add):
                 x_leaf = nchw(h).detach().requires_grad_()
                 lib_out = F.max_pool2d(F.relu(F.conv2d(
                     x_leaf, w_lib, b_lib, padding=1)), 2)
+                # bytes: the codes and g read, dx written (t read), w9t
                 add("K8_conv_relu_pool_bwd",
                     at + ("" if t is None else " with t"), err,
-                    lambda x=h: head_kernels.conv_relu_pool_bwd(
-                        x, w9, w9t, b, g, t),
-                    lambda x=h: head_kernels.conv_relu_pool_bwd_plain(
-                        x, w9, w9t, b, g, t),
+                    lambda: head_kernels.conv_relu_pool_bwd(
+                        codes, g, w9t, hw, t),
+                    lambda: head_kernels.conv_relu_pool_bwd_plain(
+                        codes, g, w9t, hw, t),
                     lambda: torch.autograd.grad(
                         lib_out, x_leaf, nchw(g), retain_graph=True),
-                    2 * x_bytes + 2 * w_bytes + 4 * cout + g.numel() * 2
-                    + (0 if t is None else x_bytes), 2 * flops)
+                    codes.numel() * 4 + g.numel() * 2 + x_bytes + w_bytes
+                    + (0 if t is None else x_bytes), flops)
                 del x_leaf, lib_out
                 h = pooled
             else:
@@ -2511,8 +2547,10 @@ SASS_KERNELS = {  # kernel -> its instantiations' tags in the mangled name
     "conv3x3_gemm_kernel": tuple(
         f"I{tile}{epi}E" for tile in ("Li1ELi256E", "Li2ELi128E", "Li2ELi64E")
         for epi in ("Lb0ELb0E", "Lb1ELb0E", "Lb1ELb1E")),
-    "conv_relu_pool_kernel": ("ILi2ELi64ELb0E", "ILi2ELi128ELb0E",
-                              "ILi2ELi64ELb1E", "ILi2ELi128ELb1E"),
+    # K6, K7 (DUAL), and K6 with route codes
+    "conv_relu_pool_kernel": ("ILi2ELi64ELb0ELb0E", "ILi2ELi128ELb0ELb0E",
+                              "ILi2ELi64ELb1ELb0E", "ILi2ELi128ELb1ELb0E",
+                              "ILi2ELi64ELb0ELb1E"),
     "conv_relu_pool_bwd_kernel": ("ILb0E", "ILb1E"),
     "gram_fwd_kernel": ("ILi1E", "ILi2E"),
     "gram_bwd_kernel": ("ILi1ELi1E", "ILi2ELi1E", "ILi1ELi2E", "ILi2ELi2E"),

@@ -39,9 +39,10 @@ _SIGNATURES = {
     "stylemesh_conv3x3": [_P, _P, _P, _P] + [_I] * 9 + [_P],
     # (x, w9, m, t, y): t may be NULL
     "stylemesh_conv3x3_masked": [_P] * 5 + [_I] * 8 + [_P],
-    "stylemesh_conv_relu_pool": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
-    # (x, w9, w9t, bias, g, t, dx): t may be NULL
-    "stylemesh_conv_relu_pool_bwd": [_P] * 7 + [_I] * 5 + [_P],
+    # (x, w9, bias, y, pooled, codes): y and codes may be NULL
+    "stylemesh_conv_relu_pool": [_P] * 6 + [_I] * 9 + [_P],
+    # (codes, g, w9t, t, dx): t may be NULL; V, H, W, the dx tile
+    "stylemesh_conv_relu_pool_bwd": [_P] * 5 + [_I] * 5 + [_P],
     # (r, g, dr), V, H, W, C
     "stylemesh_pool_route": [_P] * 3 + [_I] * 4 + [_P],
     # conv1_1: (x, w9, bias, y) and (g, y, w9, dx); V, H, W, relu

@@ -1,6 +1,8 @@
 // The bf16 3x3 convolution core shared by conv_gemm.cu (K5 / K9, K6 / K7)
 // and conv_pool_bwd.cu (K8): TMA copies into a ring of stages, mbarriers,
-// and one implicit-GEMM mainloop of Hopper's warpgroup MMA (wgmma).
+// and one implicit-GEMM mainloop of Hopper's warpgroup MMA (wgmma); and the
+// max pool's route rule of the block tails (K6's codes, K8, the route
+// kernel).
 //
 // The mainloop fixes the sum: K runs tap-major (dy, dx), one tap times 64
 // input channels (kBK, 128 bytes: one row of the 128-byte swizzle) per
@@ -361,6 +363,64 @@ __device__ __forceinline__ void consume_conv(const R& ring, int& it,
 #pragma unroll
   for (int i = 0; i < MB; ++i) fence_acc(acc[i]);
   if (t == 0) mbar_arrive(ring.empty_bar(it - 1));
+}
+
+// ----------------------------------------------------- the pool's route
+
+// The backward rule of the block tails' 2x2 max pool and the relu before it:
+// K6's pool epilogue (conv_gemm.cu) writes it as codes, K8 (conv_pool_bwd.cu)
+// reads them, and the route kernel applies it to a saved pre-pool map.
+//
+// Eight channels of one window at a time: q[e] is the window's pixel e in
+// raster order ((0,0), (0,1), (1,0), (1,1)) and g the window's cotangent,
+// eight bf16 each (channel c in bits [16 (c % 2), 16 (c % 2) + 16) of word
+// c / 2). Each channel's cotangent, its bits, goes to the first maximum in
+// that order where that value is > 0; every other element gets bf16 +0. A
+// channel whose window holds a NaN routes nothing: its maximum is NaN then
+// and equals no element (torch.maximum, then ==).
+//
+// A code word holds the route of eight channels: channel c's code, in bits
+// [4 c, 4 c + 4), is the pixel e that takes its cotangent, or kNoRoute.
+
+constexpr uint32_t kNoRoute = 4;  // every code word is then below 2^31
+
+__device__ __forceinline__ uint32_t window_codes(const uint32_t (&q)[4][4]) {
+  uint32_t code = 0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    // channel c's bf16, widened to float32 exactly
+    const int wd = c / 2, sh = 16 * (c % 2);
+    float f[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[e] = __uint_as_float(((q[e][wd] >> sh) & 0xFFFFu) << 16);
+    const float top = fmaxf(fmaxf(f[0], f[1]), fmaxf(f[2], f[3]));
+    uint32_t k = kNoRoute;
+    if (!(isnan(f[0]) || isnan(f[1]) || isnan(f[2]) || isnan(f[3])))
+#pragma unroll
+      for (int e = 3; e >= 0; --e)
+        if (f[e] == top && f[e] > 0.0f) k = e;  // the last set is the first
+    code |= k << (4 * c);
+  }
+  return code;
+}
+
+// out[e]: the eight channels of g whose code is e, +0 in the others.
+__device__ __forceinline__ void route_codes(uint32_t code, const uint32_t (&g)[4],
+                                            uint32_t (&out)[4][4]) {
+#pragma unroll
+  for (int wd = 0; wd < 4; ++wd) {
+    const uint32_t lo = (code >> (8 * wd)) & 0xFu, hi = (code >> (8 * wd + 4)) & 0xFu;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      out[e][wd] = g[wd] & ((lo == (uint32_t)e ? 0x0000FFFFu : 0u) |
+                            (hi == (uint32_t)e ? 0xFFFF0000u : 0u));
+  }
+}
+
+__device__ __forceinline__ void route_window(const uint32_t (&q)[4][4],
+                                             const uint32_t (&g)[4],
+                                             uint32_t (&out)[4][4]) {
+  route_codes(window_codes(q), g, out);
 }
 
 // ------------------------------------------------------------------ host

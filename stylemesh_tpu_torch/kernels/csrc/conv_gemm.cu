@@ -16,6 +16,10 @@
 //       _kernel_direct, 128): p = maxpool2(bf16(relu(conv3x3(x, w) + b)));
 //   K7  ops/head_pallas.py::conv_relu_pool_dual (_kernel_direct_dual): K6 that
 //       also writes the pre-pool activation y.
+// K6 with codes (64 channels, a forward whose backward will run) also writes
+// each pool window's route, 4-bit codes by conv_core.cuh's route rule (32
+// bytes a window), for K8 (conv_pool_bwd.cu): the TPU kernel recomputes the
+// relu output in its backward instead.
 // K6 and K7 are K5's kernel with a pool epilogue: the same mainloop
 // (conv_core.cuh) at K5's N tile, so their pre-pool values are K5's relu
 // output bit for bit and the pooled map is maxpool2 of it.
@@ -67,7 +71,8 @@
 //   so every 2x2 window lies in one block of one warpgroup. Each thread
 //   takes one window's maximum of the bf16 values for 8 channels and
 //   stores those 16 bytes; windows past the floor of H / 2 or W / 2 store
-//   nothing.
+//   nothing. With codes (kCodes) it also stores the window's code word for
+//   those 8 channels (window_codes of the same four bf16 pixels).
 // - A persistent grid, one block per SM: the producer fills the ring for a
 //   block's next tile during its epilogue. Tiles run N-fastest, so the N
 //   tiles of one pixel box run together and share the box in L2.
@@ -82,8 +87,9 @@ constexpr int kEpiBytes = 2 * 2 * kEpiBuf;  // two buffers per consumer warpgrou
 
 // What the epilogue writes: the conv map y (K5, K7) and the pooled map (K6,
 // K7); kMask: y finishes the cotangent of a relu output m (zero where
-// m <= 0), kAddT: after adding the tap's cotangent t (K5's input gradients).
-constexpr int kStoreY = 1, kPool = 2, kMask = 4, kAddT = 8;
+// m <= 0), kAddT: after adding the tap's cotangent t (K5's input gradients);
+// kCodes: each pool window's route codes too (K6 for K8).
+constexpr int kStoreY = 1, kPool = 2, kMask = 4, kAddT = 8, kCodes = 16;
 
 // A tile: MB m64 blocks per consumer warpgroup (128 MB output pixels) times
 // BN output channels.
@@ -172,7 +178,7 @@ __device__ __forceinline__ void conv_tiles(
     const CUtensorMap* xmap, const CUtensorMap* wmap, const CUtensorMap* ymap,
     const float* __restrict__ bias, bf16* __restrict__ pooled, int H, int W,
     int cin, int cout, int box_h, int box_w, int relu, int tiles,
-    const CUtensorMap* mmap, const CUtensorMap* tmap) {
+    const CUtensorMap* mmap, const CUtensorMap* tmap, uint32_t* __restrict__ codes) {
   using T = Tile<MB, BN>;
   using E = EpiLoads<MB, BN, EPI>;
   extern __shared__ unsigned char smem_raw[];
@@ -332,10 +338,15 @@ __device__ __forceinline__ void conv_tiles(
               max_bf16x2(max_bf16x2(a.z, b.z), max_bf16x2(d.z, e.z)),
               max_bf16x2(max_bf16x2(a.w, b.w), max_bf16x2(d.w, e.w)));
           const int py = (c.y0 + r / box_w) / 2 + qa, px = c.x0 / 2 + qb;
-          if (py < H2 && px < W2)
-            *reinterpret_cast<uint4*>(
-                pooled + (((size_t)c.v * H2 + py) * W2 + px) * cout + c.n0 +
-                64 * p + 8 * j) = m;
+          if (py < H2 && px < W2) {
+            const size_t win = ((size_t)c.v * H2 + py) * W2 + px;
+            *reinterpret_cast<uint4*>(pooled + win * cout + c.n0 + 64 * p + 8 * j) = m;
+            if constexpr ((EPI & kCodes) != 0) {
+              const uint32_t quad[4][4] = {{a.x, a.y, a.z, a.w}, {b.x, b.y, b.z, b.w},
+                                           {d.x, d.y, d.z, d.w}, {e.x, e.y, e.z, e.w}};
+              codes[win * (cout / 8) + (c.n0 + 64 * p) / 8 + j] = window_codes(quad);
+            }
+          }
         }
         nbuf ^= 1;
       }
@@ -357,20 +368,21 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_gemm_kernel(
     const __grid_constant__ CUtensorMap tmap) {
   conv_tiles<MB, BN, kStoreY | (MASK ? kMask : 0) | (ADD_T ? kAddT : 0)>(
       &xmap, &wmap, &ymap, bias, nullptr, H, W, cin, cout, box_h, box_w, relu,
-      tiles, &mmap, &tmap);
+      tiles, &mmap, &tmap, nullptr);
 }
 
 // K6 (DUAL false: the pooled map only) and K7 (DUAL: y too); relu on.
-template <int MB, int BN, bool DUAL>
+// CODES: K6 that writes the route codes too.
+template <int MB, int BN, bool DUAL, bool CODES>
 __global__ void __launch_bounds__(kThreads, 1) conv_relu_pool_kernel(
     const __grid_constant__ CUtensorMap xmap,
     const __grid_constant__ CUtensorMap wmap,
     const __grid_constant__ CUtensorMap ymap, const float* __restrict__ bias,
     bf16* __restrict__ pooled, int H, int W, int cin, int cout, int box_h,
-    int box_w, int tiles) {
-  conv_tiles<MB, BN, DUAL ? kStoreY | kPool : kPool>(
+    int box_w, int tiles, uint32_t* __restrict__ codes) {
+  conv_tiles<MB, BN, (DUAL ? kStoreY | kPool : kPool) | (CODES ? kCodes : 0)>(
       &xmap, &wmap, &ymap, bias, pooled, H, W, cin, cout, box_h, box_w, 1, tiles,
-      nullptr, nullptr);
+      nullptr, nullptr, codes);
 }
 
 // The launch of tile <MB, BN>: the tensor maps, then `kernel` on a
@@ -453,19 +465,19 @@ bool conv_tile_ok(int cin, int cout, int box_h, int box_w, int block_n) {
          cout % block_n == 0;
 }
 
-template <int MB, int BN, bool DUAL>
+template <int MB, int BN, bool DUAL, bool CODES = false>
 int launch_pool(const void* x, const void* w9, const void* bias, void* y,
-                void* pooled, int V, int H, int W, int cin, int cout, int box_h,
-                int box_w, cudaStream_t st) {
+                void* pooled, void* codes, int V, int H, int W, int cin, int cout,
+                int box_h, int box_w, cudaStream_t st) {
   return launch<MB, BN>(
       x, w9, DUAL ? y : nullptr, nullptr, nullptr, V, H, W, cin, cout, box_h,
-      box_w, (const void*)conv_relu_pool_kernel<MB, BN, DUAL>,
+      box_w, (const void*)conv_relu_pool_kernel<MB, BN, DUAL, CODES>,
       [&](int blocks, int smem, const CUtensorMap& xmap, const CUtensorMap& wmap,
           const CUtensorMap& ymap, const CUtensorMap&, const CUtensorMap&,
           int tiles) {
-        conv_relu_pool_kernel<MB, BN, DUAL><<<blocks, kThreads, smem, st>>>(
+        conv_relu_pool_kernel<MB, BN, DUAL, CODES><<<blocks, kThreads, smem, st>>>(
             xmap, wmap, ymap, (const float*)bias, (bf16*)pooled, H, W, cin, cout,
-            box_h, box_w, tiles);
+            box_h, box_w, tiles, (uint32_t*)codes);
       });
 }
 
@@ -512,31 +524,36 @@ extern "C" int stylemesh_conv3x3_masked(const void* x, const void* w9,
 
 // pooled = maxpool2(bf16(relu(conv3x3(x, w9) + bias))) [V, H / 2, W / 2,
 // Cout] (K6); with `dual`, y = the pre-pool map [V, H, W, Cout] too (K7).
-// bias may be NULL (zero). Tiles of 256 pixels x block_n = 64 or 128
-// channels (K5's for that Cout), box_w 8, 16 or 32 (so that an m64 block
-// is whole row pairs of the box). Cin a multiple of 64, Cout of block_n.
-// Returns as stylemesh_conv3x3.
+// codes, or NULL: each window's route codes, uint32 [V, H / 2, W / 2,
+// Cout / 8] (conv_core.cuh), for K6 at block_n 64 alone. bias may be NULL
+// (zero). Tiles of 256 pixels x block_n = 64 or 128 channels (K5's for that
+// Cout), box_w 8, 16 or 32 (so that an m64 block is whole row pairs of the
+// box). Cin a multiple of 64, Cout of block_n. Returns as stylemesh_conv3x3.
 extern "C" int stylemesh_conv_relu_pool(const void* x, const void* w9,
                                         const void* bias, void* y, void* pooled,
-                                        int V, int H, int W, int cin, int cout,
-                                        int dual, int box_h, int box_w,
+                                        void* codes, int V, int H, int W, int cin,
+                                        int cout, int dual, int box_h, int box_w,
                                         int block_n, void* stream) {
   if (cin <= 0 || cin % kBK != 0 || cout <= 0 || box_h * box_w != 256 ||
       !(box_w == 8 || box_w == 16 || box_w == 32) ||
-      !(block_n == 64 || block_n == 128) || cout % block_n != 0)
+      !(block_n == 64 || block_n == 128) || cout % block_n != 0 ||
+      (codes != nullptr && (dual || block_n != 64)))
     return (int)cudaErrorInvalidValue;
   if (V == 0 || H == 0 || W == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  if (codes != nullptr)
+    return launch_pool<2, 64, false, true>(x, w9, bias, y, pooled, codes, V, H, W,
+                                           cin, cout, box_h, box_w, st);
   if (dual) {
     if (block_n == 128)
-      return launch_pool<2, 128, true>(x, w9, bias, y, pooled, V, H, W, cin, cout,
-                                       box_h, box_w, st);
-    return launch_pool<2, 64, true>(x, w9, bias, y, pooled, V, H, W, cin, cout,
-                                    box_h, box_w, st);
+      return launch_pool<2, 128, true>(x, w9, bias, y, pooled, nullptr, V, H, W,
+                                       cin, cout, box_h, box_w, st);
+    return launch_pool<2, 64, true>(x, w9, bias, y, pooled, nullptr, V, H, W, cin,
+                                    cout, box_h, box_w, st);
   }
   if (block_n == 128)
-    return launch_pool<2, 128, false>(x, w9, bias, y, pooled, V, H, W, cin, cout,
-                                      box_h, box_w, st);
-  return launch_pool<2, 64, false>(x, w9, bias, y, pooled, V, H, W, cin, cout,
-                                   box_h, box_w, st);
+    return launch_pool<2, 128, false>(x, w9, bias, y, pooled, nullptr, V, H, W,
+                                      cin, cout, box_h, box_w, st);
+  return launch_pool<2, 64, false>(x, w9, bias, y, pooled, nullptr, V, H, W, cin,
+                                   cout, box_h, box_w, st);
 }

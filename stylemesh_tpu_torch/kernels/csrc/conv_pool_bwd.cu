@@ -1,56 +1,70 @@
 // K8: the input gradient of the 64-channel fused block tail
 // maxpool2(bf16(relu(conv3x3(x, w) + b))), on the wgmma + TMA core of
-// conv_core.cuh; and the route kernel, the pool's backward of the
-// 128-channel tail by K8's routing rule (at the end of this note).
+// conv_core.cuh, from the pool's route codes that K6 wrote in the forward;
+// and the route kernel, the pool's backward of the 128-channel tail by the
+// same rule (at the end of this note).
 //
 // Replaces the TPU kernel
 //   K8  ops/head_pallas.py::conv_relu_pool_bwd (_kernel_packed_bwd):
-//       dx = conv3x3(pool_route(r, g), w9t), r = bf16(relu(conv3x3(x, w9) + b))
-//       recomputed, g the pooled cotangent, w9t the flipped io-swapped kernel.
-// The inputs are the TPU kernel's: x, w9, w9t, bias, g, and optionally t,
-// the loss tap's cotangent of x: dx = bf16(float(dx) + float(t)) then, the
-// bf16 sum autograd would take. r and the routed gradient dr stay in shared
-// memory; x, g and t are read, only dx is written.
+//       dx = conv3x3(pool_route(r, g), w9t), r = bf16(relu(conv3x3(x, w9) + b)),
+//       g the pooled cotangent, w9t the flipped io-swapped kernel.
+// The TPU kernel recomputes r on the tile. Here the forward keeps, instead
+// of r, each window's route: K6's pool epilogue writes a 4-bit code per
+// window and channel (conv_core.cuh's rule; 32 bytes a window, a sixteenth
+// of r), and K8 reads the codes and g and runs only the transposed conv,
+// optionally adding t, the loss tap's cotangent of x: dx = bf16(float(dx) +
+// float(t)) then, the bf16 sum autograd would take. The routed gradient dr
+// stays in shared memory; codes, g and t are read, only dx is written.
 //
-// Layouts: x, dx bf16 [V, H, W, 64] (channel-last), g bf16 [V, H / 2, W / 2,
-// 64], w9 and w9t bf16 [9 * 64, 64] with rows in (dy, dx, ci) order, bias
-// float32 [64]. Stride 1, SAME zero padding.
+// Layouts: codes uint32 [V, H / 2, W / 2, 8] (word j: channels 8 j + [0, 8)),
+// g bf16 [V, H / 2, W / 2, 64], dx and t bf16 [V, H, W, 64] (channel-last),
+// w9t bf16 [9 * 64, 64] with rows in (dy, dx, ci) order. Stride 1, SAME zero
+// padding.
 //
-// What bounds it on an H100: the tensor cores, as for K5 (conv_gemm.cu):
-// two 64-channel convs per dx pixel, plus the recompute of r on the halo.
-// One block per dx tile of kTH x kTW = 24 x 32 pixels (both even, so the
-// tile holds whole pool windows), three phases:
-// 1. r on the tile plus one ring of pool windows, kRH x kRW = 28 x 36
-//    pixels (rows and columns -2 .. +2 around the tile), from the shared
-//    mainloop at N = 64 (K5's N tile for 64 channels) in four boxes of
-//    7 x 36 = 252 pixels, each an A tile of four m64 blocks (the last 4
-//    rows unused). The epilogue is K5's (float32 bias, relu, one rounding
-//    to bf16) into a shared r tile, one pixel per 128-byte swizzled row, so
-//    r equals K6's / K5's values bit for bit and the routing is the
-//    forward's. TMA's zero fill is the SAME padding. Recompute overhead:
-//    28 * 36 / (24 * 32) = 1.3125 (the WMMA kernel it replaces: 1.71).
-// 2. Route, in place: each window's cotangent goes to its first maximum in
-//    raster order where that value is > 0; windows outside the pooled map
-//    (image border, odd tail) route nothing, so dr is 0 there and at every
-//    pixel outside the image: the transposed conv's padding.
-// 3. dx = the transposed conv of dr (the conv with w9t) in the same K order
-//    and instruction shape as K5, so dx equals K5 on the routed map bit for
-//    bit. A, dr shifted by the tap, is read from the r tile with
-//    ldmatrix (any pixel offset), and wgmma takes it from registers; B
-//    (w9t) comes through the ring. The 12 m64 blocks of dx (two rows of 32
-//    pixels each) run in three passes of two per consumer warpgroup; each
-//    block is stored by TMA (clipped at the map's edge) from a swizzled
-//    buffer in the then idle A area of the warpgroup's ring stage. With t,
-//    each block's t is loaded by TMA into that buffer ahead of its pass
-//    (the first four blocks' during phase 2, the last two's once the
-//    stores of the first two have read their buffers) and summed in place.
-// Shared memory: a 2-stage ring of 40 KB stages (80 KB) and the 126 KB r
-// tile, 207 KB: one block per SM. The ring has two stages, not K5's four,
-// because the r tile takes the rest.
+// What bounds it on an H100: both, nearly. Per dx pixel it reads 8 bytes of
+// codes and g, 128 of t, writes 128 of dx (1.95 GB a step at the bench's four
+// conv1_2 levels, V = 4: 0.583 ms at 3.35 TB/s) and does one 64-channel conv
+// (0.486 TFLOP, 0.491 ms at 989 TFLOP/s). So the copies, the routing and the
+// tensor cores all have to stay busy at once; and at 64 channels an
+// m64n64k16 product reads as many bytes of shared memory (its A and its B)
+// as the tensor cores can take in, so the products must read fewer. The
+// design:
+// - Work items of kR x kSW = 16 x 64 dx pixels (one m64 block a row), two
+//   streams a block (one block per SM, a persistent grid): consumer
+//   warpgroup 1 + s with producer warps 2 s, 2 s + 1 walks every other item.
+// - w9t resident: loaded once by TMA (9 boxes of 64 x 64, 72 KB).
+// - The producer warps build the item's dr rows, each the strip plus one
+//   ring column each side (66 pixels, one per 128-byte swizzled row), a
+//   window row (two dr rows) at a time, into a ring of 4 rows (two
+//   windows' rows, an empty and a full mbarrier each), loading the next
+//   window row's codes and g while they route the last. A pixel takes g's
+//   value where its window's code names it and +0 elsewhere; pixels of no
+//   whole window (the odd tail, outside the image) take +0, the transposed
+//   conv's padding.
+// - The consumers walk the dr rows q = 0 .. kR + 1 as a wavefront: each
+//   k16 step's A fragment of row q (ldmatrix at any pixel offset, into
+//   registers that wgmma takes) serves block q at dy = 0, block q - 1 at
+//   dy = 1 and block q - 2 at dy = 2, one wgmma group of three
+//   m64n64k16 products. That reads A once for three products, and each
+//   block still sums its taps in K5's order (dy, dx, then 16 channels a
+//   product), so dx equals K5 on the routed map bit for bit. Three
+//   accumulator sets rotate over the blocks; A loads into kABufs = 4
+//   register sets in turn, so three groups run while the next one's A
+//   loads. Nothing else runs in the consumers while products are in
+//   flight (t's copies wait for the epilogue): wgmma reads its A
+//   registers after the compiler takes them for free.
+// - Block q - 2 is complete after row q: its epilogue (K5's without bias or
+//   relu) goes to one of 5 8 KB swizzled slots and is stored by TMA
+//   (clipped at the map's edge) while the next rows' products run. With t,
+//   block q + 2's t is copied into its slot (cp.async, 16 bytes a copy, 5
+//   slots) at the end of that epilogue, while no wgmma runs, and summed in
+//   place in its own epilogue, two rows later.
+// Shared memory: w9t 72 KB, 2 x 5 slots 80 KB, 2 rings of 4 dr rows 66 KB:
+// 218 KB, one block per SM.
 //
 // The route kernel (stylemesh_pool_route): the 128-channel tail's backward
 // before K5, dr = pool_route(r, g) from the saved relu output r (K7's pre-pool
-// map) and the pooled cotangent g, by K8's phase-2 rule (route_window). It
+// map) and the pooled cotangent g, by conv_core.cuh's rule (route_window). It
 // replaces a chain of about 40 PyTorch passes (a float32 copy of r, three
 // maximums, per window position eq, gt, and, or and where, a stack, a zero
 // fill and a permuted copy); the TPU path has no kernel for it (the pool's
@@ -64,25 +78,31 @@
 
 namespace {
 
-constexpr int kC = 64;                // channels of x, r and dx
-constexpr int kTH = 24, kTW = 32;     // dx tile
-constexpr int kRH = kTH + 4, kRW = kTW + 4;  // r region
-constexpr int kSubRows = 7;           // r rows per phase-1 box
-constexpr int kSubs = kRH / kSubRows; // phase-1 boxes
-constexpr int kSubPx = kSubRows * kRW;  // 252 pixels of a 256-row A tile
-constexpr int kATile = 4 * kABlock;   // two m64 blocks per consumer warpgroup
-constexpr int kStage = kATile + kBBox;
-constexpr int kStages = 2;
-constexpr int kRTile = kRH * kRW * 128;
-constexpr int kEpiBuf = 64 * kC * 2;  // one m64 block of dx: 8 KB
-constexpr int kPasses = kTH / 2 / 4;  // phase 3: 2 blocks per warpgroup a pass
-constexpr int kEpiBufs = kATile / kEpiBuf;  // dx buffers per warpgroup: 4
-constexpr int kSmem = kStages * kStage + kRTile + 16 * kStages + 32 + 1024;
+constexpr int kC = 64;                     // channels of g, dr and dx
+constexpr int kSW = 64;                    // dx strip width: one m64 block a row
+constexpr int kRW = kSW + 2;               // dr row: the strip and one ring column each side
+constexpr int kR = 16;                     // dx rows of a work item
+constexpr int kTimes = kR + 2;             // dr rows of an item, one a time step
+constexpr int kUnits = kR / 2 + 2;         // window rows over those dr rows
+constexpr int kSub = 12;                   // k16 steps of a dr row: 3 dx x 4 kk
+constexpr int kABufs = 4;                  // A register sets in turn
+constexpr int kRowBytes = kRW * 128;
+constexpr int kRing = 4 * kRowBytes;       // a stream's dr rows, two units
+constexpr int kSlots = 5;                  // t / dx slots of a stream
+constexpr int kSlot = 64 * kC * 2;         // one row of 64 pixels: 8 KB
+constexpr int kW9 = 9 * kBBox;             // w9t, resident
+constexpr int kWinCols = kSW / 2 + 2;      // windows across a dr row pair
+constexpr int kUnitItems = kWinCols * 8;   // a unit's (window, 8 channels) items
+constexpr int kPThreads = 64;              // producer threads of a stream
+constexpr int kItemsPerThread = (kUnitItems + kPThreads - 1) / kPThreads;
+// mbarriers of a stream: full[2], empty[2]
+constexpr int kBars = 4 * 8;
+constexpr int kSmem = kW9 + 2 * kSlots * kSlot + 2 * kRing + 2 * kBars + 8 + 1024;
 
-static_assert(kSubs * kSubRows == kRH && kSubPx <= 256, "phase-1 boxes");
-static_assert(kTW == 32 && kTH % 8 == 0, "m64 blocks of dx: two rows of 32");
+static_assert(kTimes % 3 == 0, "the time loop is unrolled by 3 (accumulator sets)");
+static_assert(kSub % kABufs == 0 && kUnits % 2 == 0,
+              "buffer indices repeat from item to item");
 static_assert(kSmem <= 232448, "shared memory of one block");
-static_assert(2 * kPasses - kEpiBufs == 2, "t of the last pass: two buffers");
 constexpr int kRouteThreads = 256;  // the route kernel's block
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
@@ -92,233 +112,264 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
                : "memory");
 }
 
-// The pool's backward for one 2x2 window and eight channels, K8's rule and
-// the route kernel's: q[e] is the window's pixel e in raster order ((0,0),
-// (0,1), (1,0), (1,1)) and g the window's cotangent, eight bf16 each (channel
-// c in bits [16 (c % 2), 16 (c % 2) + 16) of word c / 2). Each channel's
-// cotangent, its bits, goes to the first maximum in that order where that
-// value is > 0; every other element of out is bf16 +0. A channel whose
-// window holds a NaN routes nothing: its maximum is NaN then and equals no
-// element (torch.maximum, then ==). K8's r, a relu output, holds no NaN.
-__device__ __forceinline__ void route_window(const uint32_t (&q)[4][4],
-                                             const uint32_t (&g)[4],
-                                             uint32_t (&out)[4][4]) {
+// Keeps the registers of an A fragment allocated up to this point: wgmma
+// reads them asynchronously, after the compiler takes them for dead.
+__device__ __forceinline__ void fence_a(uint32_t (&a)[4]) {
 #pragma unroll
-  for (int e = 0; e < 4; ++e) out[e][0] = out[e][1] = out[e][2] = out[e][3] = 0u;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    // channel c's bf16, widened to float32 exactly
-    const int wd = c / 2, sh = 16 * (c % 2);
-    float f[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) f[e] = __uint_as_float(((q[e][wd] >> sh) & 0xFFFFu) << 16);
-    const float top = fmaxf(fmaxf(f[0], f[1]), fmaxf(f[2], f[3]));
-    bool taken = isnan(f[0]) || isnan(f[1]) || isnan(f[2]) || isnan(f[3]);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool first = !taken && f[e] == top && f[e] > 0.0f;
-      taken = taken || first;
-      if (first) out[e][wd] |= ((g[wd] >> sh) & 0xFFFFu) << sh;
-    }
-  }
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
-// ADD_T: t (tmap) is added to dx.
+// Work item `item` of a launch: dx rows y0 .. y0 + kR of image v, columns
+// x0 .. x0 + kSW.
+struct Item {
+  int v, y0, x0;
+};
+
+__device__ __forceinline__ Item item_at(int item, int strips, int chunks) {
+  Item c;
+  c.x0 = (item % strips) * kSW;
+  item /= strips;
+  c.y0 = (item % chunks) * kR;
+  c.v = item / chunks;
+  return c;
+}
+
+// ADD_T: t (`tcot`) is added to dx. Two streams a block: stream s (consumer
+// warpgroup 1 + s, fed by producer warps 2 s, 2 s + 1) takes the items
+// 2 blockIdx.x + s, then 2 gridDim.x further on, ...
 template <bool ADD_T>
 __global__ void __launch_bounds__(kThreads, 1) conv_relu_pool_bwd_kernel(
-    const __grid_constant__ CUtensorMap xmap,
-    const __grid_constant__ CUtensorMap wmap,
     const __grid_constant__ CUtensorMap wtmap,
-    const __grid_constant__ CUtensorMap dxmap, const float* __restrict__ bias,
-    const bf16* __restrict__ g, int H, int W, int tiles_x, int tiles_y,
-    const __grid_constant__ CUtensorMap tmap) {
+    const __grid_constant__ CUtensorMap dxmap,
+    const bf16* __restrict__ tcot, const uint32_t* __restrict__ codes,
+    const bf16* __restrict__ g, int H, int W, int strips, int chunks, int items) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;  // swizzle atoms: 1 KB aligned
   unsigned char* smem = smem_raw + (base - raw);
-  const uint32_t rt = base + kStages * kStage;  // the r / dr tile
-  unsigned char* rtp = smem + kStages * kStage;
-  const Ring<kStage, kStages> ring{base, rt + kRTile, rt + kRTile + 8 * kStages};
-  // t's barriers: per consumer warpgroup, its first four blocks, its last two
-  const uint32_t tbar = rt + kRTile + 16 * kStages;
+  const uint32_t w9 = base, slots = w9 + kW9, rings = slots + 2 * kSlots * kSlot;
+  const uint32_t bars = rings + 2 * kRing, wbar = bars + 2 * kBars;
   const int wg = threadIdx.x / 128;
 
-  int m = blockIdx.x;
-  const int x0 = (m % tiles_x) * kTW;
-  m /= tiles_x;
-  const int y0 = (m % tiles_y) * kTH;
-  const int v = m / tiles_y;
-
   if (threadIdx.x == 0) {
-    if constexpr (ADD_T)
-      for (int k = 0; k < 4; ++k) mbar_init(tbar + 8 * k, 1);
-    ring.init(2);  // one arrival per consumer warpgroup
+    for (int st = 0; st < 2; ++st) {
+      const uint32_t b = bars + st * kBars;
+      for (int k = 0; k < 2; ++k) {
+        mbar_init(b + 8 * k, kPThreads);  // full: every producer thread
+        mbar_init(b + 16 + 8 * k, 128);   // empty: every consumer thread
+      }
+    }
+    mbar_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
   if (wg == 0) {
     // ---------------------------------------------------------- producer
+    // Stream st's dr rows: unit u of an item covers dr rows 2 u - 1 and 2 u
+    // (image rows y0 - 2 + 2 u, y0 - 1 + 2 u: window row y0 / 2 - 1 + u),
+    // and lands in ring rows (dr row) % 4, slot u % 2.
+    const int st = threadIdx.x / kPThreads, p = threadIdx.x % kPThreads, j = p % 8;
     if (threadIdx.x == 0) {
-      int it = 0;
-      for (int s = 0; s < kSubs; ++s)  // phase 1: x boxes and w9
-        produce_conv<kC>(ring, it, &xmap, &wmap, kC, x0 - 2,
-                         y0 - 2 + kSubRows * s, v, 0, kSubPx * 128, kATile);
-      for (int q = 0; q < kPasses; ++q)  // phase 3: w9t, tap by tap
-        for (int tap = 0; tap < 9; ++tap, ++it)
-          tma_load_2d(ring.acquire(it, kBBox) + kATile, &wtmap, ring.full_bar(it),
-                      0, tap * kC);
+      mbar_expect_tx(wbar, kW9);
+      for (int tap = 0; tap < 9; ++tap)
+        tma_load_2d(w9 + tap * kBBox, &wtmap, wbar, 0, tap * kC);
+    }
+    const uint32_t full = bars + st * kBars, empty = full + 16;
+    unsigned char* ring = smem + (rings - base) + st * kRing;
+    const int H2 = H / 2, W2 = W / 2;
+    // this thread's items of unit u of `item`: window column p / 8 + 8 k
+    auto load = [&](int item, int u, uint4 (&gv)[kItemsPerThread],
+                    uint32_t (&cv)[kItemsPerThread]) {
+      const Item c = item_at(item, strips, chunks);
+      const int py = c.y0 / 2 - 1 + u;
+#pragma unroll
+      for (int k = 0; k < kItemsPerThread; ++k) {
+        const int wc = p / 8 + (kPThreads / 8) * k, px = c.x0 / 2 - 1 + wc;
+        gv[k] = make_uint4(0u, 0u, 0u, 0u);
+        cv[k] = 0u;
+        if (wc < kWinCols && py >= 0 && py < H2 && px >= 0 && px < W2) {
+          const size_t win = ((size_t)c.v * H2 + py) * W2 + px;
+          gv[k] = __ldg(reinterpret_cast<const uint4*>(g + win * kC) + j);
+          cv[k] = __ldg(codes + win * 8 + j);
+        }
+      }
+    };
+    auto build = [&](int un, int u, const uint4 (&gv)[kItemsPerThread],
+                     const uint32_t (&cv)[kItemsPerThread]) {
+      mbar_wait(empty + 8 * (un & 1), ((un >> 1) & 1) ^ 1);  // its slot was read
+#pragma unroll
+      for (int k = 0; k < kItemsPerThread; ++k) {
+        const int wc = p / 8 + (kPThreads / 8) * k;
+        if (wc >= kWinCols) continue;
+        const uint32_t gw[4] = {gv[k].x, gv[k].y, gv[k].z, gv[k].w};
+        uint32_t out[4][4];
+        route_codes(cv[k], gw, out);
+        // the window's pixel e: dr row 2 u - 1 + e / 2, column 2 wc - 1 + e % 2
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 2 * u - 1 + e / 2, col = 2 * wc - 1 + e % 2;
+          if (row >= 0 && row < kTimes && col >= 0 && col < kRW)
+            *reinterpret_cast<uint4*>(ring + (row & 3) * kRowBytes + swz(col, j)) =
+                make_uint4(out[e][0], out[e][1], out[e][2], out[e][3]);
+        }
+      }
+      mbar_arrive(full + 8 * (un & 1));
+    };
+    // units in order, each loaded while the one before is built
+    uint4 ga[kItemsPerThread], gb[kItemsPerThread];
+    uint32_t ca[kItemsPerThread], cb[kItemsPerThread];
+    int item = 2 * blockIdx.x + st, u = 0, un = 0;
+    auto next = [&](int& it, int& uu) {
+      if (++uu == kUnits) uu = 0, it += 2 * gridDim.x;
+    };
+    if (item < items) load(item, u, ga, ca);
+    while (item < items) {
+      int it2 = item, u2 = u;
+      next(it2, u2);
+      if (it2 < items) load(it2, u2, gb, cb);
+      build(un++, u, ga, ca);
+      item = it2, u = u2;
+      if (item >= items) break;
+      next(it2, u2);
+      if (it2 < items) load(it2, u2, ga, ca);
+      build(un++, u, gb, cb);
+      item = it2, u = u2;
     }
     return;
   }
 
   // ----------------------------------------------------------- consumers
-  const int gi = wg - 1;
+  // Stream st walks its items' dr rows q = 0 .. kR + 1 (image row y0 - 1 +
+  // q), one a time step: each k16 step's A fragment of row q serves up to
+  // three m64 blocks (dx rows of 64 pixels) at once, block q at dy 0, block
+  // q - 1 at dy 1, block q - 2 at dy 2, so each block still sums its taps in
+  // K5's order (dy, dx, then channels). Block q - 2 is then complete: its
+  // epilogue ends the time step, and its accumulators take block q + 1.
+  const int st = wg - 1;
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
   const int r0 = warp * 16 + lane / 4, cq = 2 * (lane % 4);
-  const uint32_t epi = ring.stage(gi);  // this warpgroup's stage's A area
-  int it = 0;
-  // the warpgroup's dx block k (of 2 kPasses): rows 2 blk, 2 blk + 1 of the
-  // tile, into buffer k % kEpiBufs
-  auto block = [&](int k) { return 4 * (k / 2) + 2 * gi + k % 2; };
-  const CUtensorMap* tm = &tmap;
-  auto load_t = [&](int k0, int k1, uint32_t bar) {
-    mbar_expect_tx(bar, (k1 - k0) * kEpiBuf);
-    for (int k = k0; k < k1; ++k)
-      tma_load_4d(epi + k % kEpiBufs * kEpiBuf, tm, bar, 0, x0, y0 + 2 * block(k), v);
-  };
-
-  // 1. r = bf16(relu(conv3x3(x, w9) + b)) on the r region, box by box
-  for (int s = 0; s < kSubs; ++s) {
-    float acc[2][kC / 2];
-    consume_conv<2, kC>(ring, it, acc, 9, gi * 2 * kABlock, kATile, t);
+  // lane l gives ldmatrix row 16 warp + l % 16 of a block (its pixel) and
+  // channels 8 (l / 16) + [0, 8) of each 16-channel step
+  const int acol = 16 * warp + (lane & 15);
+  const uint32_t full = bars + st * kBars, empty = full + 16;
+  const uint32_t ring = rings + st * kRing, slot0 = slots + st * kSlots * kSlot;
+  unsigned char* slotp = smem + (slot0 - base);
+  mbar_wait(wbar, 0);
+  int un = 0;   // units consumed by this stream
+  int blk = 0;  // blocks begun by this stream
+  for (int item = 2 * blockIdx.x + st; item < items; item += 2 * gridDim.x) {
+    const Item c = item_at(item, strips, chunks);
+    float acc[3][kC / 2];
+    uint32_t a[kABufs][4];
+    // the A fragment of k16 step k of dr row q into a[k % kABufs]; the first
+    // of a unit's rows waits for the unit, the last one's frees it
+    auto load_a = [&](int q, int k) {
+      if (k == 0 && (q == 0 || (q & 1)))
+        mbar_wait(full + 8 * ((un + (q + 1) / 2) & 1), ((un + (q + 1) / 2) >> 1) & 1);
+      const int dx = k / 4, kk = k % 4;
+      ldmatrix_x4(a[k % kABufs],
+                  ring + (q & 3) * kRowBytes + swz(acol + dx, 2 * kk + lane / 16));
+      if (k == kSub - 1 && (q == 0 || !(q & 1) || q == kTimes - 1))
+        mbar_arrive(empty + 8 * ((un + (q + 1) / 2) & 1));
+    };
+    // block b's t into its slot (16 bytes a copy, 4 a thread), one group a
+    // call; called while no wgmma runs
+    auto copy_t = [&](int b) {
+      const int y = c.y0 + b;
+      if (b < kR && y < H)
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float b0 = bias[8 * j + cq], b1 = bias[8 * j + cq + 1];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = (2 * gi + i) * 64 + r0 + 8 * h;  // of the A tile
-          if (row >= kSubPx) continue;
-          const float v0 = fmaxf(acc[i][4 * j + 2 * h] + b0, 0.0f);
-          const float v1 = fmaxf(acc[i][4 * j + 2 * h + 1] + b1, 0.0f);
-          *reinterpret_cast<__nv_bfloat162*>(
-              rtp + swz(kSubPx * s + row, j) + cq * 2) = __floats2bfloat162_rn(v0, v1);
+        for (int i = 0; i < 4; ++i) {
+          const int ch = t + 128 * i, px = ch / 8, x = c.x0 + px;
+          if (x < W)
+            asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                             slot0 + ((blk + b) % kSlots) * kSlot + swz(px, ch % 8)),
+                         "l"(tcot + (((size_t)c.v * H + y) * W + x) * kC + 8 * (ch % 8))
+                         : "memory");
         }
-      }
-  }
-  bar_sync(3, 256);
-  // phase 1 has left the ring's A areas: the first four blocks' t
-  if constexpr (ADD_T)
-    if (t == 0) load_t(0, kEpiBufs, tbar + 16 * gi);
-
-  // 2. route the pooled cotangent, in place: window (wi, wj) covers r rows
-  //    2 wi, 2 wi + 1 and columns 2 wj, 2 wj + 1 (tile rows / columns - 2)
-  {
-    const int H2 = H / 2, W2 = W / 2;
-    for (int idx = gi * 128 + t; idx < (kRH / 2) * (kRW / 2) * 8; idx += 256) {
-      const int j = idx % 8, w = idx / 8;
-      const int wi = w / (kRW / 2), wj = w % (kRW / 2);
-      const int py = y0 / 2 - 1 + wi, px = x0 / 2 - 1 + wj;
-      uint4 gv = make_uint4(0, 0, 0, 0);
-      if (py >= 0 && py < H2 && px >= 0 && px < W2)
-        gv = *reinterpret_cast<const uint4*>(
-            g + (((size_t)v * H2 + py) * W2 + px) * kC + 8 * j);
-      const int p00 = 2 * wi * kRW + 2 * wj;
-      const int rows[4] = {p00, p00 + 1, p00 + kRW, p00 + kRW + 1};
-      uint32_t q[4][4], out[4][4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const uint4 u = *reinterpret_cast<const uint4*>(rtp + swz(rows[e], j));
-        q[e][0] = u.x, q[e][1] = u.y, q[e][2] = u.z, q[e][3] = u.w;
-      }
-      const uint32_t gw[4] = {gv.x, gv.y, gv.z, gv.w};
-      route_window(q, gw, out);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        *reinterpret_cast<uint4*>(rtp + swz(rows[e], j)) =
-            make_uint4(out[e][0], out[e][1], out[e][2], out[e][3]);
+      asm volatile("cp.async.commit_group;" ::: "memory");
+    };
+    if constexpr (ADD_T) {
+      // blocks 0 .. 3's t, once the last item's stores have read the slots
+      if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      bar_sync(1 + st, 128);
+      for (int b = 0; b < 4; ++b) copy_t(b);
     }
-  }
-  bar_sync(3, 256);
-
-  // 3. dx = conv3x3(dr, w9t): block b is dx rows 2 b, 2 b + 1; lane l
-  //    gives ldmatrix row 16 warp + l % 16 of the block and channels
-  //    8 (l / 16) + [0, 8) of each 16-channel step
-  const int am = 16 * warp + (lane & 15);
-  for (int pass = 0; pass < kPasses; ++pass) {
-    if constexpr (ADD_T)
-      if (pass == kEpiBufs / 2 && t == 0) {
-        // the stores of blocks 0 and 1 have read their buffers: the last
-        // two blocks' t, behind this pass's products
-        asm volatile("cp.async.bulk.wait_group.read 2;" ::: "memory");
-        load_t(kEpiBufs, 2 * kPasses, tbar + 16 * gi + 8);
-      }
-    float acc[2][kC / 2];
-    int arow[2];
+    load_a(0, 0);
+    for (int q0 = 0; q0 < kTimes; q0 += 3) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int blk = 4 * pass + 2 * gi + i;
-      arow[i] = (2 * blk + am / 32 + 1) * kRW + am % 32 + 1;  // r pixel at tap (0, 0)
-    }
-    for (int tap = 0; tap < 9; ++tap, ++it) {
-      mbar_wait(ring.full_bar(it), ring.parity(it));
-      const uint32_t b = ring.stage(it) + kATile;
-      uint32_t a[2][4][4];
+      for (int r = 0; r < 3; ++r) {
+        const int q = q0 + r;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int p = arow[i] + (tap / 3) * kRW + tap % 3;
+        for (int k = 0; k < kSub; ++k) {
+          // B of tap (0, dx), computed here: kept live across the body, the
+          // 36 descriptors would not fit in registers
+          uint32_t b;
+          asm volatile("mov.u32 %0, %1;" : "=r"(b) : "r"(w9 + (k / 4) * kBBox + 2048 * (k % 4)));
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+          // block q at dy 0 (its first product overwrites), q - 1 at dy 1,
+          // q - 2 at dy 2. Every product is issued: a block outside the
+          // item (q - 1 or q - 2 below 0, q or q - 1 past kR - 1) sums into
+          // an accumulator set that no block holds then, whose next block
+          // begins by overwriting it.
+          wgmma_n64_rs(acc[r], a[k % kABufs], smem_desc(b, kBBox >> 4, 1024 >> 4), k > 0);
+          wgmma_n64_rs(acc[(r + 2) % 3], a[k % kABufs],
+                       smem_desc(b + 3 * kBBox, kBBox >> 4, 1024 >> 4), 1);
+          wgmma_n64_rs(acc[(r + 1) % 3], a[k % kABufs],
+                       smem_desc(b + 6 * kBBox, kBBox >> 4, 1024 >> 4), 1);
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          // the group kABufs - 1 back is done: its A set takes the next step
+          asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kABufs - 1) : "memory");
+          fence_a(a[(k + 1) % kABufs]);
+          if (k + 1 < kSub)
+            load_a(q, k + 1);
+          else if (q + 1 < kTimes)
+            load_a(q + 1, 0);
+        }
+        if (q < 2) continue;
+        // block q - 2 is complete: K5's epilogue without bias or relu into
+        // its slot, stored by TMA
+        const int bq = blk + q - 2;
+        float (&done)[kC / 2] = acc[(r + 1) % 3];
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_acc(done);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) ldmatrix_x4(a[i][kk], rt + swz(p, 2 * kk + lane / 16));
-      }
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        for (int u = 0; u < kABufs; ++u) fence_a(a[u]);
+        // this thread's copies of block q - 2's t are done (those of blocks
+        // q - 1 .. q + 1 may run on); every store issued so far has read its
+        // slot, block q - 3's the last, whose slot block q + 2 takes below
+        if constexpr (ADD_T) asm volatile("cp.async.wait_group 3;" ::: "memory");
+        if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+        bar_sync(1 + st, 128);
+        unsigned char* sp = slotp + (bq % kSlots) * kSlot;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wgmma_n64_rs(acc[i], a[i][kk], smem_desc(b + 2048 * kk, kBBox >> 4, 1024 >> 4),
-                       tap > 0 || kk > 0);
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-      if (t == 0) mbar_arrive(ring.empty_bar(it));
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) fence_acc(acc[i]);
-
-    // epilogue: K5's without bias or relu, stored by TMA
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int k = 2 * pass + i;
-      const uint32_t buf = epi + (k % kEpiBufs) * kEpiBuf;
-      if (t == 0)  // the store issued from this buffer four blocks ago has read it
-        asm volatile("cp.async.bulk.wait_group.read 3;" ::: "memory");
-      bar_sync(1 + gi, 128);
-      if constexpr (ADD_T) mbar_wait(tbar + 16 * gi + 8 * (k / kEpiBufs), 0);
-      unsigned char* bp = smem + (buf - base);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          __nv_bfloat162* out =
-              reinterpret_cast<__nv_bfloat162*>(bp + swz(r0 + 8 * h, j) + cq * 2);
-          float v0 = acc[i][4 * j + 2 * h] + 0.0f;
-          float v1 = acc[i][4 * j + 2 * h + 1] + 0.0f;
-          if constexpr (ADD_T) {
-            // dx rounded as without t, then the bf16 sum with t (in place)
-            const float2 f = __bfloat1622float2(__floats2bfloat162_rn(v0, v1));
-            const float2 tv = __bfloat1622float2(*out);
-            v0 = f.x + tv.x;
-            v1 = f.y + tv.y;
+          for (int h = 0; h < 2; ++h) {
+            __nv_bfloat162* out =
+                reinterpret_cast<__nv_bfloat162*>(sp + swz(r0 + 8 * h, j) + cq * 2);
+            float v0 = done[4 * j + 2 * h] + 0.0f;
+            float v1 = done[4 * j + 2 * h + 1] + 0.0f;
+            if constexpr (ADD_T) {
+              // dx rounded as without t, then the bf16 sum with t (in place)
+              const float2 f = __bfloat1622float2(__floats2bfloat162_rn(v0, v1));
+              const float2 tv = __bfloat1622float2(*out);
+              v0 = f.x + tv.x;
+              v1 = f.y + tv.y;
+            }
+            *out = __floats2bfloat162_rn(v0, v1);
           }
-          *out = __floats2bfloat162_rn(v0, v1);
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        bar_sync(1 + st, 128);
+        if (t == 0) {
+          tma_store_4d(&dxmap, slot0 + (bq % kSlots) * kSlot, 0, c.x0, c.y0 + q - 2, c.v);
+          asm volatile("cp.async.bulk.commit_group;" ::: "memory");
         }
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      bar_sync(1 + gi, 128);
-      if (t == 0) {
-        tma_store_4d(&dxmap, buf, 0, x0, y0 + 2 * block(k), v);
-        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+        if constexpr (ADD_T) copy_t(q + 2);
       }
     }
+    un += kUnits;
+    blk += kR;
   }
   if (t == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
@@ -373,18 +424,19 @@ __global__ void __launch_bounds__(kRouteThreads) pool_route_kernel(
 }  // namespace
 
 // dx [V, H, W, 64] of maxpool2(bf16(relu(conv3x3(x, w9) + bias))) for the
-// pooled cotangent g [V, H / 2, W / 2, 64]; w9t is the flipped io-swapped
-// kernel (K8). t [V, H, W, 64], the loss tap's cotangent of x, or NULL:
-// dx = bf16(float(dx) + float(t)). tile_h x tile_w must be the kernel's dx
-// tile, 24 x 32 (the wrapper states it too). Returns the launch's
+// pooled cotangent g [V, H / 2, W / 2, 64], from the forward's route codes
+// [V, H / 2, W / 2, 8] (K6's, uint32); w9t is the flipped io-swapped kernel
+// (K8). t [V, H, W, 64], the loss tap's cotangent of x, or NULL:
+// dx = bf16(float(dx) + float(t)). tile_h x tile_w must be the kernel's
+// work item, 16 x 64 (the wrapper states it too). Returns the launch's
 // cudaError_t, or minus the CUresult of a tensor map that could not be
 // encoded.
-extern "C" int stylemesh_conv_relu_pool_bwd(const void* x, const void* w9,
-                                            const void* w9t, const void* bias,
-                                            const void* g, const void* t,
+extern "C" int stylemesh_conv_relu_pool_bwd(const void* codes, const void* g,
+                                            const void* w9t, const void* t,
                                             void* dx, int V, int H, int W,
                                             int tile_h, int tile_w, void* stream) {
-  if (tile_h != kTH || tile_w != kTW) return (int)cudaErrorInvalidValue;
+  if (tile_h != kR || tile_w != kSW || V < 0 || H < 0 || W < 0)
+    return (int)cudaErrorInvalidValue;
   if (V == 0 || H == 0 || W == 0) return 0;
   const void* kernel = t != nullptr ? (const void*)conv_relu_pool_bwd_kernel<true>
                                     : (const void*)conv_relu_pool_bwd_kernel<false>;
@@ -392,25 +444,24 @@ extern "C" int stylemesh_conv_relu_pool_bwd(const void* x, const void* w9,
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return (int)err;
-  CUtensorMap xmap, wmap, wtmap, dxmap, tmap = {};
-  int res = encode_nhwc(&xmap, x, V, H, W, kC, kRW, kSubRows);
-  if (res == 0) res = encode_w9(&wmap, w9, kC, kC);
-  if (res == 0) res = encode_w9(&wtmap, w9t, kC, kC);
-  if (res == 0) res = encode_nhwc(&dxmap, dx, V, H, W, kC, kTW, 2);
-  if (res == 0 && t != nullptr) res = encode_nhwc(&tmap, t, V, H, W, kC, kTW, 2);
+  CUtensorMap wtmap, dxmap;
+  int res = encode_w9(&wtmap, w9t, kC, kC);
+  if (res == 0) res = encode_nhwc(&dxmap, dx, V, H, W, kC, kSW, 1);
   if (res != 0) return -res;
-  const int tiles_x = (W + kTW - 1) / kTW, tiles_y = (H + kTH - 1) / kTH;
-  const long long blocks = (long long)V * tiles_x * tiles_y;
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int strips = (W + kSW - 1) / kSW, chunks = (H + kR - 1) / kR;
+  const long long items = (long long)V * strips * chunks;
+  if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const long long pairs = (items + 1) / 2;  // two streams a block
+  const int blocks = (int)(pairs < sm_count() ? pairs : sm_count());
   cudaStream_t st = (cudaStream_t)stream;
   if (t != nullptr)
-    conv_relu_pool_bwd_kernel<true><<<(unsigned)blocks, kThreads, kSmem, st>>>(
-        xmap, wmap, wtmap, dxmap, (const float*)bias, (const bf16*)g, H, W,
-        tiles_x, tiles_y, tmap);
+    conv_relu_pool_bwd_kernel<true><<<blocks, kThreads, kSmem, st>>>(
+        wtmap, dxmap, (const bf16*)t, (const uint32_t*)codes, (const bf16*)g, H, W,
+        strips, chunks, (int)items);
   else
-    conv_relu_pool_bwd_kernel<false><<<(unsigned)blocks, kThreads, kSmem, st>>>(
-        xmap, wmap, wtmap, dxmap, (const float*)bias, (const bf16*)g, H, W,
-        tiles_x, tiles_y, tmap);
+    conv_relu_pool_bwd_kernel<false><<<blocks, kThreads, kSmem, st>>>(
+        wtmap, dxmap, nullptr, (const uint32_t*)codes, (const bf16*)g, H, W, strips,
+        chunks, (int)items);
   return (int)cudaGetLastError();
 }
 

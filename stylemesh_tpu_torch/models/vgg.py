@@ -244,10 +244,12 @@ def _bf16(g):
 
 class _ConvReLUPool(torch.autograd.Function):
     """The fused block tail ``maxpool2(relu(conv3x3(x) + b))``, the JAX
-    package's ``_conv_relu_pool_frozen``. 64 channels: K6 forward, ``x``
-    saved, K8 backward. 128 channels: K7 forward, the pre-pool activation
-    saved; backward = first-maximum pool routing with the relu mask, then
-    K5 with the flipped kernel.
+    package's ``_conv_relu_pool_frozen``. 64 channels: K6 forward, which
+    also writes each pool window's route codes when ``x`` needs a gradient
+    (saved with the flipped kernel, nothing else), K8 backward from them.
+    128 channels: K7 forward, the pre-pool activation saved; backward =
+    first-maximum pool routing with the relu mask, then K5 with the flipped
+    kernel.
 
     ``finish`` and ``tap`` as for :class:`_ConvReLUV2`: at 128 channels K5
     finishes ``x``'s cotangent (its mask and the tap's cotangent); at 64, K8
@@ -258,9 +260,13 @@ class _ConvReLUPool(torch.autograd.Function):
     def forward(ctx, x, w9, w9_flipped, bias, finish=False, tap=False):
         ctx.fused_backward = x.shape[-1] == 64
         ctx.finish = finish
-        if ctx.fused_backward:
-            ctx.save_for_backward(x, w9, w9_flipped, bias)
-            pooled = head_kernels.conv_relu_pool(x, w9, bias)
+        if ctx.fused_backward and not ctx.needs_input_grad[0]:
+            pooled = head_kernels.conv_relu_pool(x, w9, bias)  # no backward
+        elif ctx.fused_backward:
+            pooled, codes = head_kernels.conv_relu_pool(x, w9, bias,
+                                                        with_codes=True)
+            ctx.save_for_backward(codes, w9_flipped)
+            ctx.hw = tuple(x.shape[1:3])
         else:
             pooled, pre = head_kernels.conv_relu_pool(x, w9, bias, with_pre=True)
             ctx.save_for_backward(pre, w9_flipped, x if finish else None)
@@ -270,8 +276,9 @@ class _ConvReLUPool(torch.autograd.Function):
     def backward(ctx, g, g_tap=None):
         g, tap = _bf16(g), _bf16(g_tap)
         if ctx.fused_backward:
-            x, w9, w9_flipped, bias = ctx.saved_tensors
-            dx = head_kernels.conv_relu_pool_bwd(x, w9, w9_flipped, bias, g, tap)
+            codes, w9_flipped = ctx.saved_tensors
+            dx = head_kernels.conv_relu_pool_bwd(codes, g, w9_flipped, ctx.hw,
+                                                 tap)
         else:
             pre, w9_flipped, x = ctx.saved_tensors
             dr = head_kernels.pool_route(pre, g)

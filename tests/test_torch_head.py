@@ -2,7 +2,9 @@
 (``ops/head_kernels.py``) and the trunk's ``_ConvReLUPool`` gradient,
 against the JAX package's Pallas kernels (``ops/head_pallas.py``) in
 interpret mode and ``jax.vjp`` of ``_conv_relu_pool_frozen``, on the CPU
-(where the port runs the kernels' plain versions).
+(where the port runs the kernels' plain versions). K8 runs from the route
+codes that K6 writes in the forward; routing by those codes is the plain
+pool route on the pre-pool map, bit for bit.
 
 Tolerances (both sides: bf16 operands, float32 sums in different orders,
 float32 bias, relu, one bf16 rounding, the pool over the bf16 values):
@@ -78,8 +80,9 @@ def test_conv_relu_pool_bwd_matches_pallas(shape):
     want = conv_relu_pool_bwd(_jax(x), _jax(k), jnp.asarray(b), _jax(g),
                               interpret=True)
     w9, w9t = _port_layout(k)
-    got = head_kernels.conv_relu_pool_bwd(_bf16(x), w9, w9t,
-                                          torch.from_numpy(b), _bf16(g))
+    _, codes = head_kernels.conv_relu_pool(_bf16(x), w9, torch.from_numpy(b),
+                                           with_codes=True)
+    got = head_kernels.conv_relu_pool_bwd(codes, _bf16(g), w9t, (h, w))
     assert got.dtype == torch.bfloat16
     _assert_grad(got, want)
 
@@ -188,18 +191,103 @@ def test_pool_route_takes_the_plain_version_on_the_cpu():
 
 
 def test_bwd_tile_geometry():
-    """K8's dx tile (24 x 32, even, so it holds whole pool windows) and its
-    r region (the tile plus one ring of windows, 28 x 36): the recompute
-    overhead the source note claims, 28 * 36 / (24 * 32) = 1.3125, under
-    1.4 (the WMMA kernel's 8 x 28 tile had 12 * 32 / (8 * 28) = 1.71); the
-    region splits into 4 phase-1 boxes of 7 x 36 = 252 <= 256 pixels; the
-    tile into m64 blocks of two rows of 32."""
+    """K8's work item (16 x 64 dx pixels: even, so its dr rows pair into
+    window rows; one m64 block a row) and its shared memory (w9t resident,
+    4 slots of 8 KB and a ring of 4 dr rows of 66 pixels of 128 bytes for
+    each of two streams, the mbarriers) fit one block of an H100 (232448
+    bytes); its wavefront's time steps (dr rows 0 .. 17) come in threes,
+    one per accumulator set; a window row's items (a window's eight
+    channels) come to at most 5 per producer thread (64 a stream)."""
     th, tw = head_kernels.BWD_TILE
-    rh, rw = th + 4, tw + 4
-    assert th % 2 == 0 and tw % 2 == 0
-    assert rh * rw / (th * tw) == 1.3125 <= 1.4
-    assert rh % 4 == 0 and (rh // 4) * rw <= 256
-    assert tw * 2 == 64 and th % 8 == 0
+    assert th % 4 == 0 and tw == 64 and (th + 2) % 3 == 0
+    smem = 9 * 64 * 64 * 2 + 2 * 4 * 8192 + 2 * 4 * (tw + 2) * 128 + 2 * 64 + 8 + 1024
+    assert smem <= 232448
+    assert -(-((tw // 2 + 2) * 8) // 64) == 5
     note = (Path(kernels.CSRC) / "conv_pool_bwd.cu").read_text()
-    assert "28 * 36 / (24 * 32) = 1.3125" in note
-    assert f"kTH = {th}, kTW = {tw}" in note
+    assert f"constexpr int kSW = {tw};" in note
+    assert f"constexpr int kR = {th};" in note
+    assert f"work item, {th} x {tw} (the wrapper states it too)" in note
+
+
+def _code_case(case):
+    """A pre-pool map whose windows exercise one side of the code rule, and
+    a cotangent with no zero (so that each routed element shows)."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    shape = (2, 9, 11, 16) if case == "odd_tails" else (2, 8, 10, 16)
+    r = np.maximum(rng.normal(0, 1, shape), 0).astype(np.float32)
+    v, h, w, c = shape
+    g = rng.uniform(0.5, 2, (v, h // 2, w // 2, c)).astype(np.float32)
+    win = r[:, :h // 2 * 2, :w // 2 * 2].reshape(v, h // 2, 2, w // 2, 2, c)
+    if case.startswith("tie_at_"):
+        # the window's maximum at position e first, then again after it
+        e = int(case[-1])
+        win[:] = rng.uniform(0.1, 0.9, win.shape)
+        for later in range(e, 4):
+            win[:, :, later // 2, :, later % 2] = 1.5 if later in (e, 3) else 0.2
+    elif case == "all_negative":
+        win[:] = -rng.uniform(0.1, 2, win.shape)
+    elif case == "zero_max":
+        win[:] = -rng.uniform(0.1, 2, win.shape)
+        win[:, :, 1, :, 0] = 0.0
+        win[:, ::2, 0, :, 1] = -0.0
+    elif case == "nan":
+        win[:, :, 1, :, 1] = np.where(rng.random(win[:, :, 1, :, 1].shape) < 0.5,
+                                      np.nan, win[:, :, 1, :, 1])
+    r[:, :h // 2 * 2, :w // 2 * 2] = win.reshape(v, h // 2 * 2, w // 2 * 2, c)
+    return _bf16(r), _bf16(g)
+
+
+@pytest.mark.parametrize("case", ["tie_at_0", "tie_at_1", "tie_at_2",
+                                  "tie_at_3", "all_negative", "zero_max",
+                                  "nan", "odd_tails"])
+def test_route_codes_match_pool_route(case):
+    """K6's route codes (their plain version) routed by K8's rule equal the
+    plain pool route on the pre-pool map bit for bit: a tie goes to the
+    first maximum in raster order, a window whose maximum is <= 0 or NaN
+    routes nothing (code NO_ROUTE), the odd last row and column get +0.
+    Every code is 0-3 or NO_ROUTE, eight to an int32 word."""
+    r, g = _code_case(case)
+    codes = head_kernels.pool_codes_plain(r)
+    v, h, w, c = r.shape
+    assert codes.dtype == torch.int32
+    assert tuple(codes.shape) == (v, h // 2, w // 2, c // 8)
+    fields = (codes.unsqueeze(-1) >> (4 * torch.arange(8))) & 0xF
+    assert ((fields <= 3) | (fields == head_kernels.NO_ROUTE)).all()
+    got = head_kernels.route_codes_plain(codes, g, (h, w))
+    want = head_kernels.pool_route_plain(r, g)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert torch.equal(got.view(torch.int16), torch.from_numpy(
+        _route_by_loops(r.float().numpy(), g.float().numpy())).to(
+            torch.bfloat16).view(torch.int16))
+    if case.startswith("tie_at_"):
+        assert (fields == int(case[-1])).all()
+    if case in ("all_negative", "zero_max"):
+        assert (fields == head_kernels.NO_ROUTE).all()
+    if case == "nan":
+        assert (fields == head_kernels.NO_ROUTE).any() and (fields < 4).any()
+    if case == "odd_tails":
+        assert not got[:, -1].float().any() and not got[:, :, -1].float().any()
+
+
+def test_forward_without_gradient_writes_no_codes(monkeypatch):
+    """The 64-channel tail asks K6 for the route codes only when its input
+    needs a gradient (the content and style encodes, eval and the post
+    chain do not): on the CPU the plain code rule runs once for a forward
+    whose input needs a gradient and never otherwise."""
+    _, x, k, b = _inputs(3, 1, 12, 14, 64, 64)
+    w9, w9t = _port_layout(k)
+    calls = []
+    rule = head_kernels.pool_codes_plain
+
+    def spy(r):
+        calls.append(tuple(r.shape))
+        return rule(r)
+
+    monkeypatch.setattr(head_kernels, "pool_codes_plain", spy)
+    bias = torch.from_numpy(b)
+    plain = tvgg._ConvReLUPool.apply(_bf16(x), w9, w9t, bias)
+    assert calls == []
+    xt = _bf16(x).requires_grad_()
+    out = tvgg._ConvReLUPool.apply(xt, w9, w9t, bias)
+    assert calls == [(1, 12, 14, 64)]
+    assert torch.equal(out.detach(), plain)

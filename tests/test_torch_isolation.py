@@ -106,6 +106,7 @@ def _launch_counts():
             gram_kernels.masked_gram_sums_grad.launches,
             conv_kernels.conv3x3.launches, head_kernels.conv_relu_pool.launches,
             head_kernels.conv_relu_pool.dual_launches,
+            head_kernels.conv_relu_pool.switch_launches,
             head_kernels.conv_relu_pool_bwd.launches)
 
 
@@ -148,7 +149,10 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     with pytest.raises(ValueError, match="CUDA"):
         head_kernels.conv_relu_pool(x, w9, b, with_pre=True)
     with pytest.raises(ValueError, match="CUDA"):
-        head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g)
+        head_kernels.conv_relu_pool(x, w9, b, with_codes=True)
+    codes = torch.zeros(g.shape[:3] + (8,), dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        head_kernels.conv_relu_pool_bwd(codes, g, w9t, x.shape[1:3])
     assert _launch_counts() == before
 
 
@@ -168,8 +172,14 @@ def test_cpu_tensors_take_the_plain_version():
     for got, want in zip(head_kernels.conv_relu_pool(x, w9, b, with_pre=True),
                          head_kernels.conv_relu_pool_plain(x, w9, b, True)):
         assert torch.equal(got, want)
-    assert torch.equal(head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g),
-                       head_kernels.conv_relu_pool_bwd_plain(x, w9, w9t, b, g))
+    pooled, codes = head_kernels.conv_relu_pool(x, w9, b, with_codes=True)
+    for got, want in zip((pooled, codes),
+                         head_kernels.conv_relu_pool_plain(x, w9, b,
+                                                           with_codes=True)):
+        assert torch.equal(got, want)
+    hw = tuple(x.shape[1:3])
+    assert torch.equal(head_kernels.conv_relu_pool_bwd(codes, g, w9t, hw),
+                       head_kernels.conv_relu_pool_bwd_plain(codes, g, w9t, hw))
     assert _launch_counts() == before
 
 

@@ -18,8 +18,9 @@ ulps: float32 sums in another order, then one rounding). Between the
 kernels themselves, bit for bit (one wgmma core, one mainloop, K5's N
 tile): K9 is K5 without bias and relu (one entry); K6 is maxpool2 of K5's
 relu output, K7's pre-pool map is K5's relu output and its pooled map
-K6's; K8 is K5 with the flipped kernel on ``pool_route_plain`` of K5's
-relu output. The route kernel (``pool_route``) equals ``pool_route_plain``
+K6's, and K6's route codes are ``pool_codes_plain`` of K5's relu output
+(its pooled map the same with or without them); K8, from those codes, is K5
+with the flipped kernel on ``pool_route_plain`` of K5's relu output. The route kernel (``pool_route``) equals ``pool_route_plain``
 bit for bit, signed zeros included (nothing is summed). conv1_1's stem
 kernels against their plain versions (the im2col
 product on the card; the input gradient's on the kernel's own y, so that
@@ -568,6 +569,9 @@ def test_conv3x3_edge_shapes(cuda, shape):
 
 # the edge shapes, odd H and W at V = 3, and the largest bench level
 POOL_SHAPES = EDGE_SHAPES + [(3, 33, 57), (1, 784, 1045)]
+# K8's: those, V = 4, and conv1_2's other three bench levels
+BWD_SHAPES = POOL_SHAPES + [(4, 33, 57), (1, 256, 341), (1, 432, 575),
+                            (1, 608, 810)]
 
 
 def _close_but(got, want, rel, share):
@@ -584,7 +588,9 @@ def test_conv_relu_pool_is_pool_of_k5(cuda, c, shape):
     """K6 equals maxpool2 of K5's relu output, K7's pre-pool map equals
     K5's relu output and its pooled map K6's, bit for bit (one core, K5's
     N tile, only the pixel box differs); both within 1e-2 of the plain
-    version."""
+    version. At 64 channels K6 with route codes writes the same pooled map
+    bit for bit, and the codes are the plain rule's on K5's relu output,
+    counted in ``switch_launches``."""
     x, w9, _, b = _conv_inputs(cuda, *shape, c, c)
     y = conv_kernels.conv3x3(x, w9, b, True)
     pooled = head_kernels.conv_relu_pool(x, w9, b)
@@ -593,37 +599,58 @@ def test_conv_relu_pool_is_pool_of_k5(cuda, c, shape):
     assert torch.equal(pre, y)
     assert torch.equal(dual, pooled)
     _close(pooled, head_kernels.conv_relu_pool_plain(x, w9, b), 1e-2)
+    if c == 64:
+        before = (head_kernels.conv_relu_pool.launches,
+                  head_kernels.conv_relu_pool.switch_launches)
+        switched, codes = head_kernels.conv_relu_pool(x, w9, b, with_codes=True)
+        assert (head_kernels.conv_relu_pool.launches,
+                head_kernels.conv_relu_pool.switch_launches) == (
+                    before[0] + 1, before[1] + 1)
+        assert _same_bits(switched, pooled)
+        assert torch.equal(codes, head_kernels.pool_codes_plain(y))
 
 
-@pytest.mark.parametrize("shape", POOL_SHAPES + [(4, 33, 57)])
-def test_conv_relu_pool_bwd(cuda, shape):
-    """K8 equals the backward composed from K5's relu output (the same
-    routing) and K5 with the flipped kernel, bit for bit: it recomputes
-    the relu output and runs the transposed conv in K5's sum order. Against
-    its plain version within 1e-2, where up to 2e-3 of the elements may
-    differ more (a tie in a pool window broken the other way by a sum
-    rounded apart)."""
-    x, w9, w9t, b = _conv_inputs(cuda, *shape, 64, 64)
+def _k8_inputs(cuda, shape, seed=0):
+    """x, the kernels, K5's relu output y, K6's route codes and a pooled
+    cotangent g for K8 at ``shape``."""
+    x, w9, w9t, b = _conv_inputs(cuda, *shape, 64, 64, seed=seed)
     v, h, w = shape
-    gen = torch.Generator(device=cuda).manual_seed(h * w)
+    gen = torch.Generator(device=cuda).manual_seed(h * w + seed)
     g = torch.randn((v, h // 2, w // 2, 64), generator=gen,
                     device=cuda).to(torch.bfloat16)
-    got = head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g)
     y = conv_kernels.conv3x3(x, w9, b, True)
+    _, codes = head_kernels.conv_relu_pool(x, w9, b, with_codes=True)
+    return x, w9t, y, codes, g
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_conv_relu_pool_bwd(cuda, shape):
+    """K8, from K6's route codes, equals the backward composed from K5's
+    relu output (the plain routing) and K5 with the flipped kernel, bit for
+    bit, with and without the tap's cotangent t; within 1e-2 of its plain
+    version (route by the codes, then the plain conv). One launch a
+    call."""
+    x, w9t, y, codes, g = _k8_inputs(cuda, shape)
+    hw = shape[1:]
+    before = head_kernels.conv_relu_pool_bwd.launches
+    got = head_kernels.conv_relu_pool_bwd(codes, g, w9t, hw)
+    assert head_kernels.conv_relu_pool_bwd.launches == before + 1
     composed = conv_kernels.conv3x3(head_kernels.pool_route_plain(y, g), w9t)
     assert torch.equal(got, composed)
-    if h >= 2 and w >= 2:
-        _close_but(got, head_kernels.conv_relu_pool_bwd_plain(x, w9, w9t, b, g),
-                   1e-2, 2e-3)
+    t = torch.randn(x.shape, device=cuda).to(torch.bfloat16)
+    assert torch.equal(head_kernels.conv_relu_pool_bwd(codes, g, w9t, hw, t),
+                       composed + t)
+    _close(got, head_kernels.conv_relu_pool_bwd_plain(codes, g, w9t, hw), 1e-2)
 
 
 @pytest.mark.parametrize("shape", [(2, 30, 70), (3, 25, 33)])
 def test_conv_relu_pool_bwd_ties(cuda, shape):
     """Many pool windows with equal maxima: x in {0, 1}, the weights in
     {0, 1/2}, the bias a multiple of 1/2 and g in {-1, 1, 2}, so every sum
-    is exact in float32 in any order. K8 must route each window to its
-    first maximum in raster order as the plain version does: equal bit for
-    bit, with ties in over a tenth of the live windows."""
+    is exact in float32 in any order. K6's codes must route each window to
+    its first maximum in raster order as the plain version does: K8 equal
+    bit for bit to its plain version and to K5 on the plainly routed map,
+    with ties in over a tenth of the live windows."""
     v, h, w = shape
     gen = torch.Generator(device=cuda).manual_seed(h + w)
     x = (torch.rand((v, h, w, 64), generator=gen, device=cuda) < 0.3)
@@ -644,9 +671,13 @@ def test_conv_relu_pool_bwd_ties(cuda, shape):
     live = top > 0
     ties = ((q == top) & live).sum(dim=(2, 4)) >= 2
     assert ties.sum().item() > 0.1 * live.sum().item()
-    got = head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g)
+    _, codes = head_kernels.conv_relu_pool(x, w9, b, with_codes=True)
+    assert torch.equal(codes, head_kernels.pool_codes_plain(y))
+    got = head_kernels.conv_relu_pool_bwd(codes, g, w9t, (h, w))
     assert torch.equal(got, head_kernels.conv_relu_pool_bwd_plain(
-        x, w9, w9t, b, g))
+        codes, g, w9t, (h, w)))
+    assert torch.equal(got, conv_kernels.conv3x3(
+        head_kernels.pool_route_plain(y, g), w9t))
 
 
 def _same_bits(got, want):
@@ -818,10 +849,10 @@ def _guards_intact(buf, view, guard=4096):
                                    (3, 2, 130)])
 @pytest.mark.parametrize("c", [64, 128])
 def test_conv_relu_pool_writes_only_its_output(cuda, shape, c):
-    """A canary around K6's pooled map and K7's two outputs: every element
-    written (finite, equal to the wrapper's), nothing outside, so no window
-    past the floor of H / 2 or W / 2 and no ragged tile stores out of
-    bounds."""
+    """A canary around K6's pooled map (and, at 64 channels, its route
+    codes) and K7's two outputs: every element written (finite, equal to
+    the wrapper's), nothing outside, so no window past the floor of H / 2
+    or W / 2 and no ragged tile stores out of bounds."""
     v, h, w = shape
     x, w9, _, b = _conv_inputs(cuda, v, h, w, c, c, seed=3)
     want_pooled, want_pre = head_kernels.conv_relu_pool(x, w9, b, with_pre=True)
@@ -835,20 +866,31 @@ def test_conv_relu_pool_writes_only_its_output(cuda, shape, c):
     _guards_intact(pbuf, pooled)
     _guards_intact(ybuf, pre)
     assert torch.equal(pooled, want_pooled) and torch.equal(pre, want_pre)
+    if c == 64:  # K6 with route codes: every word written, nothing outside
+        pbuf, pooled = _canary(cuda, (v, h // 2, w // 2, c))
+        guard = 1024
+        cbuf = torch.full((v * (h // 2) * (w // 2) * 8 + 2 * guard,), -1,
+                          dtype=torch.int32, device=cuda)
+        codes = cbuf[guard:cbuf.numel() - guard].view(v, h // 2, w // 2, 8)
+        head_kernels.launch_conv_relu_pool(x, w9, b, None, pooled, codes)
+        _guards_intact(pbuf, pooled)
+        assert (cbuf[:guard] == -1).all() and (cbuf[-guard:] == -1).all()
+        assert torch.equal(pooled, want_pooled)
+        assert torch.equal(codes, head_kernels.pool_codes_plain(want_pre))
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 31), (2, 9, 65), (1, 25, 33),
                                    (3, 2, 130), (1, 49, 97)])
 def test_conv_relu_pool_bwd_writes_only_its_output(cuda, shape):
     """A canary around K8's dx: every element written, nothing outside (the
-    dx tile's stores are clipped at the map's edge)."""
-    v, h, w = shape
-    x, w9, w9t, b = _conv_inputs(cuda, v, h, w, 64, 64, seed=4)
-    g = torch.randn((v, h // 2, w // 2, 64), device=cuda).to(torch.bfloat16)
-    buf, dx = _canary(cuda, (v, h, w, 64))
-    head_kernels.launch_conv_relu_pool_bwd(x, w9, w9t, b, g, dx)
+    dx tile's stores are clipped at the map's edge; the routed region's
+    odd tail and border are +0)."""
+    x, w9t, _, codes, g = _k8_inputs(cuda, shape, seed=4)
+    buf, dx = _canary(cuda, x.shape)
+    head_kernels.launch_conv_relu_pool_bwd(codes, g, w9t, dx)
     _guards_intact(buf, dx)
-    assert torch.equal(dx, head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g))
+    assert torch.equal(dx, head_kernels.conv_relu_pool_bwd(codes, g, w9t,
+                                                           shape[1:]))
 
 
 def test_block_tails_refuse_bad_tiles(cuda):
@@ -862,12 +904,22 @@ def test_block_tails_refuse_bad_tiles(cuda):
         with pytest.raises(RuntimeError, match="failed"):
             kernels.launch("stylemesh_conv_relu_pool", x.device, x.data_ptr(),
                            w9.data_ptr(), b.data_ptr(), y.data_ptr(),
-                           p.data_ptr(), 1, 8, 8, 64, 128, 1, box_h, box_w, bn)
+                           p.data_ptr(), None, 1, 8, 8, 64, 128, 1, box_h,
+                           box_w, bn)
+    # route codes only from K6 at a 64-wide N tile
+    codes = torch.empty((1, 4, 4, 16), dtype=torch.int32, device=cuda)
+    for dual, bn in ((1, 64), (0, 128)):
+        with pytest.raises(RuntimeError, match="failed"):
+            kernels.launch("stylemesh_conv_relu_pool", x.device, x.data_ptr(),
+                           w9.data_ptr(), b.data_ptr(), y.data_ptr(),
+                           p.data_ptr(), codes.data_ptr(), 1, 8, 8, 64, 128,
+                           dual, 8, 32, bn)
     x, w9, w9t, b = _conv_inputs(cuda, 1, 8, 8, 64, 64)
     g = torch.zeros((1, 4, 4, 64), dtype=torch.bfloat16, device=cuda)
+    codes = torch.zeros((1, 4, 4, 8), dtype=torch.int32, device=cuda)
     with pytest.raises(RuntimeError, match="failed"):
-        head_kernels.launch_conv_relu_pool_bwd(x, w9, w9t, b, g,
-                                               torch.empty_like(x), (16, 32))
+        head_kernels.launch_conv_relu_pool_bwd(codes, g, w9t,
+                                               torch.empty_like(x), (24, 32))
 
 
 def test_conv_wrappers_refuse_bad_inputs(cuda):
@@ -879,8 +931,18 @@ def test_conv_wrappers_refuse_bad_inputs(cuda):
     with pytest.raises(TypeError):
         conv_kernels.conv3x3(x.float(), w9)
     g = torch.zeros((1, 4, 4, 128), dtype=torch.bfloat16, device=cuda)
+    codes = torch.zeros((1, 4, 4, 16), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="64"):
-        head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g)
+        head_kernels.conv_relu_pool_bwd(codes, g, w9t, (8, 8))
+    with pytest.raises(ValueError, match="64 channels"):
+        head_kernels.conv_relu_pool(x, w9, b, with_codes=True)
+    x, w9, w9t, b = _conv_inputs(cuda, 1, 8, 8, 64, 64)
+    g = torch.zeros((1, 4, 4, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="codes"):
+        head_kernels.conv_relu_pool_bwd(codes, g, w9t, (8, 8))
+    with pytest.raises(ValueError, match="vs dx"):
+        head_kernels.conv_relu_pool_bwd(codes[:, :, :, :8].contiguous(), g,
+                                        w9t, (10, 8))
     x, w9, _, b = _conv_inputs(cuda, 1, 8, 8, 64, 256)
     with pytest.raises(ValueError, match="Cout"):
         head_kernels.conv_relu_pool(x, w9, b)
@@ -1030,17 +1092,16 @@ def test_conv3x3_masked_writes_only_its_output(cuda, shape, cout):
 @pytest.mark.parametrize("shape", POOL_SHAPES + [(4, 33, 57)])
 def test_conv_relu_pool_bwd_adds_tap(cuda, shape):
     """K8 with the tap's cotangent t equals K8, then the bf16 sum with t,
-    bit for bit."""
-    x, w9, w9t, b = _conv_inputs(cuda, *shape, 64, 64, seed=8)
-    v, h, w = shape
-    gen = torch.Generator(device=cuda).manual_seed(v + h + w)
-    g = torch.randn((v, h // 2, w // 2, 64), generator=gen,
-                    device=cuda).to(torch.bfloat16)
+    bit for bit, and writes nothing outside dx."""
+    x, w9t, _, codes, g = _k8_inputs(cuda, shape, seed=8)
+    hw = shape[1:]
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
     t = torch.randn(x.shape, generator=gen, device=cuda).to(torch.bfloat16)
-    got = head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g, t)
-    assert torch.equal(got, head_kernels.conv_relu_pool_bwd(x, w9, w9t, b, g) + t)
+    got = head_kernels.conv_relu_pool_bwd(codes, g, w9t, hw, t)
+    assert torch.equal(got, head_kernels.conv_relu_pool_bwd(codes, g, w9t, hw)
+                       + t)
     buf, dx = _canary(cuda, x.shape)
-    head_kernels.launch_conv_relu_pool_bwd(x, w9, w9t, b, g, dx, tap=t)
+    head_kernels.launch_conv_relu_pool_bwd(codes, g, w9t, dx, tap=t)
     _guards_intact(buf, dx)
     assert torch.equal(dx, got)
 

@@ -221,6 +221,7 @@ def test_every_kernel_wrapper_launch_counter_is_found():
             (conv_kernels.conv3x3_mxu, "launches"),
             (head_kernels.conv_relu_pool, "launches"),
             (head_kernels.conv_relu_pool, "dual_launches"),
+            (head_kernels.conv_relu_pool, "switch_launches"),
             (head_kernels.conv_relu_pool_bwd, "launches"),
             (head_kernels.pool_route, "launches"),
             (conv_im2col.stem_forward, "launches"),

@@ -341,8 +341,11 @@ class _PerLayerConvReLUPool(torch.autograd.Function):
     def forward(ctx, x, w9, w9_flipped, bias):
         ctx.fused_backward = x.shape[-1] == 64
         if ctx.fused_backward:
-            ctx.save_for_backward(x, w9, w9_flipped, bias)
-            return tvgg.head_kernels.conv_relu_pool(x, w9, bias)
+            pooled, codes = tvgg.head_kernels.conv_relu_pool(
+                x, w9, bias, with_codes=True)
+            ctx.save_for_backward(codes, w9_flipped)
+            ctx.hw = tuple(x.shape[1:3])
+            return pooled
         pooled, pre = tvgg.head_kernels.conv_relu_pool(x, w9, bias, with_pre=True)
         ctx.save_for_backward(pre, w9_flipped)
         return pooled
@@ -351,8 +354,9 @@ class _PerLayerConvReLUPool(torch.autograd.Function):
     def backward(ctx, g):
         g = g.to(torch.bfloat16).contiguous()
         if ctx.fused_backward:
-            x, w9, w9_flipped, bias = ctx.saved_tensors
-            dx = tvgg.head_kernels.conv_relu_pool_bwd(x, w9, w9_flipped, bias, g)
+            codes, w9_flipped = ctx.saved_tensors
+            dx = tvgg.head_kernels.conv_relu_pool_bwd(codes, g, w9_flipped,
+                                                      ctx.hw)
         else:
             pre, w9_flipped = ctx.saved_tensors
             dx = tvgg.conv_kernels.conv3x3(
@@ -423,9 +427,9 @@ def test_kernel_trunk_finishes_cotangents_as_per_layer(keys, epilogues, masks,
         calls["epilogues"] += 1
         return masked(*a, **kw)
 
-    def k8_spy(x, w9, w9_flipped, bias, g, tap=None):
+    def k8_spy(codes, g, w9_flipped, hw, tap=None):
         calls["epilogues"] += tap is not None
-        return k8(x, w9, w9_flipped, bias, g, tap)
+        return k8(codes, g, w9_flipped, hw, tap)
 
     def mask_spy(g, y):
         calls["masks"] += 1
